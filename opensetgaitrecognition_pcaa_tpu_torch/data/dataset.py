@@ -1,6 +1,7 @@
-"""Crop-file dataset: a split directory → one ``(n, T, N, C)`` f32 array.
+"""Crop-file dataset: a split directory → one ``(n, T, N, C)`` f32 array,
+and the batch order of a training epoch.
 
-Port of ``opensetgaitrecognition_pcaa_tpu/data/dataset.py:26-153``, numpy
+Port of ``opensetgaitrecognition_pcaa_tpu/data/dataset.py:26-177``, numpy
 only (the JAX package's ``data`` package imports sklearn and jax). The
 filename contract, the crop order and the subject-id → label remap are the
 JAX package's, line for line: the remap replays CPython's set-iteration
@@ -106,3 +107,27 @@ class RadarCropDataset:
                 out[i] = np.load(os.path.join(self.dataset_dir, f))
             self._arrays = out
         return self._arrays, self.labels
+
+
+def epoch_batch_indices(
+    n: int,
+    batch_size: int,
+    shuffle: bool,
+    rng: Optional[np.random.Generator] = None,
+    drop_last: bool = True,
+) -> np.ndarray:
+    """Index matrix ``(steps, batch_size)`` for one epoch over ``n`` samples.
+
+    The JAX package's function line for line, so the same numpy
+    ``Generator`` stream gives the same batches: ``rng.shuffle`` over
+    ``arange(n)``, then the last partial batch dropped (every reference
+    training loader drops it) or padded from the start of the order.
+    """
+    order = np.arange(n)
+    if shuffle:
+        (rng or np.random.default_rng(0)).shuffle(order)
+    steps = n // batch_size if drop_last else -(-n // batch_size)
+    if not drop_last and steps * batch_size > n:
+        pad = steps * batch_size - n
+        order = np.concatenate([order, order[:pad]])
+    return order[: steps * batch_size].reshape(steps, batch_size)

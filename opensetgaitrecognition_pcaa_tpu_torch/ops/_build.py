@@ -15,8 +15,9 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG_DIR / "csrc"
@@ -78,3 +79,9 @@ def load_library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so_path))
     _LIBS[name] = lib
     return lib
+
+
+def load_libraries(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
+    """``load_library`` for several sources, their nvcc builds run at once."""
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        return dict(zip(names, pool.map(load_library, names)))

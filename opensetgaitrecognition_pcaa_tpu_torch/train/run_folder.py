@@ -1,8 +1,10 @@
 """Run-folder I/O: the files the JAX package's training writes.
 
-Port of ``opensetgaitrecognition_pcaa_tpu/train/run_folder.py:36-59``. A
-run folder holds ``config.json``, ``<NAME>_<TAG>.msgpack`` parameter trees
-and ``discriminator_means.npy``. The JAX package writes the trees with
+Port of ``opensetgaitrecognition_pcaa_tpu/train/run_folder.py:36-59`` and
+``:123-131``. A run folder holds ``config.json``, ``<NAME>_<TAG>.msgpack``
+parameter trees, ``discriminator_means.npy`` and, once training ended,
+``run_complete.json``. The full resume state (``train_state.msgpack``) is
+not ported yet. The JAX package writes the trees with
 ``flax.serialization.msgpack_serialize``; this module reads and writes the
 same bytes with a small pure-Python codec for the subset of msgpack that
 flax uses, so the port needs neither flax nor the msgpack package:
@@ -17,6 +19,7 @@ Arrays above flax's 1 GiB chunking limit are not supported.
 
 from __future__ import annotations
 
+import json
 import os
 import struct
 from typing import Any, Dict, Optional
@@ -213,3 +216,13 @@ def load_array(path: str) -> np.ndarray:
 def module_path(run_dir: str, model_name: str, tag: str) -> str:
     """``models/<NAME>/<NAME>_<TAG>.msgpack`` (reference file-stem contract)."""
     return os.path.join(run_dir, f"{model_name}_{tag}.msgpack")
+
+
+def run_completed(run_dir: str) -> bool:
+    """True if the run folder has its completion marker."""
+    return os.path.exists(os.path.join(run_dir, "run_complete.json"))
+
+
+def mark_run_completed(run_dir: str, final_metrics: dict) -> None:
+    with open(os.path.join(run_dir, "run_complete.json"), "w") as f:
+        json.dump({k: float(v) for k, v in final_metrics.items()}, f)

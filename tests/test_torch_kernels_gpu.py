@@ -1,4 +1,4 @@
-"""The CUDA kernel against its plain PyTorch version, and the wrapper's
+"""The CUDA kernels against their plain PyTorch versions, and the wrappers'
 argument checks.
 
 The tests marked ``gpu`` need a CUDA card and skip themselves elsewhere.
@@ -11,7 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+from opensetgaitrecognition_pcaa_tpu_torch.ops import adam
 from opensetgaitrecognition_pcaa_tpu_torch.ops import pointnet_infer as pn
+from opensetgaitrecognition_pcaa_tpu_torch.ops import pointnet_train as pt
 
 
 def _folded(rng, c: int, d: int, device: str = "cpu"):
@@ -101,3 +103,152 @@ def test_no_kernel_for_other_devices():
     x, folded = _cpu_case()
     with pytest.raises(ValueError, match="no kernel"):
         pn.pointnet_pool_infer(x.to("meta"), folded)
+
+
+# --- train-mode PointNet: layer kernel (+ statistics) and pool kernel ------
+
+def _layer_case(rng, rows, c_in, c_out, with_affine, device="cuda"):
+    h = rng.normal(size=(rows, c_in)).astype(np.float32)
+    w = (rng.uniform(-1, 1, (c_in, c_out)) / np.sqrt(c_in)).astype(np.float32)
+    b = rng.uniform(-0.1, 0.1, c_out).astype(np.float32)
+    out = [torch.from_numpy(a).to(device) for a in (h, w, b)]
+    affine = None
+    if with_affine:
+        affine = torch.from_numpy(np.stack([
+            rng.normal(0, 0.5, c_in), rng.uniform(0.5, 2.0, c_in), rng.normal(0, 0.3, c_in),
+        ]).astype(np.float32)).to(device)
+    return out[0], affine, out[1], out[2]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "rows,c_in,c_out,with_affine",
+    [(222, 4, 16, False), (222, 16, 20, True), (5000, 512, 512, True), (3001, 1024, 1024, True)],
+    ids=["ragged_2x3x37_k4", "ragged_cols", "w512", "w1024"],
+)
+def test_layer_kernel_matches_plain(rows, c_in, c_out, with_affine):
+    _needs_card()
+    h, affine, w, b = _layer_case(np.random.default_rng(3), rows, c_in, c_out, with_affine)
+    before = pt.fused_layer.launches
+    got = pt.fused_layer(h, affine, w, b)
+    torch.cuda.synchronize()
+    assert pt.fused_layer.launches == before + 1
+    want = pt.fused_layer_ref(h, affine, w, b)
+    # f32 sums in another order (y), f64 against f32 column sums (stats)
+    for g, wt in zip(got, want):
+        torch.testing.assert_close(g, wt, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(6, 37, 16), (97, 150, 1024)], ids=["ragged", "n150_d1024"])
+def test_pool_kernel_matches_plain(shape):
+    _needs_card()
+    rng = np.random.default_rng(4)
+    y = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda()
+    d = shape[-1]
+    affine = torch.from_numpy(np.stack([
+        rng.normal(0, 0.5, d), rng.uniform(0.5, 2.0, d), rng.normal(0, 0.3, d),
+    ]).astype(np.float32)).cuda()
+    before = pt.fused_pool.launches
+    got = pt.fused_pool(y, affine)
+    torch.cuda.synchronize()
+    assert pt.fused_pool.launches == before + 1
+    torch.testing.assert_close(got, pt.fused_pool_ref(y, affine), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_pointnet_train_gradients_on_the_card():
+    """The autograd Function through the kernels against autograd through
+    the plain version, on the card (tolerances as in the CPU test)."""
+    _needs_card()
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(2, 3, 37, 4)).astype(np.float32)
+    widths = [(4, 8), (8, 8), (8, 16), (16, 16)]
+    layers = [((rng.uniform(-1, 1, (a, c)) / np.sqrt(a)).astype(np.float32),
+               rng.uniform(-0.1, 0.1, c).astype(np.float32),
+               (1 + 0.2 * rng.normal(size=c)).astype(np.float32),
+               (0.1 * rng.normal(size=c)).astype(np.float32)) for a, c in widths]
+    cot = torch.from_numpy(rng.normal(size=(2, 3, 16)).astype(np.float32)).cuda()
+    grads = []
+    for fn in (pt.pointnet_pool_train, pt.pointnet_pool_train_ref):
+        params = [[torch.tensor(a, device="cuda", requires_grad=True) for a in layer]
+                  for layer in layers]
+        xt = torch.tensor(x, device="cuda", requires_grad=True)
+        pooled, means, variances = fn(xt, params)
+        torch.sum(pooled * cot).backward()
+        grads.append([pooled, *means, *variances, xt.grad]
+                     + [p.grad for i, layer in enumerate(params) for p in layer])
+    names = ["pooled"] + [f"stat{i}" for i in range(8)] + ["x"] + [
+        f"{n}{i}" for i in range(4) for n in ("W", "b", "gamma", "beta")]
+    for name, got, want in zip(names, *grads):
+        # the bias ahead of a train-mode BatchNorm has a zero gradient: noise only
+        tol = dict(rtol=0, atol=5e-6) if name.startswith("b") and name[1:].isdigit() else \
+            dict(rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(got.detach(), want.detach(), msg=name, **tol)
+
+
+@pytest.mark.gpu
+def test_pointnet_train_raises_instead_of_falling_back():
+    _needs_card()
+    h, affine, w, b = _layer_case(np.random.default_rng(6), 64, 6, 8, True)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        pt.fused_layer(h, affine, w, b)
+    h, affine, w, b = _layer_case(np.random.default_rng(6), 64, 8, 8, True)
+    with pytest.raises(ValueError, match="is on cpu"):
+        pt.fused_layer(h, affine, w.cpu(), b)
+
+
+# --- Adam -------------------------------------------------------------------
+
+def _adam_leaf(rng, shape, device="cuda"):
+    g = rng.normal(0, 1e-2, shape).astype(np.float32)
+    w = rng.normal(size=shape).astype(np.float32)
+    m = rng.normal(0, 1e-3, shape).astype(np.float32)
+    v = rng.uniform(0, 1e-4, shape).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (g, w, m, v)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(136, 648), (1001, 3), (2048, 1025)],
+                         ids=["leaf_136x648", "ragged_tail3", "big"])
+def test_adam_kernel_matches_plain(shape):
+    _needs_card()
+    s1, s2 = adam.adam_scalars(3, 1e-4, 0.9, 0.99)
+    coeffs = dict(s1=s1, s2=s2, b1=0.9, b2=0.99, eps=1e-8)
+    got = _adam_leaf(np.random.default_rng(7), shape)
+    want = [t.clone() for t in got]
+    before = adam.adam_update_.launches
+    adam.adam_update_(*got, **coeffs)
+    torch.cuda.synchronize()
+    assert adam.adam_update_.launches == before + 1
+    adam.adam_update_ref_(*want, **coeffs)
+    # the kernel rounds every operation as the plain version does
+    for g, wt in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, wt, rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.gpu
+def test_adam_tree_update_sends_only_big_2d_leaves_to_the_kernel():
+    _needs_card()
+    rng = np.random.default_rng(8)
+    leaves = {"big": _adam_leaf(rng, (1024, 2048)), "small": _adam_leaf(rng, (64, 64)),
+              "vec": _adam_leaf(rng, (1 << 21,))}
+    before = adam.adam_update_.launches
+    count = adam.fused_adam_tree_update(
+        {k: v[0] for k, v in leaves.items()}, 0, {k: v[2] for k, v in leaves.items()},
+        {k: v[3] for k, v in leaves.items()}, {k: v[1] for k, v in leaves.items()},
+        lr=1e-4, b1=0.9, b2=0.99,
+    )
+    torch.cuda.synchronize()
+    assert count == 1 and adam.adam_update_.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_adam_raises_instead_of_falling_back():
+    _needs_card()
+    g, w, m, v = _adam_leaf(np.random.default_rng(9), (64, 64))
+    coeffs = dict(s1=1e-3, s2=10.0, b1=0.9, b2=0.99, eps=1e-8)
+    with pytest.raises(ValueError, match="float32"):
+        adam.adam_update_(g.double(), w, m, v, **coeffs)
+    with pytest.raises(ValueError, match="is on cpu"):
+        adam.adam_update_(g, w, m.cpu(), v, **coeffs)
