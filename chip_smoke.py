@@ -2,15 +2,15 @@
 """Smoke test of the PyTorch port on one CUDA card: ``python3 chip_smoke.py``.
 
 Drives the port's main paths, V4 open-set inference and in-process serving,
-and V4 training, at the full width of the published model (NMAX=150,
-NSTEPS=30, C=4, PointNet width 1024, TCN filters 16..512, latent 32,
-projection head; decoder S = 18000, 215.2M parameters), with seeded random
-weights and seeded crop files. Phases:
+V4 training, and OR-CED open-set inference and serving, at the full width
+of the published models (NMAX=150, NSTEPS=30, C=4, PointNet width 1024,
+TCN filters 16..512, latent 32; decoder S = 18000, 215.2M parameters),
+with seeded random weights and seeded crop files. Phases:
 
 1. the card's name and power limit; TF32 off; the CUDA kernels' nvcc
    builds, all sources at once;
-2. the kernel against its plain PyTorch version at the main path's shapes
-   (rtol 1e-4, atol 1e-4), and both timed at (256, 30, 150);
+2. the PointNet kernel against its plain PyTorch version at the main
+   path's shapes (rtol 1e-4, atol 1e-4), and both timed at (256, 30, 150);
 3. ``pcaa_inference`` through the kernel (its launch count must grow), then
    again through the plain version: latents within atol 1e-4, decisions
    equal except in windows holding a crop within 1e-4 of the threshold;
@@ -22,21 +22,35 @@ weights and seeded crop files. Phases:
       kernel and the Adam kernel against their plain versions at the
       training shapes (72,000 rows; 480 frames of 150 points; the
       9000 x 18000 decoder matrix) and at ragged ones, timed in the order
-      plain, kernel, kernel, plain;
+      plain, kernel, kernel, plain (Adam also against torch._fused_adam_);
    b. from one seeded state, 5 steps with FUSED_POINTNET and FUSED_ADAM on
       (kernels: exactly 4 layer, 1 pool and 4 Adam launches a step) and 5
       with both off (plain), on the same batches and injected noise; the
       losses must agree step by step;
    c. ``train_pcaa`` for one epoch with both flags on, its run folder
       checked and then scored by ``pcaa_inference`` through the slice-1
-      kernel.
+      kernel;
+7. OR-CED, 6 classes, the crops of phases 3 and 6:
+   a. the Chamfer kernel against its plain version (rtol 1e-5, atol 1e-6)
+      and an f64 oracle (rtol 1e-3) at (64, 30, 150, 150) and at ragged,
+      five-channel, one-point, two-tile and N = M = 704 shapes; timed
+      against plain and torch.cdist at (64, 30, 150, 4);
+   b. a run folder (E, G, ML) from seeded inits, saved by the port;
+   c. ``orced_inference`` through the kernels, then plain, with the same
+      pinned eps at batch 64: latents within atol 1e-4, rec errors within
+      rtol 1e-3, decisions equal except knife-edge crops;
+   d. ``make_orced_forward_fn`` + ``orced_decide_host`` answer 3 requests
+      of 16 test crops, with the decisions of ``orced_apply_ood``.
 
 It exits non-zero, with no result line, when there is no CUDA card or a
 phase fails. The line before the last is the per-kernel JSON record (its
-``launches`` counts each kernel's launches on the main paths: phases 3, 4
-and 6c for the inference kernel, 6b's kernel steps and 6c for the training
-kernels), the last ``{"ok": true, "device": {...}}``. Files go to
-``build/chip_smoke/``.
+``launches`` counts each kernel's launches on the main paths, each path
+driven with the counts at 0: phases 3, 4, 6c, 7c and 7d for the PointNet
+inference kernel, 6b's kernel steps and 6c for the training kernels, 7c
+and 7d for the Chamfer kernel; ``bound_ms`` is the larger of the
+operations over 67 TFLOP/s and the bytes over 3.35 TB/s, the H100 SXM's
+published f32 and HBM3 peaks), the last ``{"ok": true, "device": {...}}``.
+Files go to ``build/chip_smoke/``.
 """
 
 import gc
@@ -68,6 +82,22 @@ TRAIN_STEPS = 5
 # steps (about lr * sign(g) per weight) carry such differences into the
 # weights. Measured gap over 5 steps: see PERF.md.
 LOSS_RTOL = 1e-3
+ORCED_NAME = "SMOKE_ORCED"
+ORCED_B = 64  # orced_inference's batch
+SERVE_CROPS = 16  # crops per ORCED serving request
+# Chamfer kernel vs plain: the kernel rounds each distance as the plain
+# pairwise_sq_dists does, so only the order of the sums differs; measured
+# gap 2.8e-7 relative (see PERF.md), held at 35 times that. The f64 oracle
+# is held at the JAX package's Chamfer parity bound, rtol 1e-3: two f32
+# paths of xx + yy - 2xy cancel apart by up to about 2e-4 relative.
+CHAMFER_TOL = dict(rtol=1e-5, atol=1e-6)
+RE_EDGE = 1e-3  # rec error within this relative distance of its threshold
+P_EDGE = 1e-6  # latent score within this distance of 0.95
+# Published peaks of the H100 SXM (NVIDIA data sheet, 700 W): f32 outside
+# the tensor cores and HBM3 bandwidth; bound_ms is the larger of the
+# operations over the first and the bytes over the second
+F32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -87,6 +117,18 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(flops: float, nbytes: float) -> tuple:
+    """→ (bound_ms, bound_by): the least time the card could take for
+    ``flops`` f32 operations on ``nbytes`` of input read once and output
+    written once."""
+    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def alternate(fns: dict, order, reps: int) -> dict:
@@ -192,7 +234,8 @@ def compare_decisions(cal_a, cal_b, dir_a: str, dir_b: str) -> int:
 def check_train_kernels(card: str) -> dict:
     """Phase 6a: each training kernel against its plain version at the
     training path's shapes and at ragged ones; times in the order plain,
-    kernel, kernel, plain. → per kernel (max |diff|, kernel ms, plain ms)."""
+    kernel, kernel, plain. → per kernel dict(err, ms, plain_ms, bound_ms,
+    bound_by, library_ms)."""
     import torch
 
     from opensetgaitrecognition_pcaa_tpu_torch.ops import adam
@@ -210,6 +253,7 @@ def check_train_kernels(card: str) -> dict:
     rows = TRAIN_B * 30 * 150
     out = {}
     err, ms = 0.0, {"kernel": 0.0, "plain": 0.0}
+    flops = moved = 0
     for n, c_in, c_out, timed in ((rows, 4, 512, True), (rows, 512, 512, True),
                                   (rows, 512, 1024, True), (rows, 1024, 1024, True),
                                   (2 * 3 * 37, 4, 512, False), (2 * 3 * 37, 512, 1024, False)):
@@ -231,12 +275,16 @@ def check_train_kernels(card: str) -> dict:
                           ("plain", "kernel", "kernel", "plain"), reps=5)
             for k in ms:
                 ms[k] += t[k]
+            flops += 2 * n * c_in * c_out
+            moved += nbytes(h, w, b, *got) + (0 if a is None else nbytes(a))
             line += f"; kernel {t['kernel']:.3f} ms, plain {t['plain']:.3f} ms [{card}]"
         log(line)
         del h, got, want
-    out["layer"] = (err, ms["kernel"], ms["plain"])
+    out["layer"] = dict(err=err, ms=ms["kernel"], plain_ms=ms["plain"], library_ms=None)
+    out["layer"]["bound_ms"], out["layer"]["bound_by"] = bound(flops, moved)
     log(f"phase 6a: the 4 layers of a step: kernel {ms['kernel']:.3f} ms, plain "
-        f"{ms['plain']:.3f} ms (y, mean, var within rtol 1e-4, atol 1e-4) [{card}]")
+        f"{ms['plain']:.3f} ms (y, mean, var within rtol 1e-4, atol 1e-4); bound "
+        f"{out['layer']['bound_ms']:.3f} ms ({flops / 1e9:.1f} GFLOP, {moved / 1e6:.1f} MB) [{card}]")
 
     err = 0.0
     for frames, n in ((TRAIN_B * 30, 150), (2 * 3, 37)):
@@ -252,9 +300,12 @@ def check_train_kernels(card: str) -> dict:
     y = randn(TRAIN_B * 30, 150, 1024, scale=2.0, shift=0.5)
     t = alternate({"kernel": lambda: pt.fused_pool(y, a), "plain": lambda: pt.fused_pool_ref(y, a)},
                   ("plain", "kernel", "kernel", "plain"), reps=5)
-    out["pool"] = (err, t["kernel"], t["plain"])
+    # per element: normalize (2 fma), ELU, sum
+    bms, by = bound(6 * y.numel(), nbytes(y, a) + TRAIN_B * 30 * 1024 * 4)
+    out["pool"] = dict(err=err, ms=t["kernel"], plain_ms=t["plain"], bound_ms=bms, bound_by=by,
+                       library_ms=None)
     log(f"phase 6a: pool at ({TRAIN_B * 30}, 150, 1024): kernel {t['kernel']:.3f} ms, plain "
-        f"{t['plain']:.3f} ms (rtol 1e-5, atol 1e-5) [{card}]")
+        f"{t['plain']:.3f} ms (rtol 1e-5, atol 1e-5); bound {bms:.4f} ms [{card}]")
     del y
 
     err = 0.0
@@ -272,13 +323,27 @@ def check_train_kernels(card: str) -> dict:
             torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
         err = max(err, e)
         log(f"phase 6a: Adam kernel vs plain on a {shape} leaf: max |diff| {e:.3e}")
+    # the yardstick: PyTorch's own fused Adam on the same leaf (g, w, m, v)
+    lib = [t.clone() for t in ref]
+    step = torch.tensor(3.0, device="cuda")
+
+    def fused_adam():
+        torch._fused_adam_([lib[1]], [lib[0]], [lib[2]], [lib[3]], [], [step], lr=1e-4,
+                           beta1=0.9, beta2=0.99, weight_decay=0.0, eps=1e-8, amsgrad=False,
+                           maximize=False)
+
     t = alternate({"kernel": lambda: adam.adam_update_(*leaf, **coeffs),
-                   "plain": lambda: adam.adam_update_ref_(*ref, **coeffs)},
-                  ("plain", "kernel", "kernel", "plain"), reps=5)
-    out["adam"] = (err, t["kernel"], t["plain"])
+                   "plain": lambda: adam.adam_update_ref_(*ref, **coeffs),
+                   "library": fused_adam},
+                  ("plain", "kernel", "library", "library", "kernel", "plain"), reps=5)
+    # per element 13 operations; reads g, w, m, v and writes w, m, v
+    bms, by = bound(13 * leaf[0].numel(), nbytes(*leaf) + nbytes(*leaf[1:]))
+    out["adam"] = dict(err=err, ms=t["kernel"], plain_ms=t["plain"], bound_ms=bms, bound_by=by,
+                       library_ms=t["library"])
     log(f"phase 6a: Adam on the 9000 x 18000 leaf: kernel {t['kernel']:.3f} ms, plain "
-        f"{t['plain']:.3f} ms (rtol 1e-6, atol 1e-9) [{card}]")
-    del leaf, ref
+        f"{t['plain']:.3f} ms, torch._fused_adam_ {t['library']:.3f} ms (rtol 1e-6, atol "
+        f"1e-9); bound {bms:.3f} ms [{card}]")
+    del leaf, ref, lib
     torch.cuda.empty_cache()
     return out
 
@@ -436,6 +501,263 @@ def train_phase(card: str, gen: str) -> dict:
     return dict(layer=launches[0], pool=launches[1], adam=launches[2], infer=infer_launches)
 
 
+def chamfer_inputs(g, b, t, n, m, c=4):
+    """Crop-like clouds: gts zero-padded after a random count of real
+    points per frame, preds a dense cloud near them."""
+    import torch
+
+    gts = torch.randn((b, t, n, c), device="cuda", generator=g)
+    keep = torch.randint(max(1, n // 2), n + 1, (b, t, 1, 1), device="cuda", generator=g)
+    gts = gts * (torch.arange(n, device="cuda")[None, None, :, None] < keep)
+    preds = 0.7 * torch.randn((b, t, m, c), device="cuda", generator=g) + 0.2
+    return preds.contiguous(), gts.contiguous()
+
+
+def check_chamfer_kernel(card: str) -> dict:
+    """Phase 7a: the Chamfer kernel against its plain version and an f64
+    oracle at the main path's shape, ragged shapes, five channels, one
+    point, two tiles of points and N = M = 704; timed against plain and torch.cdist at the main
+    path's shape. → dict(err, ms, plain_ms, bound_ms, bound_by,
+    library_ms)."""
+    import torch
+
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import chamfer_kernel as ck
+    from opensetgaitrecognition_pcaa_tpu_torch.ops.chamfer import frame_chamfer, seq_chamfer
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    err = rel = 0.0
+    for b, t, n, m, c in ((ORCED_B, 30, 150, 150, 4), (3, 5, 37, 53, 4), (3, 5, 37, 53, 5),
+                          (2, 3, 1, 1, 4), (2, 3, 1, 9, 4), (1, 2, 1500, 2100, 4),
+                          (4, 6, 704, 704, 4)):
+        preds, gts = chamfer_inputs(g, b, t, n, m, c)
+        got = ck.frame_chamfer_kernel(preds, gts)
+        torch.cuda.synchronize()
+        want = frame_chamfer(preds, gts)
+        d = ((gts.double()[:, :, :, None] - preds.double()[:, :, None]) ** 2).sum(-1)
+        oracle = d.amin(2).sum(2) + d.amin(3).sum(2)
+        del d
+        torch.testing.assert_close(got, want, **CHAMFER_TOL)
+        torch.testing.assert_close(got.double(), oracle, rtol=1e-3, atol=0)
+        e = float((got - want).abs().max())
+        r = float(((got - want).abs() / want.abs()).max())
+        r64 = float(((got.double() - oracle).abs() / oracle.abs()).max())
+        err, rel = max(err, e), max(rel, r)
+        log(f"phase 7a: Chamfer kernel vs plain at {(b, t, n, m, c)} (B, T, N, M, C): max |diff| "
+            f"{e:.3e}, max relative gap {r:.3e}; vs f64 oracle {r64:.3e}")
+    preds, gts = chamfer_inputs(g, ORCED_B, 30, 150, 150)
+    for avg_out in (True, False):
+        torch.testing.assert_close(ck.seq_chamfer_kernel(preds, gts, avg_out=avg_out),
+                                   seq_chamfer(preds, gts, avg_out=avg_out), **CHAMFER_TOL)
+
+    def cdist():  # the yardstick: one library call for the distances
+        d = torch.cdist(gts, preds) ** 2
+        return d.amin(2).sum(2) + d.amin(3).sum(2)
+
+    torch.testing.assert_close(cdist(), frame_chamfer(preds, gts), rtol=1e-3, atol=1e-3)
+    ms = alternate({"kernel": lambda: ck.seq_chamfer_kernel(preds, gts, avg_out=False),
+                    "plain": lambda: seq_chamfer(preds, gts, avg_out=False),
+                    "library": cdist},
+                   ("plain", "kernel", "library", "library", "kernel", "plain"), reps=20)
+    f, n, c = ORCED_B * 30, 150, 4
+    # per pair: the dot (2C), |x|^2 + |y|^2 - 2 x.y (2) and the two minima (2)
+    bms, by = bound(f * n * n * (2 * c + 4), nbytes(preds, gts) + f * 4)
+    log(f"phase 7a: Chamfer at ({ORCED_B}, 30, 150, 4): kernel {ms['kernel']:.4f} ms, plain "
+        f"{ms['plain']:.4f} ms, cdist + amin {ms['library']:.4f} ms; bound {bms:.4f} ms "
+        f"({by}); max relative gap to plain {rel:.3e} (bound rtol 1e-5, atol 1e-6) [{card}]")
+    return dict(err=err, ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=bms, bound_by=by,
+                library_ms=ms["library"])
+
+
+def make_orced_run_folder(models: str, cfg, train_x: np.ndarray) -> None:
+    """A full-width ORCED run folder from seeded inits, the running
+    statistics of the encoder and the mean learner set by 30 train-mode
+    forwards, saved by the port."""
+    import torch
+
+    from opensetgaitrecognition_pcaa_tpu_torch.convert import (
+        decoder_variables,
+        encoder_variables,
+        mean_learner_variables,
+    )
+    from opensetgaitrecognition_pcaa_tpu_torch.models.mean_learner import GaussianMeanLearner
+    from opensetgaitrecognition_pcaa_tpu_torch.models.orced import ORCEDDecoder, ORCEDEncoder
+    from opensetgaitrecognition_pcaa_tpu_torch.train.run_folder import module_path, save_params
+
+    init = torch.Generator().manual_seed(SEED + 4)
+    enc = ORCEDEncoder(
+        n_out_labels=cfg.n_classes, in_features=cfg.NFEATURES,
+        sup_latent_dim=cfg.SUP_LATENT_DIM, pointnet_out_dim=cfg.POINTNET_OUT_DIM,
+        dtc_filters=cfg.DTC_FILTERS, generator=init,
+    ).cuda().train()
+    dec = ORCEDDecoder(cfg.SUP_LATENT_DIM, cfg.NSTEPS, cfg.NMAX, cfg.NFEATURES, generator=init)
+    ml = GaussianMeanLearner(cfg.n_classes, cfg.SUP_LATENT_DIM, generator=init).train()
+    gen = torch.Generator().manual_seed(SEED + 5)
+    noise = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    with torch.no_grad():
+        for _ in range(30):
+            idx = torch.randperm(len(train_x), generator=gen)[:8].numpy()
+            enc(torch.from_numpy(train_x[idx]).cuda(), generator=noise)
+            ml(torch.eye(cfg.n_classes))
+    run_dir = os.path.join(models, ORCED_NAME)
+    cfg.save(os.path.join(run_dir, "config.json"))
+    save_params(encoder_variables(enc.state_dict()), module_path(run_dir, ORCED_NAME, "E"))
+    save_params(decoder_variables(dec.state_dict()), module_path(run_dir, ORCED_NAME, "G"))
+    save_params(mean_learner_variables(ml.state_dict()), module_path(run_dir, ORCED_NAME, "ML"))
+    log(f"phase 7b: ORCED run folder, {sum(p.numel() for p in dec.parameters()) / 1e6:.1f}M "
+        f"decoder parameters, {sum(p.numel() for p in enc.parameters()) / 1e6:.2f}M encoder")
+
+
+def orced_knife_edge(cal, split: str, keep=None):
+    """Crops whose rec error lies within RE_EDGE (relative) of their
+    predicted class's threshold, or whose latent score lies within P_EDGE
+    of 0.95 for some class."""
+    from opensetgaitrecognition_pcaa_tpu_torch.infer.orced import (
+        THRESHOLD_G,
+        ORCEDClassStats,
+        orced_latent_scores,
+    )
+
+    stats = ORCEDClassStats(cal["means_z"], cal["stds_z"], cal["thresholds_re"],
+                            int(cal["n_labels"]))
+    preds, z, re = (cal[f"{split}_{k}"] for k in ("preds", "z", "re"))
+    if keep is not None:
+        preds, z, re = preds[keep], z[keep], re[keep]
+    thr = stats.thresholds_re[preds]
+    p = orced_latent_scores(stats, z)
+    return (np.abs(re - thr) <= RE_EDGE * np.abs(thr)) | (np.abs(p - THRESHOLD_G) <= P_EDGE).any(0)
+
+
+def orced_phase(card: str, gen: str) -> dict:
+    """Phase 7b-d → launches of the PointNet and Chamfer kernels on the
+    ORCED main path (7c's kernel run and 7d)."""
+    import torch
+
+    from opensetgaitrecognition_pcaa_tpu_torch.config import SPLIT, Config
+    from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import RadarCropDataset
+    from opensetgaitrecognition_pcaa_tpu_torch.infer.orced import (
+        ORCEDClassStats,
+        orced_apply_ood,
+        orced_inference,
+        orced_inference_setup,
+    )
+    from opensetgaitrecognition_pcaa_tpu_torch.infer.serving import (
+        make_orced_forward_fn,
+        orced_decide_host,
+    )
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import chamfer_kernel as ck
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import pointnet_infer as pn
+
+    cfg = Config(
+        NMAX=150, NSTEPS=30, NFEATURES=4, POINTNET_OUT_DIM=1024,
+        DTC_FILTERS=(16, 32, 64, 128, 256, 512), SUP_LATENT_DIM=32,
+        TRAIN_CLASSES=tuple(range(N_SEEN)), MODEL_NAME=ORCED_NAME, GEN_DATA_PATH=gen,
+    )
+    train_x, _ = RadarCropDataset(SPLIT.TRAIN, gen).load_all()
+    assert len(train_x) >= ORCED_B, len(train_x)
+    src = os.path.join(WORK, "models_orced_src")
+    make_orced_run_folder(src, cfg, train_x)
+    rng = np.random.default_rng(SEED + 6)
+    eps = {key: rng.normal(size=(len(RadarCropDataset(split, gen)), cfg.SUP_LATENT_DIM))
+           .astype(np.float32)
+           for key, split in (("train", SPLIT.TRAIN), ("test", SPLIT.TEST),
+                              ("unseen", SPLIT.UNSEEN))}
+
+    # --- 7c. orced_inference through the kernels, then plain ------------------
+    runs = {}
+    for path in ("kernel", "plain"):
+        models = os.path.join(WORK, f"models_orced_{path}")
+        figures = os.path.join(WORK, f"figures_orced_{path}")
+        shutil.copytree(os.path.join(src, ORCED_NAME), os.path.join(models, ORCED_NAME))
+        pn.pointnet_pool_infer.launches = ck.seq_chamfer_kernel.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logs = orced_inference(
+            [ORCED_NAME], device="cuda", models_path=models, figures_path=figures,
+            generate_dataset=False, batch_size=ORCED_B, eps_streams=eps, dump_calibration=True,
+            use_kernel=path == "kernel",
+        )
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        cal = dict(np.load(os.path.join(models, ORCED_NAME, "orced_calibration.npz")))
+        final = {stem: np.load(os.path.join(figures, ORCED_NAME, f"ensemble_ood_final_{stem}_fixed.npy"))
+                 for stem in ("preds", "labels")}
+        for split in ("train", "test", "unseen"):
+            assert np.isfinite(cal[f"{split}_z"]).all() and np.isfinite(cal[f"{split}_re"]).all()
+        assert len(final["preds"]) > 0 and final["preds"].max() <= cfg.n_classes
+        runs[path] = dict(cal=cal, final=final, models=models, launches=(
+            pn.pointnet_pool_infer.launches, ck.seq_chamfer_kernel.launches))
+        m = logs[ORCED_NAME]
+        log(f"phase 7c: orced_inference via {path}: {seconds:.2f} s, launches (PointNet, "
+            f"Chamfer) {runs[path]['launches']}, {len(final['preds'])} decisions, f1_micro "
+            f"{m['f1_micro']:.4f}, f1_macro {m['f1_macro']:.4f}, f1_weighted "
+            f"{m['f1_weighted']:.4f} [{card}]")
+    k_launch, p_launch = runs["kernel"]["launches"], runs["plain"]["launches"]
+    assert k_launch[0] > 0 and k_launch[1] > 0, k_launch
+    assert p_launch == (0, 0), p_launch
+    ck_cal, pl_cal = runs["kernel"]["cal"], runs["plain"]["cal"]
+    lat_err = re_gap = 0.0
+    for split in ("train", "test", "unseen"):
+        np.testing.assert_allclose(ck_cal[f"{split}_z"], pl_cal[f"{split}_z"], rtol=0, atol=1e-4)
+        np.testing.assert_allclose(ck_cal[f"{split}_re"], pl_cal[f"{split}_re"], rtol=1e-3, atol=0)
+        lat_err = max(lat_err, float(np.abs(ck_cal[f"{split}_z"] - pl_cal[f"{split}_z"]).max()))
+        re_gap = max(re_gap, float((np.abs(ck_cal[f"{split}_re"] - pl_cal[f"{split}_re"])
+                                    / np.abs(pl_cal[f"{split}_re"])).max()))
+    for key in ("train_labels", "test_labels", "unseen_labels", "unseen_keep"):
+        np.testing.assert_array_equal(ck_cal[key], pl_cal[key])
+    np.testing.assert_array_equal(runs["kernel"]["final"]["labels"], runs["plain"]["final"]["labels"])
+    keep = ck_cal["unseen_keep"]
+    edge = np.zeros(len(runs["kernel"]["final"]["preds"]), bool)
+    for cal in (ck_cal, pl_cal):
+        edge |= np.concatenate([orced_knife_edge(cal, "test"), orced_knife_edge(cal, "unseen", keep)])
+    bad = (runs["kernel"]["final"]["preds"] != runs["plain"]["final"]["preds"]) & ~edge
+    assert not bad.any(), f"{int(bad.sum())} decisions differ away from the knife edge"
+    log(f"phase 7c: latents kernel vs plain max |diff| {lat_err:.3e} (atol 1e-4), rec errors "
+        f"max relative gap {re_gap:.3e} (rtol 1e-3); decisions equal, {int(edge.sum())} "
+        f"knife-edge crops exempt (rec error within rtol {RE_EDGE} of its threshold or a "
+        f"latent score within {P_EDGE} of 0.95)")
+
+    # --- 7d. serving: 3 requests of SERVE_CROPS test crops ----------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, encoder, decoder = orced_inference_setup(
+        ORCED_NAME, device="cuda", models_path=runs["kernel"]["models"], generate_dataset=False)
+    torch.cuda.synchronize()
+    log(f"phase 7d: orced_inference_setup (read E and G, move to the card) "
+        f"{time.perf_counter() - t0:.2f} s")
+    forward = make_orced_forward_fn(encoder, decoder)
+    stat_args = (ck_cal["means_z"], ck_cal["stds_z"], ck_cal["thresholds_re"],
+                 int(ck_cal["n_labels"]))
+    stats = ORCEDClassStats(*stat_args)
+    x_test, _ = RadarCropDataset(SPLIT.TEST, gen).load_all()
+    edge_test = orced_knife_edge(ck_cal, "test")
+    serve_ms, exempt = [], 0
+    pn.pointnet_pool_infer.launches = ck.seq_chamfer_kernel.launches = 0
+    for r in range(3):
+        sl = slice(SERVE_CROPS * r, SERVE_CROPS * (r + 1))
+        x = torch.from_numpy(x_test[sl]).cuda()
+        e = torch.from_numpy(eps["test"][sl]).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decisions, latent_flag, rec_flag = orced_decide_host(*forward(x, e), *stat_args)
+        serve_ms.append(1e3 * (time.perf_counter() - t0))
+        want = orced_apply_ood(stats, 0.95, ck_cal["test_preds"][sl], ck_cal["test_z"][sl],
+                               ck_cal["test_re"][sl])
+        assert decisions.shape == (SERVE_CROPS,)
+        assert ((decisions == want) | edge_test[sl]).all(), (decisions, want)
+        assert ((decisions == cfg.n_classes) == (latent_flag | rec_flag)).all()
+        exempt += int(edge_test[sl].sum())
+    serve_launches = (pn.pointnet_pool_infer.launches, ck.seq_chamfer_kernel.launches)
+    assert serve_launches == (3, 3), serve_launches
+    log(f"phase 7d: served 3 ORCED requests of ({SERVE_CROPS}, 30, 150, 4) with pinned eps; "
+        f"decisions equal to orced_apply_ood ({exempt} knife-edge crops exempt); launches "
+        f"(PointNet, Chamfer) {serve_launches}; ms per request "
+        f"{[round(t, 2) for t in serve_ms]} [{card}]")
+    del encoder, decoder, forward
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(pointnet=k_launch[0] + serve_launches[0], chamfer=k_launch[1] + serve_launches[1])
+
+
 def main() -> int:
     import torch
 
@@ -466,7 +788,7 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     ieee_f32()
     t0 = time.perf_counter()
-    sources = ("pointnet_infer", "pointnet_train", "adam")
+    sources = ("pointnet_infer", "pointnet_train", "adam", "chamfer")
     _build.load_libraries(sources)
     log(f"phase 1: built csrc/{{{','.join(sources)}}}.cu in {time.perf_counter() - t0:.1f} s")
     for name in sources:
@@ -497,8 +819,12 @@ def main() -> int:
          "plain": lambda: pn.pointnet_pool_ref(x, folded)},
         ("plain", "kernel", "kernel", "plain"), reps=5,
     )
+    # per point, a multiply-add for every weight of the 4 layers
+    weights = sum(folded[f"w{i}"].numel() for i in range(1, 5))
+    pn_bound = bound(2 * 256 * 30 * 150 * weights,
+                     nbytes(x, *folded.values()) + 256 * 30 * d * 4)
     log(f"phase 2: PointNet+pool at (256, 30, 150), D=1024: kernel {pn_ms['kernel']:.2f} ms, "
-        f"plain {pn_ms['plain']:.2f} ms [{card}]")
+        f"plain {pn_ms['plain']:.2f} ms; bound {pn_bound[0]:.2f} ms ({pn_bound[1]}) [{card}]")
     del x
 
     # --- 3. the slice ----------------------------------------------------------
@@ -626,24 +952,34 @@ def main() -> int:
     train_launches = train_phase(card, gen)
     main_launches += train_launches["infer"]
 
+    # --- 7. OR-CED inference and serving -----------------------------------------
+    checks["chamfer"] = check_chamfer_kernel(card)
+    orced_launches = orced_phase(card, gen)
+    main_launches += orced_launches["pointnet"]
+
+    checks["infer"] = dict(err=max_err, ms=pn_ms["kernel"], plain_ms=pn_ms["plain"],
+                           bound_ms=pn_bound[0], bound_by=pn_bound[1], library_ms=None)
     src = "opensetgaitrecognition_pcaa_tpu_torch/csrc/"
     tpu = "opensetgaitrecognition_pcaa_tpu/ops/pallas/"
-    kernels = [("pointnet_pool_infer", "pointnet_infer.cu", "pointnet_infer.py:58", main_launches,
-                (max_err, pn_ms["kernel"], pn_ms["plain"]))]
-    kernels += [
+    kernels = [
+        ("pointnet_pool_infer", "pointnet_infer.cu", "pointnet_infer.py:58", main_launches,
+         checks["infer"]),
         ("pointnet_pool_train/_layer_kernel", "pointnet_train.cu", "pointnet_train.py:61",
          train_launches["layer"], checks["layer"]),
         ("pointnet_pool_train/_pool_kernel", "pointnet_train.cu", "pointnet_train.py:154",
          train_launches["pool"], checks["pool"]),
         ("fused_adam_tree_update/_adam_block_kernel", "adam.cu", "adam_kernel.py:60",
          train_launches["adam"], checks["adam"]),
+        ("seq_chamfer_pallas/_chamfer_frame_kernel", "chamfer.cu", "chamfer_kernel.py:35",
+         orced_launches["chamfer"], checks["chamfer"]),
     ]
     for name, _, _, launches, _ in kernels:
         assert launches > 0, f"the main path never launched {name}"
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src + source, "replaces": tpu + replaces,
-         "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        for name, source, replaces, launches, (err, ms, plain_ms) in kernels
+         "launches": launches, "max_abs_err": c["err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
+         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
+        for name, source, replaces, launches, c in kernels
     ]}
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
 """JAX parameter trees ↔ the port's ``state_dict``.
 
 The JAX package stores a module's weights as ``{"params": ...,
-"batch_stats": ...}`` (``<NAME>_<TAG>.msgpack``). The maps follow
+"batch_stats": ...}`` (``<NAME>_<TAG>.msgpack``): the PCAA encoder,
+decoder, critic and head (``E``, ``G``, ``D``, ``GPH``) and the ORCED
+encoder, decoder and mean learner (``E``, ``G``, ``ML``). The maps follow
 ``tools/transplant.py``:
 
 - a dense kernel ``(in, out)`` is the transpose of ``Linear.weight``;
@@ -38,7 +40,19 @@ def _norm(path: Tuple[str, ...], key: str) -> Iterator[_Entry]:
     yield ("batch_stats",) + path + ("var",), f"{key}.var", "plain"
 
 
-def _encoder_entries(n_tcn: int, use_projection_head: bool) -> Iterator[_Entry]:
+# the heads of the two encoders, in the order of their JAX tree
+_ORCED_HEADS = ("MLP_mu", "MLP_logvar", "MLP_classification")
+
+
+def _encoder_heads(names, use_projection_head: bool):
+    """``CGEncoder``'s heads, or ``ORCEDEncoder``'s where ``names`` (the
+    JAX params or the ``state_dict`` keys' first parts) hold ``MLP_mu``."""
+    if "MLP_mu" in names:
+        return _ORCED_HEADS
+    return ("MLP_sup1",) + (("MLP_head",) if use_projection_head else ()) + ("MLP_sup2",)
+
+
+def _encoder_entries(n_tcn: int, heads) -> Iterator[_Entry]:
     pn = ("GaitBackbone_0", "PointNetBlock_0")
     for i in range(4):
         yield from _dense(pn + (f"TorchDense_{i}",), f"backbone.pointnet.dense.{i}")
@@ -50,7 +64,6 @@ def _encoder_entries(n_tcn: int, use_projection_head: bool) -> Iterator[_Entry]:
         yield ("params",) + layer + ("Conv_0", "kernel"), f"{key}.conv.weight", "conv"
         yield ("params",) + layer + ("Conv_0", "bias"), f"{key}.conv.bias", "plain"
         yield from _norm(layer + ("TorchBatchNorm_0",), f"{key}.norm")
-    heads = ["MLP_sup1"] + (["MLP_head"] if use_projection_head else []) + ["MLP_sup2"]
     for name in heads:
         yield from _dense((name,), name)
 
@@ -64,6 +77,14 @@ def _dense_stack_entries(n_layers: int) -> Iterator[_Entry]:
 
 def _head_entries() -> Iterator[_Entry]:
     yield from _dense(("TorchDense_0",), "dense")
+
+
+def _mean_learner_entries() -> Iterator[_Entry]:
+    """``GaussianMeanLearner``: 4 dense layers, BatchNorm after the first 3."""
+    for i in range(4):
+        yield from _dense((f"TorchDense_{i}",), f"dense.{i}")
+    for i in range(3):
+        yield from _norm((f"TorchBatchNorm_{i}",), f"norm.{i}")
 
 
 def _n_tcn(enc_vars: Dict) -> int:
@@ -107,20 +128,25 @@ def _to_variables(state_dict: Dict[str, torch.Tensor], entries) -> Dict:
 
 
 def encoder_state_dict(enc_vars: Dict) -> Dict[str, torch.Tensor]:
-    """JAX ``CGEncoder`` variables → the port's ``CGEncoder`` state_dict."""
-    use_head = "MLP_head" in enc_vars["params"]
-    return _to_state_dict(enc_vars, _encoder_entries(_n_tcn(enc_vars), use_head))
+    """JAX ``CGEncoder`` or ``ORCEDEncoder`` variables (``<NAME>_E``) → the
+    port's state_dict of the same module."""
+    params = enc_vars["params"]
+    heads = _encoder_heads(params, "MLP_head" in params)
+    return _to_state_dict(enc_vars, _encoder_entries(_n_tcn(enc_vars), heads))
 
 
 def encoder_variables(state_dict: Dict[str, torch.Tensor]) -> Dict:
-    """The port's ``CGEncoder`` state_dict → JAX variables (numpy leaves)."""
+    """The port's ``CGEncoder`` or ``ORCEDEncoder`` state_dict → JAX
+    variables (numpy leaves)."""
     n_tcn = len({k.split(".")[3] for k in state_dict if k.startswith("backbone.tcn.layers.")})
-    use_head = "MLP_head.weight" in state_dict
-    return _to_variables(state_dict, _encoder_entries(n_tcn, use_head))
+    names = {k.split(".")[0] for k in state_dict}
+    heads = _encoder_heads(names, "MLP_head" in names)
+    return _to_variables(state_dict, _encoder_entries(n_tcn, heads))
 
 
 def decoder_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
-    """JAX ``CGDecoder`` variables (``<NAME>_G``) → the port's state_dict."""
+    """JAX ``CGDecoder`` or ``ORCEDDecoder`` variables (``<NAME>_G``) → the
+    port's state_dict."""
     return _to_state_dict(variables, _dense_stack_entries(5))
 
 
@@ -144,6 +170,16 @@ def head_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
 
 def head_variables(state_dict: Dict[str, torch.Tensor]) -> Dict:
     return _to_variables(state_dict, _head_entries())
+
+
+def mean_learner_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
+    """JAX ``GaussianMeanLearner`` variables (``<NAME>_ML``) → the port's
+    state_dict."""
+    return _to_state_dict(variables, _mean_learner_entries())
+
+
+def mean_learner_variables(state_dict: Dict[str, torch.Tensor]) -> Dict:
+    return _to_variables(state_dict, _mean_learner_entries())
 
 
 # (module key in the port's generator/critic ModuleDict = key in the JAX

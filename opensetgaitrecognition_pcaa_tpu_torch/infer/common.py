@@ -40,16 +40,23 @@ def chunk_rows(x: np.ndarray, batch_size: int) -> np.ndarray:
 
 @torch.inference_mode()
 def batched_apply(
-    fn: Callable[[torch.Tensor], Tuple[torch.Tensor, ...]],
+    fn: Callable[..., Tuple[torch.Tensor, ...]],
     x: np.ndarray,
     batch_size: int,
     device: torch.device,
+    with_index: bool = False,
 ) -> Tuple[np.ndarray, ...]:
     """Apply ``fn`` to ``x`` chunk by chunk on ``device`` → numpy outputs
-    with the padding rows dropped."""
+    with the padding rows dropped.
+
+    ``with_index=True`` calls ``fn(chunk, step_idx)``, so that a caller can
+    pick the rows of a per-sample array that it chunked with ``chunk_rows``
+    (they stay aligned with the chunk's rows) or draw fresh noise per chunk.
+    """
     n = x.shape[0]
     outs = []
-    for chunk in chunk_rows(np.asarray(x, dtype=np.float32), batch_size):
-        res = fn(torch.from_numpy(chunk).to(device))
+    for i, chunk in enumerate(chunk_rows(np.asarray(x, dtype=np.float32), batch_size)):
+        chunk = torch.from_numpy(chunk).to(device)
+        res = fn(chunk, i) if with_index else fn(chunk)
         outs.append([r.cpu().numpy() for r in res])
     return tuple(np.concatenate(parts, axis=0)[:n] for parts in zip(*outs))

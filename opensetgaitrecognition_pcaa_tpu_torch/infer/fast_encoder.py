@@ -1,11 +1,14 @@
-"""Eval-mode ``CGEncoder`` forward with every BatchNorm folded.
+"""Eval-mode ``CGEncoder`` and ``ORCEDEncoder`` forwards with every
+BatchNorm folded.
 
-Port of ``opensetgaitrecognition_pcaa_tpu/infer/fast_encoder.py:31-134``:
+Port of ``opensetgaitrecognition_pcaa_tpu/infer/fast_encoder.py:31-167``:
 
     PointNet + pool    (the CUDA kernel, ops/pointnet_infer.py)
     → 6 × (causal dilated conv with BN folded into kernel and bias, ELU)
     → mean over time
-    → dense + ELU (+ projection head) → dense + ELU logits
+    → CGEncoder: dense + ELU (+ projection head) → dense + ELU logits;
+      ORCEDEncoder: dense mu and logvar, z = mu + eps·exp(logvar / 2),
+      dense logits, no ELU
 
 The TCN stays ``F.conv1d`` and the heads stay ``torch.matmul``, as the JAX
 package leaves both to XLA. ``use_kernel=False`` takes the plain PointNet
@@ -14,9 +17,12 @@ version on the card too, for comparison.
 
 from __future__ import annotations
 
+from typing import Optional, Union
+
 import torch
 import torch.nn.functional as F
 
+from opensetgaitrecognition_pcaa_tpu_torch.models.orced import ORCEDEncoder, reparametrize
 from opensetgaitrecognition_pcaa_tpu_torch.models.pcaa import CGEncoder
 from opensetgaitrecognition_pcaa_tpu_torch.ops.pointnet_infer import (
     fold_batchnorm,
@@ -26,7 +32,8 @@ from opensetgaitrecognition_pcaa_tpu_torch.ops.pointnet_infer import (
 )
 
 
-def _backbone_eval(encoder: CGEncoder, x: torch.Tensor, use_kernel: bool) -> torch.Tensor:
+def _backbone_eval(encoder: Union[CGEncoder, ORCEDEncoder], x: torch.Tensor,
+                   use_kernel: bool) -> torch.Tensor:
     """``(B, T, N, C) -> (B, filters[-1])`` with BatchNorm folded."""
     backbone = encoder.backbone
     folded = folded_pointnet_params(backbone.pointnet)
@@ -61,3 +68,24 @@ def fused_encoder_apply(encoder: CGEncoder, x: torch.Tensor, *, use_kernel: bool
     if encoder.use_projection_head:
         h = dense_elu(encoder.MLP_head, h)
     return dense_elu(encoder.MLP_sup2, h), sup_fv
+
+
+@torch.inference_mode()
+def fused_orced_encoder_apply(encoder: ORCEDEncoder, x: torch.Tensor, *,
+                              eps: Optional[torch.Tensor] = None,
+                              generator: Optional[torch.Generator] = None,
+                              use_kernel: bool = True):
+    """Eval-mode ``ORCEDEncoder`` forward → ``(logits, z, mu, logvar)``.
+
+    The reparametrization samples in eval too: ``eps`` ``(B, latent)`` is
+    used as given, else drawn from ``generator`` on ``x``'s device.
+    """
+    feats = _backbone_eval(encoder, x, use_kernel)
+
+    def dense(layer, h):
+        return torch.matmul(h, layer.weight.t()) + layer.bias
+
+    mu = dense(encoder.MLP_mu, feats)
+    logvar = dense(encoder.MLP_logvar, feats)
+    z = reparametrize(mu, logvar, eps, generator)
+    return dense(encoder.MLP_classification, z), z, mu, logvar

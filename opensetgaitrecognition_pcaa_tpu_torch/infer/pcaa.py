@@ -59,7 +59,7 @@ def pcaa_inference_setup(
     model_name: str,
     variation: VARIATION,
     *,
-    device: Device,
+    device: Device = "cuda",
     models_path: str = "models",
     generate_dataset: bool = True,
 ):
@@ -251,7 +251,7 @@ def pcaa_inference(
     model_names: Sequence[str],
     ks: Sequence[int],
     *,
-    device: Device,
+    device: Device = "cuda",
     models_path: str = "models",
     figures_path: str = "figures",
     force_pc_subsampling: int = 0,

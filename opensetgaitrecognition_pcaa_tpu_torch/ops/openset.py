@@ -1,6 +1,7 @@
-"""Open-set scoring: mixture log-likelihoods and the Youden-J threshold.
+"""Open-set scoring: mixture log-likelihoods, the Youden-J threshold, and
+OR-CED's latent score.
 
-Port of ``opensetgaitrecognition_pcaa_tpu/ops/openset.py:22-108``, numpy
+Port of ``opensetgaitrecognition_pcaa_tpu/ops/openset.py:17-151``, numpy
 and scipy in f64. The reference scores a latent by the mean of
 unit-covariance Gaussian pdfs, values around 1e-40; here that score is kept
 in log space, which preserves every comparison the decisions make, and
@@ -11,7 +12,12 @@ has where it underflows to 0.0.
 from __future__ import annotations
 
 import numpy as np
-from scipy.special import logsumexp
+from scipy.special import erf, logsumexp
+
+
+def openness(n_train: int, n_test: int) -> float:
+    """Openness ``1 - sqrt(2 n_tr / (n_tr + n_te))``."""
+    return float(1.0 - np.sqrt((2.0 * n_train) / (n_train + n_test)))
 
 
 def log_joint_likelihood(x: np.ndarray, means: np.ndarray) -> np.ndarray:
@@ -73,3 +79,27 @@ def best_youden_threshold(y_true: np.ndarray, scores: np.ndarray) -> float:
     (highest) threshold, and +inf when no finite one has J > 0."""
     fpr, tpr, thresholds = roc_points(y_true, scores)
     return float(thresholds[int(np.argmax(tpr - fpr))])
+
+
+def hyperrectangle_prob(mean: np.ndarray, cov_diag: np.ndarray, z: np.ndarray) -> np.ndarray:
+    """``mvn.cdf(b) − mvn.cdf(a)`` with ``a, b = mean ∓ |z − mean|`` for
+    ``X ~ N(mean, diag(cov_diag))``, in closed form:
+    ``prod_i Φ(h_i) − prod_i (1 − Φ(h_i))`` with ``h = |z − mean| / sqrt(cov_diag)``.
+
+    This is the reference's difference of two cdfs, not the box's
+    probability. Its callers pass standard deviations as ``cov_diag``
+    (``diag(std)``, not ``diag(std²)``), as the reference does; keep it so.
+    ``mean``, ``cov_diag`` ``(d,)``, ``z`` ``(n, d)`` → ``(n,)``.
+    """
+    mean = np.asarray(mean, dtype=np.float64)
+    cov_diag = np.asarray(cov_diag, dtype=np.float64)
+    z = np.atleast_2d(np.asarray(z, dtype=np.float64))
+    h = np.abs(z - mean[None, :]) / np.sqrt(cov_diag)[None, :]
+    phi_upper = 0.5 * (1.0 + erf(h / np.sqrt(2.0)))  # Φ(h)
+    return np.prod(phi_upper, axis=1) - np.prod(1.0 - phi_upper, axis=1)
+
+
+def normal_pdf(x: np.ndarray, loc: float, scale: float) -> np.ndarray:
+    """1-D normal pdf."""
+    x = np.asarray(x, dtype=np.float64)
+    return np.exp(-0.5 * ((x - loc) / scale) ** 2) / (scale * np.sqrt(2 * np.pi))

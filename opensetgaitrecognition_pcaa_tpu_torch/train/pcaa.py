@@ -138,7 +138,7 @@ class PCAAState:
 
 
 def build_pcaa(cfg: Config, spec: VariantSpec, *,
-               device: Device = "cpu") -> Tuple[PCAAModules, PCAAState]:
+               device: Device = "cuda") -> Tuple[PCAAModules, PCAAState]:
     """Modules with torch's default init drawn from ``cfg.SEED``, zero Adam
     states and the fixed centroids, on ``device``."""
     _check_supported(cfg, spec)
@@ -304,7 +304,7 @@ def train_pcaa(
     datasets: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]] = None,
     verbose: bool = True,
     resume: bool = True,
-    device: Optional[Device] = None,
+    device: Device = "cuda",
 ) -> Dict[str, float]:
     """Train one PCAA run end to end; write the run folder the JAX package
     writes (``config.json``, ``metrics.jsonl``, ``discriminator_means.npy``,
@@ -313,7 +313,7 @@ def train_pcaa(
 
     :param datasets: optional ``(x_train, y_train, x_valid, y_valid)``;
         otherwise the splits are read from ``cfg.GEN_DATA_PATH``.
-    :param device: default the CUDA card if there is one, else the CPU.
+    :param device: the CUDA card unless the caller asks for the CPU.
     """
     ieee_f32()
     spec = VARIANTS[variation]
@@ -329,7 +329,7 @@ def train_pcaa(
         raise NotImplementedError(
             f"{run_dir} holds a resume state, which the port cannot read yet"
         )
-    device = torch.device(device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = torch.device(device)
 
     os.makedirs(run_dir, exist_ok=True)
     cfg.save(os.path.join(run_dir, "config.json"))

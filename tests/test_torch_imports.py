@@ -1,16 +1,36 @@
 """The port runs where JAX, flax, msgpack, sklearn and matplotlib are not
-installed: importing every one of its modules loads none of them."""
+installed, and it stands apart from the JAX package: importing every one
+of its modules, or every module that ``chip_smoke.py`` imports (at its top
+or inside its functions), loads none of them."""
 
 import subprocess
 import sys
 from pathlib import Path
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "sklearn", "matplotlib")
+# top-level names; the port's own name starts with the JAX package's, so
+# names are compared whole, never as prefixes
+FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "sklearn", "matplotlib",
+             "opensetgaitrecognition_pcaa_tpu")
 
-_SCRIPT = """
-import importlib, pkgutil, sys
+_PORT = """
+import importlib, pkgutil
 import opensetgaitrecognition_pcaa_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+"""
+
+_SMOKE = """
+import ast, importlib
+tree = ast.parse(open("chip_smoke.py").read())
+names = ["chip_smoke"]
+for node in ast.walk(tree):
+    if isinstance(node, ast.Import):
+        names += [a.name for a in node.names]
+    elif isinstance(node, ast.ImportFrom):
+        names.append(node.module)
+"""
+
+_REPORT = """
+import sys
 for name in names:
     importlib.import_module(name)
 print(len(names))
@@ -18,14 +38,26 @@ print(",".join(sorted({m.split(".")[0] for m in sys.modules})))
 """
 
 
-def test_port_imports_no_jax_stack():
+def _loaded(script: str, min_modules: int) -> set:
+    """Run ``script`` in a fresh interpreter → the top-level names in
+    ``sys.modules`` after it imported its ``names``."""
     root = Path(__file__).resolve().parents[1]
     proc = subprocess.run(
-        [sys.executable, "-c", _SCRIPT], cwd=root, capture_output=True, text=True,
+        [sys.executable, "-c", script + _REPORT], cwd=root, capture_output=True, text=True,
         check=True,
     )
     n_modules, loaded = proc.stdout.strip().splitlines()
-    assert int(n_modules) >= 15
+    assert int(n_modules) >= min_modules
     loaded = set(loaded.split(","))
-    assert "torch" in loaded
+    assert "torch" in loaded and "opensetgaitrecognition_pcaa_tpu_torch" in loaded
+    return loaded
+
+
+def test_port_imports_no_jax_stack():
+    loaded = _loaded(_PORT, 25)
+    assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))
+
+
+def test_chip_smoke_imports_no_jax_stack():
+    loaded = _loaded(_SMOKE, 20)
     assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))

@@ -17,13 +17,13 @@ import numpy as np
 import pytest
 import torch
 
-from opensetgaitrecognition_pcaa_tpu.config import SPLIT, Config
+from opensetgaitrecognition_pcaa_tpu.config import SPLIT as JAX_SPLIT, Config
 from opensetgaitrecognition_pcaa_tpu.data.dataset import RadarCropDataset as JaxDataset
 from opensetgaitrecognition_pcaa_tpu.infer.pcaa import pcaa_inference as jax_pcaa_inference
 from opensetgaitrecognition_pcaa_tpu.models import CGEncoder as FlaxCGEncoder
 from opensetgaitrecognition_pcaa_tpu.train.run_folder import module_path, save_params
 
-from opensetgaitrecognition_pcaa_tpu_torch.config import VARIATION
+from opensetgaitrecognition_pcaa_tpu_torch.config import SPLIT, VARIATION
 from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import RadarCropDataset
 from opensetgaitrecognition_pcaa_tpu_torch.infer.pcaa import (
     OpenSetCalibration,
@@ -51,7 +51,7 @@ def runs(generated_splits, tmp_path_factory):
         GEN_DATA_PATH=gen, MODEL_NAME=NAME, TRAIN_CLASSES=(0, 1, 2),
         NMAX=64, NSTEPS=12, CROP_STEP=4, **DIMS,
     )
-    x, _ = JaxDataset(SPLIT.TRAIN, gen).load_all()
+    x, _ = JaxDataset(JAX_SPLIT.TRAIN, gen).load_all()
     enc = FlaxCGEncoder(
         n_out_labels=3, sup_latent_dim=cfg.SUP_LATENT_DIM,
         pointnet_out_dim=cfg.POINTNET_OUT_DIM, dtc_filters=cfg.DTC_FILTERS,

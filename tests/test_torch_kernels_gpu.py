@@ -12,8 +12,10 @@ import pytest
 import torch
 
 from opensetgaitrecognition_pcaa_tpu_torch.ops import adam
+from opensetgaitrecognition_pcaa_tpu_torch.ops import chamfer_kernel as ck
 from opensetgaitrecognition_pcaa_tpu_torch.ops import pointnet_infer as pn
 from opensetgaitrecognition_pcaa_tpu_torch.ops import pointnet_train as pt
+from opensetgaitrecognition_pcaa_tpu_torch.ops.chamfer import frame_chamfer, seq_chamfer
 
 
 def _folded(rng, c: int, d: int, device: str = "cpu"):
@@ -252,3 +254,86 @@ def test_adam_raises_instead_of_falling_back():
         adam.adam_update_(g.double(), w, m, v, **coeffs)
     with pytest.raises(ValueError, match="is on cpu"):
         adam.adam_update_(g, w, m.cpu(), v, **coeffs)
+
+
+# --- Chamfer ------------------------------------------------------------------
+
+CHAMFER_TOL = dict(rtol=1e-5, atol=1e-6)  # kernel against plain
+
+
+def _clouds(rng, b, t, n, m, device="cuda", c=4):
+    """Crop-like clouds: gts zero-padded after a random count of points."""
+    gts = rng.normal(size=(b, t, n, c)).astype(np.float32)
+    for idx in np.ndindex(b, t):
+        gts[idx][rng.integers(max(1, n // 2), n + 1):] = 0.0
+    preds = (0.7 * rng.normal(size=(b, t, m, c)) + 0.2).astype(np.float32)
+    return torch.from_numpy(preds).to(device), torch.from_numpy(gts).to(device)
+
+
+def _check_chamfer(got, preds, gts):
+    """The kernel rounds each distance as the plain version does, so only
+    the order of the sums differs from it (measured 2.8e-7 relative); the
+    f64 oracle is held at the JAX package's Chamfer parity bound, since two
+    f32 paths of xx + yy - 2xy cancel apart by up to about 2e-4."""
+    torch.testing.assert_close(got, frame_chamfer(preds, gts), **CHAMFER_TOL)
+    d = ((gts.double()[:, :, :, None] - preds.double()[:, :, None]) ** 2).sum(-1)
+    oracle = d.amin(2).sum(2) + d.amin(3).sum(2)
+    torch.testing.assert_close(got.double(), oracle, rtol=1e-3, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "b,t,n,m",
+    [(8, 30, 150, 150), (3, 5, 37, 53), (2, 3, 1, 1), (2, 3, 1, 9), (1, 2, 1500, 2100),
+     (4, 6, 704, 704)],
+    ids=["n150", "ragged_n37_m53", "n1", "n1_m9", "two_tiles", "n704"],
+)
+def test_chamfer_kernel_matches_plain_and_f64(b, t, n, m):
+    _needs_card()
+    preds, gts = _clouds(np.random.default_rng(10), b, t, n, m)
+    before = ck.seq_chamfer_kernel.launches
+    got = ck.frame_chamfer_kernel(preds, gts)
+    torch.cuda.synchronize()
+    assert ck.seq_chamfer_kernel.launches == before + 1
+    _check_chamfer(got, preds, gts)
+    for avg_out in (True, False):
+        torch.testing.assert_close(ck.seq_chamfer_kernel(preds, gts, avg_out=avg_out),
+                                   seq_chamfer(preds, gts, avg_out=avg_out), **CHAMFER_TOL)
+
+
+@pytest.mark.gpu
+def test_chamfer_kernel_five_channels():
+    _needs_card()
+    preds, gts = _clouds(np.random.default_rng(13), 3, 5, 37, 53, c=5)
+    got = ck.frame_chamfer_kernel(preds, gts)
+    torch.cuda.synchronize()
+    _check_chamfer(got, preds, gts)
+
+
+@pytest.mark.gpu
+def test_chamfer_gradients_on_the_card():
+    """The kernel's forward with the plain argmin backward, on the card,
+    against the same Function on the CPU."""
+    _needs_card()
+    preds, gts = _clouds(np.random.default_rng(11), 2, 3, 37, 53, device="cpu")
+    w = torch.linspace(0.5, 2.0, 2)
+    grads = []
+    for device in ("cuda", "cpu"):
+        p = preds.to(device).requires_grad_()
+        g = gts.to(device).requires_grad_()
+        (w.to(device) * ck.seq_chamfer_kernel(p, g, avg_out=False)).sum().backward()
+        grads.append((p.grad.cpu(), g.grad.cpu()))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_chamfer_raises_instead_of_falling_back():
+    _needs_card()
+    preds, gts = _clouds(np.random.default_rng(12), 2, 3, 16, 16)
+    with pytest.raises(ValueError, match="float32"):
+        ck.seq_chamfer_kernel(preds.double(), gts.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.seq_chamfer_kernel(preds.transpose(1, 2), gts.transpose(1, 2))
+    with pytest.raises(ValueError, match="is on cpu"):
+        ck.seq_chamfer_kernel(preds, gts.cpu())

@@ -43,7 +43,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from opensetgaitrecognition_pcaa_tpu.config import SPLIT, Config
+from opensetgaitrecognition_pcaa_tpu.config import VARIATION as JAX_VARIATION, Config as JaxConfig
 from opensetgaitrecognition_pcaa_tpu.data.dataset import (
     epoch_batch_indices as jax_epoch_batch_indices,
 )
@@ -56,7 +56,7 @@ from opensetgaitrecognition_pcaa_tpu.train.pcaa import (
 )
 from opensetgaitrecognition_pcaa_tpu.train.run_folder import load_params as jax_load_params
 
-from opensetgaitrecognition_pcaa_tpu_torch.config import VARIATION
+from opensetgaitrecognition_pcaa_tpu_torch.config import SPLIT, VARIATION, Config
 from opensetgaitrecognition_pcaa_tpu_torch.convert import pcaa_state_from_jax, pcaa_state_to_jax
 from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import (
     RadarCropDataset,
@@ -101,9 +101,9 @@ def _tree(state):
 
 @pytest.fixture(scope="module")
 def start():
-    """→ (cfg, JAX modules, JAX state, data): one JAX build_pcaa state."""
-    cfg = Config(MODEL_NAME="PORT_V4", SUPERVISION_FREQUENCY=2, **DIMS)
-    mods, state = jax_build_pcaa(cfg, JAX_VARIANTS[VARIATION.V4], jax.random.PRNGKey(0))
+    """→ (JAX cfg, JAX modules, JAX state, data): one JAX build_pcaa state."""
+    cfg = JaxConfig(MODEL_NAME="PORT_V4", SUPERVISION_FREQUENCY=2, **DIMS)
+    mods, state = jax_build_pcaa(cfg, JAX_VARIANTS[JAX_VARIATION.V4], jax.random.PRNGKey(0))
     rng = np.random.default_rng(0)
     n = STEPS * cfg.BATCH_SIZE
     data = dict(
@@ -149,18 +149,19 @@ def runs(request, start):
         jax_one, jax_three, jax_metrics = _jax_run(cfg, mods, state, data)
 
     x, y = torch.from_numpy(data["x"]), torch.from_numpy(data["y"])
+    pcfg = Config.from_dict(cfg.to_dict())  # the same fields, the port's Config
     # one step
-    pmods, pstate = build_pcaa(cfg, VARIANTS[VARIATION.V4])
+    pmods, pstate = build_pcaa(pcfg, VARIANTS[VARIATION.V4], device="cpu")
     pcaa_state_from_jax(tree0, pmods, pstate)
     idx = torch.from_numpy(data["perm"][0]).long()
-    step = make_train_step(pmods, cfg)
+    step = make_train_step(pmods, pcfg)
     pstate, m1 = step(pstate, x[idx], y[idx], 0,
                       (torch.from_numpy(data["z0"][0]), torch.from_numpy(data["alphas"][0])))
     port_one = pcaa_state_to_jax(pmods, pstate)
     # an epoch of three
-    pmods, pstate = build_pcaa(cfg, VARIANTS[VARIATION.V4])
+    pmods, pstate = build_pcaa(pcfg, VARIANTS[VARIATION.V4], device="cpu")
     pcaa_state_from_jax(tree0, pmods, pstate)
-    train_epoch, _ = make_epoch_fns(pmods, cfg)
+    train_epoch, _ = make_epoch_fns(pmods, pcfg)
     pstate, m3 = train_epoch(pstate, x, y, data["perm"],
                              (torch.from_numpy(data["z0"]), torch.from_numpy(data["alphas"])))
     port_three = pcaa_state_to_jax(pmods, pstate)
@@ -220,7 +221,7 @@ def test_state_round_trips_through_the_port(start):
     _, _, state, _ = start
     tree = _tree(state)
     cfg = Config(MODEL_NAME="PORT_V4", **DIMS)
-    mods, pstate = build_pcaa(cfg, VARIANTS[VARIATION.V4])
+    mods, pstate = build_pcaa(cfg, VARIANTS[VARIATION.V4], device="cpu")
     pcaa_state_from_jax(tree, mods, pstate)
     back = pcaa_state_to_jax(mods, pstate)
     assert jax.tree_util.tree_structure(back) == jax.tree_util.tree_structure(tree)
