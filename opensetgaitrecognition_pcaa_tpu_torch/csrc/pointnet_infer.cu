@@ -1,233 +1,189 @@
 // Eval-mode PointNet stack + mean pooling over points, written by hand for
-// Hopper (sm_90a), f32 on the CUDA cores.
+// Hopper (sm_90a) on the tensor cores, in the exact three-pass TF32 mode of
+// tf32x3.cuh.
 //
 // Replaces opensetgaitrecognition_pcaa_tpu/ops/pallas/pointnet_infer.py::
 // _pointnet_kernel. Same function: BatchNorm is folded into W', b', and
 // every point of a frame runs 4 x (matmul -> + b' -> ELU) over the widths
-// C -> D/2 -> D/2 -> D -> D, then the frame's N points are averaged. Only
-// the pooled (frames, D) rows reach device memory.
+// C -> D/2 -> D/2 -> D -> D, then the frame's N points are averaged.
 //
-// What bounds it: f32 FFMA. A crop of 30 frames x 150 points costs about
-// 16.6 GFLOP at D = 1024 and C = 4, against about 72 KB of input and 120 KB
-// of output, so the kernel is compute-bound by three orders of magnitude.
-// The weights (7.4 MB at D = 1024) are read from global memory and stay
-// resident in the 50 MB L2.
+// What bounds it: the 3xTF32 operations. A crop of 30 frames x 150 points
+// costs about 16.5 GFLOP at D = 1024 and C = 4, three tensor-core passes
+// each, at 495 TFLOP/s dense TF32: 25.65 ms for a chunk of 256 crops,
+// against 63.17 ms for f32 FFMA on the CUDA cores.
 //
-// Design, simple first:
-// - one block of 256 threads per frame: no cross-block reduction, no
-//   atomics, and the same result whatever the batch;
-// - a loop inside the block over tiles of 32 points;
-// - activations ping-pong in dynamic shared memory, channel-major
-//   ([channel][32 points]): A holds 32 x D floats (128 KB at D = 1024) and
-//   B 32 x D/2 (64 KB). The chain runs x -> A[:D/2] -> B -> A -> layer 4;
-// - each thread owns D/256 output columns of a layer for all 32 points of
-//   the tile, so a weight read from global memory is used 32 times from a
-//   register and every thread of a warp reads the same activation word (a
-//   shared-memory broadcast). Layer 4 never goes to shared memory: its ELU
-//   output is summed over the tile's valid points straight into the
-//   thread's pooled accumulators, which live in registers;
-// - weight rows are loaded 4 at a time, one group ahead of their FMAs
-//   (measured on the H100: 124 ms -> 110 ms at 256 crops against 1 row
-//   ahead);
-// - rows of a ragged last tile are computed on zero input and left out of
-//   the sum; the mean divides by N.
-//
-// Later work: wgmma and TMA, a measured TF32 or bf16 mode, and tiles of
-// more than 32 points so that each weight byte does more work.
+// Design: the stack runs layer by layer, four launches of the one engine:
+// - the wrapper hands the kernel x with each frame's points padded to
+//   Np = N rounded up to 16 and the channels to a multiple of 4 (zeros),
+//   so that every m16 row tile of the engine lies inside one frame;
+// - layers 1-3: identity prologue; the epilogue adds b' and applies ELU
+//   and stores the activations (2 x D/2 + D floats a point, written and
+//   read once: at (256, 30, 150) about 19 GB of device memory traffic,
+//   some 6 ms at 3.35 TB/s, well under the bound);
+// - layer 4: its epilogue adds b', applies ELU and sums each m16 tile's
+//   16 rows over the frame's valid points (a fixed butterfly over the
+//   lanes) into one partial row per 16 points; a last small kernel adds a
+//   frame's Np / 16 partial rows in order and divides by N.
+// No atomics: every sum has a fixed order, and a frame's pooled row does
+// not depend on the other frames of the batch (each output value is one
+// fixed-order dot product, and the 16-point groups start at the frame's
+// first point), so serving a few crops gives the rows a 256-crop chunk
+// gives. The wrapper allocates the activations for at most
+// `frames_per_pass` frames and the kernel walks the batch in such passes,
+// so it takes any number of frames and points.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int kRows = 32;      // points per tile
-constexpr int kThreads = 256;  // threads per block
-constexpr int kPrefetch = 4;   // weight rows loaded ahead of use
+using tf32x3::Acc;
+using tf32x3::elu;
+using tf32x3::frag_col;
+using tf32x3::frag_row;
 
-__device__ __forceinline__ float elu(float v) { return v > 0.f ? v : expm1f(v); }
+constexpr int kGroup = 16;  // points per partial row: the m16 tile
+constexpr int kPoolThreads = 256;
 
-// w[j] = W[k][col0 + j] for j < CPT, as one vector load.
-template <int CPT>
-__device__ __forceinline__ void load_row(const float* __restrict__ p, float (&w)[CPT]) {
-  if constexpr (CPT == 4) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-  } else if constexpr (CPT == 2) {
-    const float2 v = __ldg(reinterpret_cast<const float2*>(p));
-    w[0] = v.x; w[1] = v.y;
-  } else {
-    w[0] = __ldg(p);
-  }
-}
-
-// acc[r][j] = sum_k in[k][r] * W[k][col0 + j] for the tile's 32 points.
-// `in` is channel-major in shared memory; W is (din, dout) row-major.
-template <int CPT>
-__device__ __forceinline__ void matmul_tile(const float* __restrict__ in, int din,
-                                            const float* __restrict__ W, int dout,
-                                            int col0, float (&acc)[kRows][CPT]) {
+// y[r][c] = ELU(acc + b[c]) for r < rows.
+struct BiasEluStore {
+  const float* bias;
+  float* y;
+  int rows, n;
+  __device__ void operator()(Acc& acc, int row0, int col0, float*) const {
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
+    for (int j = 0; j < tf32x3::kNT; ++j) {
+      const int c = col0 + frag_col(j, 0);
+      if (c >= n) continue;  // n % 4 == 0: both columns of the pair are in or out
+      const float b0 = __ldg(bias + c), b1 = __ldg(bias + c + 1);
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[r][j] = 0.f;
-  }
-  // Weight rows are read kPrefetch at a time, one group ahead of the FMAs
-  // that use them: the loads come from L2, and with one block of 8 warps
-  // per SM a single row in flight left the FMA pipes waiting.
-  float w[kPrefetch][CPT];
-  float w_next[kPrefetch][CPT];
-  const int last = din - 1;
+      for (int i = 0; i < tf32x3::kMT; ++i) {
 #pragma unroll
-  for (int p = 0; p < kPrefetch; ++p) {
-    load_row<CPT>(W + static_cast<size_t>(p < last ? p : last) * dout + col0, w[p]);
-  }
-  for (int k = 0; k < din; k += kPrefetch) {
-#pragma unroll
-    for (int p = 0; p < kPrefetch; ++p) {
-      // past the last row, reload it (harmless, never used)
-      const int kn = k + kPrefetch + p < din ? k + kPrefetch + p : last;
-      load_row<CPT>(W + static_cast<size_t>(kn) * dout + col0, w_next[p]);
-    }
-#pragma unroll
-    for (int p = 0; p < kPrefetch; ++p) {
-      if (k + p < din) {
-        const float4* a4 = reinterpret_cast<const float4*>(in + (k + p) * kRows);
-#pragma unroll
-        for (int q = 0; q < kRows / 4; ++q) {
-          const float4 a = a4[q];
-#pragma unroll
-          for (int j = 0; j < CPT; ++j) {
-            acc[4 * q + 0][j] = fmaf(a.x, w[p][j], acc[4 * q + 0][j]);
-            acc[4 * q + 1][j] = fmaf(a.y, w[p][j], acc[4 * q + 1][j]);
-            acc[4 * q + 2][j] = fmaf(a.z, w[p][j], acc[4 * q + 2][j]);
-            acc[4 * q + 3][j] = fmaf(a.w, w[p][j], acc[4 * q + 3][j]);
+        for (int h = 0; h < 2; ++h) {
+          const int r = row0 + frag_row(i, 2 * h);
+          if (r < rows) {
+            *reinterpret_cast<float2*>(y + static_cast<size_t>(r) * n + c) =
+                make_float2(elu(acc[i][j][2 * h] + b0), elu(acc[i][j][2 * h + 1] + b1));
           }
         }
       }
     }
-#pragma unroll
-    for (int p = 0; p < kPrefetch; ++p) {
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) w[p][j] = w_next[p][j];
-    }
   }
-}
+};
 
-// out[col][r] = ELU(in @ W + b) for a hidden layer of width 256 * CPT.
-template <int CPT>
-__device__ __forceinline__ void hidden_layer(const float* __restrict__ in, int din,
-                                             const float* __restrict__ W,
-                                             const float* __restrict__ b,
-                                             float* __restrict__ out) {
-  constexpr int dout = kThreads * CPT;
-  const int col0 = threadIdx.x * CPT;
-  float acc[kRows][CPT];
-  matmul_tile<CPT>(in, din, W, dout, col0, acc);
+// partial[r / 16][c] = sum of ELU(acc + b[c]) over the m16 tile's rows that
+// are valid points (frame-local index < n_points), for the padded layout of
+// np points a frame.
+struct BiasEluGroupSum {
+  const float* bias;
+  float* partial;
+  int rows, n, np, n_points;
+  __device__ void operator()(Acc& acc, int row0, int col0, float*) const {
+    const int lane = threadIdx.x % 32;
+    bool valid[tf32x3::kMT][2];
 #pragma unroll
-  for (int j = 0; j < CPT; ++j) {
-    const float bj = __ldg(b + col0 + j);
-    float4* o = reinterpret_cast<float4*>(out + (col0 + j) * kRows);
+    for (int i = 0; i < tf32x3::kMT; ++i) {
 #pragma unroll
-    for (int q = 0; q < kRows / 4; ++q) {
-      o[q] = make_float4(elu(acc[4 * q + 0][j] + bj), elu(acc[4 * q + 1][j] + bj),
-                         elu(acc[4 * q + 2][j] + bj), elu(acc[4 * q + 3][j] + bj));
-    }
-  }
-}
-
-// One block per frame: x (frames, n, c) -> out (frames, D).
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-pointnet_pool_kernel(const float* __restrict__ x, int n, int c,
-                     const float* __restrict__ w1, const float* __restrict__ b1,
-                     const float* __restrict__ w2, const float* __restrict__ b2,
-                     const float* __restrict__ w3, const float* __restrict__ b3,
-                     const float* __restrict__ w4, const float* __restrict__ b4,
-                     float* __restrict__ out) {
-  constexpr int H = D / 2;
-  constexpr int kHalf = H / kThreads;  // columns per thread, D/2-wide layers
-  constexpr int kFull = D / kThreads;  // columns per thread, D-wide layers
-
-  extern __shared__ float4 smem4[];
-  float* A = reinterpret_cast<float*>(smem4);  // [D][kRows]
-  float* B = A + D * kRows;                    // [H][kRows]
-  float* xs = B + H * kRows;                   // [c][kRows]
-
-  const float* xf = x + static_cast<size_t>(blockIdx.x) * n * c;
-  const int col0 = threadIdx.x * kFull;
-  float pool[kFull];
-#pragma unroll
-  for (int j = 0; j < kFull; ++j) pool[j] = 0.f;
-
-  for (int t0 = 0; t0 < n; t0 += kRows) {
-    const int rows = n - t0 < kRows ? n - t0 : kRows;
-    // read the tile point-major (coalesced), store it channel-major;
-    // rows past n are zero so that every value stays finite
-    for (int i = threadIdx.x; i < kRows * c; i += kThreads) {
-      const int r = i / c;
-      const int ch = i - r * c;
-      xs[ch * kRows + r] = r < rows ? xf[static_cast<size_t>(t0 + r) * c + ch] : 0.f;
-    }
-    __syncthreads();
-    hidden_layer<kHalf>(xs, c, w1, b1, A);
-    __syncthreads();
-    hidden_layer<kHalf>(A, H, w2, b2, B);
-    __syncthreads();
-    hidden_layer<kFull>(B, H, w3, b3, A);
-    __syncthreads();
-    float acc[kRows][kFull];
-    matmul_tile<kFull>(A, D, w4, D, col0, acc);
-#pragma unroll
-    for (int j = 0; j < kFull; ++j) {
-      const float bj = __ldg(b4 + col0 + j);
-      float s = 0.f;
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (r < rows) s += elu(acc[r][j] + bj);
+      for (int h = 0; h < 2; ++h) {
+        const int r = row0 + frag_row(i, 2 * h);
+        valid[i][h] = r < rows && r % np < n_points;
       }
-      pool[j] += s;
     }
-    __syncthreads();  // the next tile overwrites xs and A
-  }
-
-  float* o = out + static_cast<size_t>(blockIdx.x) * D + col0;
-  const float fn = static_cast<float>(n);
 #pragma unroll
-  for (int j = 0; j < kFull; ++j) o[j] = pool[j] / fn;
+    for (int j = 0; j < tf32x3::kNT; ++j) {
+      const int c = col0 + frag_col(j, 0);
+      const bool col_ok = c < n;
+      const float b0 = col_ok ? __ldg(bias + c) : 0.f;
+      const float b1 = col_ok ? __ldg(bias + c + 1) : 0.f;
+#pragma unroll
+      for (int i = 0; i < tf32x3::kMT; ++i) {
+        float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (valid[i][h]) {
+            s0 += elu(acc[i][j][2 * h] + b0);
+            s1 += elu(acc[i][j][2 * h + 1] + b1);
+          }
+        }
+        // every lane takes part in the shuffles
+        s0 = tf32x3::sum_row_groups(s0);
+        s1 = tf32x3::sum_row_groups(s1);
+        const int r = row0 + frag_row(i, 0);  // the tile's first row for lanes 0-3
+        if (lane < 4 && col_ok && r < rows) {
+          *reinterpret_cast<float2*>(partial + static_cast<size_t>(r / kGroup) * n + c) =
+              make_float2(s0, s1);
+        }
+      }
+    }
+  }
+};
+
+// out[f][c] = (sum over g < groups of partial[f * groups + g][c]) / n_points.
+__global__ void __launch_bounds__(kPoolThreads)
+group_mean_kernel(const float* __restrict__ partial, int groups, int d, int n_points,
+                  float* __restrict__ out) {
+  const int c = blockIdx.y * kPoolThreads + threadIdx.x;
+  if (c >= d) return;
+  const float* p = partial + static_cast<size_t>(blockIdx.x) * groups * d + c;
+  float s = 0.f;
+  for (int g = 0; g < groups; ++g) s += p[static_cast<size_t>(g) * d];
+  out[static_cast<size_t>(blockIdx.x) * d + c] = s / static_cast<float>(n_points);
 }
 
-template <int D>
-cudaError_t launch(const float* x, int frames, int n, int c, const float* w1,
-                   const float* b1, const float* w2, const float* b2, const float* w3,
-                   const float* b3, const float* w4, const float* b4, float* out,
-                   cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(D + D / 2 + c) * kRows * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      pointnet_pool_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+cudaError_t run_pass(const float* x, int frames, int n_points, int np, int c, int d,
+                     const float* const (&w)[4], const float* const (&b)[4], float* act_a,
+                     float* act_b, float* partial, float* out, cudaStream_t s) {
+  using tf32x3::Identity;
+  const int h = d / 2;
+  const int rows = frames * np;
+  cudaError_t err;
+  err = tf32x3::launch(x, w[0], rows, c, h, Identity{}, BiasEluStore{b[0], act_a, rows, h}, s);
   if (err != cudaSuccess) return err;
-  pointnet_pool_kernel<D><<<frames, kThreads, smem, stream>>>(
-      x, n, c, w1, b1, w2, b2, w3, b3, w4, b4, out);
+  err = tf32x3::launch(act_a, w[1], rows, h, h, Identity{}, BiasEluStore{b[1], act_b, rows, h}, s);
+  if (err != cudaSuccess) return err;
+  err = tf32x3::launch(act_b, w[2], rows, h, d, Identity{}, BiasEluStore{b[2], act_a, rows, d}, s);
+  if (err != cudaSuccess) return err;
+  err = tf32x3::launch(act_a, w[3], rows, d, d, Identity{},
+                       BiasEluGroupSum{b[3], partial, rows, d, np, n_points}, s);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(frames, (d + kPoolThreads - 1) / kPoolThreads);
+  group_mean_kernel<<<grid, kPoolThreads, 0, s>>>(partial, np / kGroup, d, n_points, out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes. x: (frames, n, c) f32; w1 (c, D/2),
-// w2 (D/2, D/2), w3 (D/2, D), w4 (D, D), b1..b4 f32, all contiguous;
-// out: (frames, D) f32. D is 512 or 1024. Returns the cudaError_t of the
-// launch (0 on success).
-extern "C" int pointnet_pool_infer_f32(const float* x, const float* w1, const float* b1,
-                                       const float* w2, const float* b2, const float* w3,
-                                       const float* b3, const float* w4, const float* b4,
-                                       float* out, int frames, int n, int c, int d,
-                                       void* stream) {
-  if (frames < 1 || n < 1 || c < 1) return static_cast<int>(cudaErrorInvalidValue);
+// Plain C entry point for ctypes. x: (frames, np, c) f32, each frame's
+// points past n_points and channels past the real ones zero; np a multiple
+// of 16, c a multiple of 4. The weights transposed, (out, in): w1t
+// (D/2, c), w2t (D/2, D/2), w3t (D, D/2), w4t (D, D); b1..b4; out
+// (frames, D). Scratch: act_a of frames_per_pass *
+// np * D floats, act_b of frames_per_pass * np * D/2, partial of
+// frames_per_pass * np / 16 * D. All f32, contiguous, on the card. D is 512
+// or 1024. Returns the cudaError_t of the launches (0 on success).
+extern "C" int pointnet_pool_infer_f32(const float* x, const float* w1t, const float* b1,
+                                       const float* w2t, const float* b2, const float* w3t,
+                                       const float* b3, const float* w4t, const float* b4,
+                                       float* out, float* act_a, float* act_b, float* partial,
+                                       int frames, int n_points, int np, int c, int d,
+                                       int frames_per_pass, void* stream) {
+  if (frames < 1 || n_points < 1 || np < n_points || np % kGroup != 0 || c < 4 || c % 4 != 0 ||
+      frames_per_pass < 1 || (d != 512 && d != 1024) ||
+      static_cast<long long>(frames_per_pass) * np * d > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 1024)
-    return static_cast<int>(launch<1024>(x, frames, n, c, w1, b1, w2, b2, w3, b3, w4, b4, out, s));
-  if (d == 512)
-    return static_cast<int>(launch<512>(x, frames, n, c, w1, b1, w2, b2, w3, b3, w4, b4, out, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  const float* const w[4] = {w1t, w2t, w3t, w4t};
+  const float* const b[4] = {b1, b2, b3, b4};
+  for (int f0 = 0; f0 < frames; f0 += frames_per_pass) {
+    const int nf = frames - f0 < frames_per_pass ? frames - f0 : frames_per_pass;
+    const cudaError_t err =
+        run_pass(x + static_cast<size_t>(f0) * np * c, nf, n_points, np, c, d, w, b, act_a,
+                 act_b, partial, out + static_cast<size_t>(f0) * d, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 into ``<repo>/build/kernels/lib<name>_<hash>.so``; the hash covers the
-source and the flags, so an edited source is rebuilt and a stale library is
-never loaded. Nothing here runs at import time: the CPU tests import every
-module on machines without nvcc.
+source, every ``csrc/`` header it includes and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded. Nothing
+here runs at import time: the CPU tests import every module on machines
+without nvcc.
 """
 
 from __future__ import annotations
@@ -12,12 +13,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG_DIR / "csrc"
@@ -27,6 +29,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # nvcc's output (ptxas register and shared-memory report) per built library
@@ -47,16 +51,40 @@ def _nvcc() -> str:
     return found
 
 
+def source_digest(name: str, src_dir: Optional[Path] = None) -> str:
+    """Hash of ``<src_dir>/<name>.cu``, of every header under ``src_dir``
+    that it includes (directly or through another header, each once, in
+    include order) and of the nvcc flags. ``src_dir`` defaults to
+    ``SRC_DIR`` as it stands at the call, the directory ``load_library``
+    compiles from."""
+    if src_dir is None:
+        src_dir = SRC_DIR
+    files = []
+
+    def visit(path: Path) -> None:
+        if path in files:
+            return
+        files.append(path)
+        for inc in _INCLUDE.findall(path.read_text()):
+            dep = src_dir / inc
+            if dep.is_file():
+                visit(dep)
+
+    visit(src_dir / f"{name}.cu")
+    h = hashlib.sha256()
+    for path in files:
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if needed and return the loaded library."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
     src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    so_path = BUILD_DIR / f"lib{name}_{digest}.so"
+    so_path = BUILD_DIR / f"lib{name}_{source_digest(name, src.parent)}.so"
     if not so_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)

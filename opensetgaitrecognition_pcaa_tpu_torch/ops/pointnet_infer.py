@@ -10,9 +10,14 @@ followed by the mean over the points of each frame:
 ``pointnet_pool_infer`` launches ``csrc/pointnet_infer.cu`` for a CUDA
 tensor and raises on anything the kernel does not take; for a CPU tensor it
 computes ``pointnet_pool_ref``, the plain version that the tests and
-``chip_smoke.py`` hold the kernel against. The TPU kernel's VMEM budget,
-grid-size guard and precision routing are not carried over: the CUDA kernel
-takes any number of frames and points.
+``chip_smoke.py`` hold the kernel against. The kernel runs the four layers
+on the tensor cores in the exact three-pass TF32 mode (``ops/tf32x3.py``).
+The TPU kernel's VMEM budget, grid-size guard and precision routing are not
+carried over: the CUDA kernel takes any number of frames, points and
+channels. The wrapper pads each frame's points to a multiple of 16 and the
+channels to a multiple of 4 with zeros, hands the weights over transposed
+(the kernel reads them K-major), and allocates the activations of at most
+``_PASS_ROWS`` padded points, through which the kernel walks the batch.
 """
 
 from __future__ import annotations
@@ -26,8 +31,10 @@ import torch.nn.functional as F
 from opensetgaitrecognition_pcaa_tpu_torch.ops._build import load_library
 
 _KERNEL = "pointnet_infer"
-_MAX_SMEM_BYTES = 232_448  # dynamic shared memory a Hopper block may use
-_ROWS = 32  # points per tile in the kernel
+_GROUP = 16  # points per partial row of the pool: the kernel's m16 row tile
+# padded points per pass of the kernel: 256 crops of 30 frames x 150 points
+# (1,228,800 padded) go in one pass, with 7.5 GB of activations at D = 1024
+_PASS_ROWS = 1_310_720
 
 
 def fold_batchnorm(
@@ -85,9 +92,8 @@ def _check_cuda_args(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> int:
     }
     if d not in (512, 1024):
         raise ValueError(f"the kernel takes D in (512, 1024), got D={d}")
-    smem = (d + h + c) * _ROWS * 4
-    if smem > _MAX_SMEM_BYTES:
-        raise ValueError(f"C={c} needs {smem} B of shared memory at D={d}")
+    if c < 1:
+        raise ValueError(f"x has no channels: {tuple(x.shape)}")
     for name, t in [("x", x)] + [(k, folded[k]) for k in want]:
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
@@ -105,7 +111,7 @@ def _check_cuda_args(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> int:
 def _library() -> ctypes.CDLL:
     lib = load_library(_KERNEL)
     fn = lib.pointnet_pool_infer_f32
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -123,14 +129,31 @@ def pointnet_pool_infer(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> tor
         raise ValueError(f"no kernel for device {x.device}")
     d = _check_cuda_args(x, folded)
     b, t, n, c = x.shape
+    frames = b * t
+    np_ = -(-n // _GROUP) * _GROUP
+    c4 = -(-c // 4) * 4
+    xp = x.reshape(frames, n, c)
+    if (np_, c4) != (n, c):
+        xp = F.pad(xp, (0, c4 - c, 0, np_ - n))
+    w1 = folded["w1"]
+    if c4 != c:
+        w1 = F.pad(w1, (0, 0, 0, c4 - c))
+    # the kernel reads the weights K-major: (out, in)
+    wts = [w1.t().contiguous()] + [folded[f"w{i}"].t().contiguous() for i in range(2, 5)]
+    per_pass = max(1, min(frames, _PASS_ROWS // np_))
+    rows = per_pass * np_
     out = torch.empty((b, t, d), dtype=torch.float32, device=x.device)
+    act_a = torch.empty((rows, d), dtype=torch.float32, device=x.device)
+    act_b = torch.empty((rows, d // 2), dtype=torch.float32, device=x.device)
+    partial = torch.empty((rows // _GROUP, d), dtype=torch.float32, device=x.device)
+    weights = [p for i in range(4) for p in (wts[i], folded[f"b{i + 1}"])]
     fn = _library().pointnet_pool_infer_f32
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(
-            x.data_ptr(),
-            *(folded[f"{p}{i}"].data_ptr() for i in range(1, 5) for p in "wb"),
-            out.data_ptr(), b * t, n, c, d, stream,
+            xp.data_ptr(), *(w.data_ptr() for w in weights), out.data_ptr(),
+            act_a.data_ptr(), act_b.data_ptr(), partial.data_ptr(),
+            frames, n, np_, c4, d, per_pass, stream,
         )
     if err != 0:
         raise RuntimeError(f"pointnet_pool_infer kernel launch failed: cudaError {err}")

@@ -12,9 +12,10 @@ BatchNorm + ELU and averages over the points of each frame.
 ``pointnet_pool_train`` is a ``torch.autograd.Function``:
 
 - forward: ``fused_layer`` four times and ``fused_pool`` once. For a CUDA
-  tensor each wrapper launches its kernel (``csrc/pointnet_train.cu``) or
-  raises; for a CPU tensor it computes its plain version
-  (``fused_layer_ref``, ``fused_pool_ref``);
+  tensor each wrapper launches its kernel (``csrc/pointnet_train.cu``; the
+  layer on the tensor cores in the exact three-pass TF32 mode of
+  ``ops/tf32x3.py``) or raises; for a CPU tensor it computes its plain
+  version (``fused_layer_ref``, ``fused_pool_ref``);
 - backward: plain PyTorch, as the JAX package's ``_bwd`` is plain XLA: the
   exact train-mode BatchNorm backward (mean and variance differentiated as
   functions of the batch), the normalize + ELU recomputed from the stored
@@ -38,7 +39,6 @@ from opensetgaitrecognition_pcaa_tpu_torch.ops._build import load_library
 
 _KERNEL = "pointnet_train"
 _EPS = 1e-5
-_ROW_TILE = 64  # rows per block of the layer kernel
 
 Layer = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -79,6 +79,8 @@ def _library() -> ctypes.CDLL:
     pool = lib.pointnet_train_pool_f32
     pool.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     pool.restype = ctypes.c_int
+    lib.pointnet_train_row_tile.argtypes = []
+    lib.pointnet_train_row_tile.restype = ctypes.c_int
     return lib
 
 
@@ -125,15 +127,18 @@ def fused_layer(h: torch.Tensor, affine: Optional[torch.Tensor], w: torch.Tensor
     if h.device.type != "cuda":
         raise ValueError(f"no kernel for device {h.device}")
     rows, c_in, c_out = _check_layer_args(h, affine, w, b)
+    lib = _library()
+    row_tile = lib.pointnet_train_row_tile()  # rows per block of the layer kernel
     y = torch.empty((rows, c_out), dtype=torch.float32, device=h.device)
-    partials = torch.empty((-(-rows // _ROW_TILE), 2, c_out), dtype=torch.float32,
+    partials = torch.empty((-(-rows // row_tile), 2, c_out), dtype=torch.float32,
                            device=h.device)
     mean = torch.empty(c_out, dtype=torch.float32, device=h.device)
     var = torch.empty(c_out, dtype=torch.float32, device=h.device)
-    fn = _library().pointnet_train_layer_f32
+    fn = lib.pointnet_train_layer_f32
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = fn(h.data_ptr(), None if affine is None else affine.data_ptr(), w.data_ptr(),
+        wt = w.t().contiguous()  # the kernel reads W K-major: (C_out, C_in)
+        err = fn(h.data_ptr(), None if affine is None else affine.data_ptr(), wt.data_ptr(),
                  b.data_ptr(), y.data_ptr(), partials.data_ptr(), mean.data_ptr(),
                  var.data_ptr(), rows, c_in, c_out, stream)
     if err != 0:

@@ -22,8 +22,8 @@ def _folded(rng, c: int, d: int, device: str = "cpu"):
     h = d // 2
     out = {}
     for i, (a, b) in enumerate([(c, h), (h, h), (h, d), (d, d)], start=1):
-        out[f"w{i}"] = (rng.uniform(-1, 1, (a, b)) / np.sqrt(a)).astype(np.float32)
-        out[f"b{i}"] = (rng.uniform(-1, 1, b) / np.sqrt(a)).astype(np.float32)
+        out[f"w{i}"] = (rng.uniform(-1, 1, (a, b)) / np.sqrt(max(a, 1))).astype(np.float32)
+        out[f"b{i}"] = (rng.uniform(-1, 1, b) / np.sqrt(max(a, 1))).astype(np.float32)
     return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
 
 
@@ -36,8 +36,9 @@ def _needs_card():
 @pytest.mark.gpu
 @pytest.mark.parametrize(
     "shape,d",
-    [((2, 3, 150, 4), 1024), ((1, 97, 37, 4), 1024), ((3, 5, 33, 4), 512)],
-    ids=["n150", "ragged_f97_n37", "d512"],
+    [((2, 3, 150, 4), 1024), ((1, 97, 37, 4), 1024), ((3, 5, 33, 4), 512),
+     ((2, 3, 1, 4), 1024), ((4, 5, 16, 4), 1024), ((3, 7, 150, 4), 512), ((2, 3, 150, 5), 1024)],
+    ids=["n150", "ragged_f97_n37", "d512", "n1", "n16_no_padding", "d512_n150", "c5"],
 )
 def test_kernel_matches_plain(shape, d):
     _needs_card()
@@ -50,6 +51,23 @@ def test_kernel_matches_plain(shape, d):
     assert pn.pointnet_pool_infer.launches == before + 1
     # same bound as bench.py's kernel-parity check
     torch.testing.assert_close(got, pn.pointnet_pool_ref(x, folded), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_kernel_rows_do_not_depend_on_the_batch(monkeypatch):
+    """A frame's pooled row is the same bits alone, in a larger batch and
+    when the batch is walked in several passes."""
+    _needs_card()
+    rng = np.random.default_rng(14)
+    x = torch.from_numpy(rng.normal(size=(24, 30, 150, 4)).astype(np.float32)).cuda()
+    folded = _folded(rng, 4, 1024, "cuda")
+    whole = pn.pointnet_pool_infer(x, folded)
+    alone = torch.cat([pn.pointnet_pool_infer(x[i:i + 1, 3:11], folded) for i in (0, 5, 23)])
+    monkeypatch.setattr(pn, "_PASS_ROWS", 7 * 160)  # 7 frames a pass: 103 passes
+    passes = pn.pointnet_pool_infer(x, folded)
+    torch.cuda.synchronize()
+    assert torch.equal(alone, whole[[0, 5, 23], 3:11])
+    assert torch.equal(passes, whole)
 
 
 @pytest.mark.gpu
@@ -89,11 +107,18 @@ def test_argument_checks(mutate, match):
         pn._check_cuda_args(x, folded)
 
 
-@pytest.mark.parametrize("d,c", [(256, 4), (2048, 4), (1024, 300)], ids=["d256", "d2048", "c300"])
+@pytest.mark.parametrize("d,c", [(256, 4), (2048, 4), (1024, 0)], ids=["d256", "d2048", "c0"])
 def test_argument_checks_width_limits(d, c):
     x, folded = _cpu_case(d, c)
     with pytest.raises(ValueError):
         pn._check_cuda_args(x, folded)
+
+
+@pytest.mark.parametrize("c", [5, 300], ids=["c5", "c300"])
+def test_argument_checks_accept_any_channel_count(c):
+    """The kernel pads the channels to a multiple of 4; it has no C limit."""
+    x, folded = _cpu_case(1024, c)
+    assert pn._check_cuda_args(x, folded) == 1024
 
 
 def test_argument_checks_accept_main_path_shapes():
@@ -125,8 +150,10 @@ def _layer_case(rng, rows, c_in, c_out, with_affine, device="cuda"):
 @pytest.mark.gpu
 @pytest.mark.parametrize(
     "rows,c_in,c_out,with_affine",
-    [(222, 4, 16, False), (222, 16, 20, True), (5000, 512, 512, True), (3001, 1024, 1024, True)],
-    ids=["ragged_2x3x37_k4", "ragged_cols", "w512", "w1024"],
+    [(222, 4, 16, False), (222, 16, 20, True), (5000, 512, 512, True), (3001, 1024, 1024, True),
+     (6, 4, 512, False), (6, 512, 1024, True), (300, 36, 132, True), (72000, 4, 512, False)],
+    ids=["ragged_2x3x37_k4", "ragged_cols", "w512", "w1024", "n1_k4", "n1_w1024",
+         "ragged_k36_n132", "train_rows_k4"],
 )
 def test_layer_kernel_matches_plain(rows, c_in, c_out, with_affine):
     _needs_card()
@@ -139,6 +166,18 @@ def test_layer_kernel_matches_plain(rows, c_in, c_out, with_affine):
     # f32 sums in another order (y), f64 against f32 column sums (stats)
     for g, wt in zip(got, want):
         torch.testing.assert_close(g, wt, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_layer_kernel_is_deterministic():
+    """No atomics: the same inputs give the same bits, statistics included."""
+    _needs_card()
+    h, affine, w, b = _layer_case(np.random.default_rng(15), 5000, 512, 1024, True)
+    first = pt.fused_layer(h, affine, w, b)
+    second = pt.fused_layer(h, affine, w, b)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.gpu
