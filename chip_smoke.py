@@ -35,9 +35,15 @@ with seeded random weights and seeded crop files. Phases:
       kernel;
 7. OR-CED, 6 classes, the crops of phases 3 and 6:
    a. the Chamfer kernel against its plain version (rtol 1e-5, atol 1e-6)
-      and an f64 oracle (rtol 1e-3) at (64, 30, 150, 150) and at ragged,
-      five-channel, one-point, two-tile and N = M = 704 shapes; timed
-      against plain and torch.cdist at (64, 30, 150, 4);
+      and an f64 oracle (rtol 1e-3) at (64, 30, 150, 150), (16, 30, 150,
+      150) and at ragged, five-channel, one-point, two-tile and N = M =
+      704 shapes; bitwise equal across two launches and for frames
+      launched alone; timed through its wrapper against plain and
+      torch.cdist at (64, 30, 150, 4) (CUDA events around 20 calls each),
+      then alone at (64, 30, 150, 4) and (16, 30, 150, 4): device time per
+      launch from a CUDA graph of 50 raw launches and from
+      torch.profiler, and the wrapper's host time per call (host clock
+      around 11 batches of 50 calls, the median batch);
    b. a run folder (E, G, ML) from seeded inits, saved by the port;
    c. ``orced_inference`` through the kernels, then plain, with the same
       pinned eps at batch 64: latents within atol 1e-4, rec errors within
@@ -50,8 +56,10 @@ phase fails. The line before the last is the per-kernel JSON record (its
 ``launches`` counts each kernel's launches on the main paths, each path
 driven with the counts at 0: phases 3, 4, 6c, 7c and 7d for the PointNet
 inference kernel, 6b's kernel steps and 6c for the training kernels, 7c
-and 7d for the Chamfer kernel; ``bound_ms`` is the larger of the
-operations over 67 TFLOP/s and the bytes over 3.35 TB/s, the H100 SXM's
+and 7d for the Chamfer kernel; the Chamfer kernel's ``ms`` is its device
+time per launch at (64, 30, 150, 4) from the CUDA graph, every other
+``ms`` CUDA events around calls of the wrapper; ``bound_ms`` is the
+larger of the operations over 67 TFLOP/s and the bytes over 3.35 TB/s, the H100 SXM's
 published f32 and HBM3 peaks, except for the two PointNet layer kernels,
 which run three TF32 tensor-core passes per operation: for them both that
 f32 bound and the 3xTF32 bound (3 x operations over 495 TFLOP/s) are
@@ -59,6 +67,9 @@ printed and the lower goes into ``bound_ms``, ``bound_route`` naming it;
 the layer kernel's times and bound are per launch, the mean of a step's
 four layers), the last ``{"ok": true, "device": {...}}``.
 Files go to ``build/chip_smoke/``.
+
+``python3 chip_smoke.py --chamfer-timing`` builds only the Chamfer kernel
+and runs phase 7a's timing, for comparing trees of the port in one call.
 """
 
 import gc
@@ -99,6 +110,13 @@ SERVE_CROPS = 16  # crops per ORCED serving request
 # is held at the JAX package's Chamfer parity bound, rtol 1e-3: two f32
 # paths of xx + yy - 2xy cancel apart by up to about 2e-4 relative.
 CHAMFER_TOL = dict(rtol=1e-5, atol=1e-6)
+# Chamfer timing shapes (B, T, N, M): orced_inference's chunk of 64 crops
+# and one serving request of 16; launches a CUDA graph captures; wrapper
+# calls in a batch the host clock spans, and batches
+CHAMFER_TIMED = {"chunk": (ORCED_B, 30, 150, 150), "request": (SERVE_CROPS, 30, 150, 150)}
+CHAMFER_GRAPH_LAUNCHES = 50
+CHAMFER_HOST_CALLS = 50
+CHAMFER_HOST_BATCHES = 11
 RE_EDGE = 1e-3  # rec error within this relative distance of its threshold
 P_EDGE = 1e-6  # latent score within this distance of 0.95
 # Published peaks of the H100 SXM (NVIDIA data sheet, 700 W): f32 outside
@@ -539,12 +557,105 @@ def chamfer_inputs(g, b, t, n, m, c=4):
     return preds.contiguous(), gts.contiguous()
 
 
+def chamfer_device_ms(ck, preds, gts) -> dict:
+    """Device time of one raw launch of the Chamfer kernel (``ck._launch``,
+    no mean over T): ``graph``, a CUDA graph that captured
+    CHAMFER_GRAPH_LAUNCHES launches, replayed 5 times between CUDA events
+    (the inputs stay in L2, as the decoder's output and the crop chunk are
+    when ``orced_inference`` calls it); ``profiler``, torch.profiler's
+    kernel time per launch over as many eager launches, None where it
+    records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    k = CHAMFER_GRAPH_LAUNCHES
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ck._launch(preds, gts)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(k):
+            ck._launch(preds, gts)
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    graph_ms = start.elapsed_time(end) / (5 * k)
+    del graph
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(k):
+            ck._launch(preds, gts)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if "chamfer" in e.key]
+    count = sum(e.count for e in events)
+    prof_ms = sum(e.device_time_total for e in events) / count / 1e3 if count else None
+    return dict(graph=graph_ms, profiler=prof_ms)
+
+
+def chamfer_host_ms(ck, preds, gts) -> float:
+    """Host time of one ``seq_chamfer_kernel(..., avg_out=False)`` call:
+    a host clock around each of CHAMFER_HOST_BATCHES batches of
+    CHAMFER_HOST_CALLS calls (the card runs behind and is not waited for),
+    the median batch over its calls. The median, because the card's host
+    is shared and its clock spreads."""
+    import torch
+
+    ck.seq_chamfer_kernel(preds, gts, avg_out=False)
+    batches = []
+    for _ in range(CHAMFER_HOST_BATCHES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CHAMFER_HOST_CALLS):
+            ck.seq_chamfer_kernel(preds, gts, avg_out=False)
+        batches.append((time.perf_counter() - t0) / CHAMFER_HOST_CALLS * 1e3)
+    torch.cuda.synchronize()
+    return sorted(batches)[len(batches) // 2]
+
+
+def time_chamfer(card: str) -> dict:
+    """Phase 7a's timing of the Chamfer kernel at the orced_inference chunk
+    (64, 30, 150, 4) and a serving request (16, 30, 150, 4): device time per
+    launch (graph and profiler), the wrapper's host time per call, and the
+    f32 bound. Works on any tree of the port whose wrapper has ``_launch``
+    and ``seq_chamfer_kernel`` (``--chamfer-timing``). → {shape: dict}."""
+    import torch
+
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import chamfer_kernel as ck
+
+    out = {}
+    for name, (b, t, n, m) in CHAMFER_TIMED.items():
+        preds, gts = chamfer_inputs(torch.Generator(device="cuda").manual_seed(SEED), b, t, n, m)
+        dev = chamfer_device_ms(ck, preds, gts)
+        host = chamfer_host_ms(ck, preds, gts)
+        f, c = b * t, 4
+        # per pair: the dot (2C), |x|^2 + |y|^2 - 2 x.y (2) and the two minima (2)
+        bms, by = bound(f * n * m * (2 * c + 4), nbytes(preds, gts) + f * 4)
+        prof = "not measured" if dev["profiler"] is None else f"{dev['profiler'] * 1e3:.2f} us"
+        log(f"phase 7a: Chamfer device time at {(b, t, n, 4)} ({f} frames): graph of "
+            f"{CHAMFER_GRAPH_LAUNCHES} launches {dev['graph'] * 1e3:.2f} us per launch, profiler "
+            f"{prof}; bound {bms * 1e3:.2f} us ({by}, {100 * bms / dev['graph']:.1f}% of the graph "
+            f"time); wrapper host time {host * 1e3:.2f} us per call [{card}]")
+        out[name] = dict(graph_ms=dev["graph"], profiler_ms=dev["profiler"], host_ms=host,
+                         bound_ms=bms, bound_by=by)
+        del preds, gts
+    return out
+
+
 def check_chamfer_kernel(card: str) -> dict:
     """Phase 7a: the Chamfer kernel against its plain version and an f64
-    oracle at the main path's shape, ragged shapes, five channels, one
-    point, two tiles of points and N = M = 704; timed against plain and torch.cdist at the main
-    path's shape. → dict(err, ms, plain_ms, bound_ms, bound_by,
-    library_ms)."""
+    oracle at the main path's shape, a serving request's, ragged shapes,
+    five channels, one point, two tiles of points and N = M = 704; timed
+    against plain and torch.cdist through the wrapper at the main path's
+    shape, then alone on the device at the chunk and request shapes
+    (``time_chamfer``). → dict(err, ms, plain_ms, bound_ms, bound_by,
+    library_ms), ``ms`` the kernel's device time per launch at (64, 30,
+    150, 4) (CUDA graph), plain and library through one call each."""
     import torch
 
     from opensetgaitrecognition_pcaa_tpu_torch.ops import chamfer_kernel as ck
@@ -552,9 +663,9 @@ def check_chamfer_kernel(card: str) -> dict:
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     err = rel = 0.0
-    for b, t, n, m, c in ((ORCED_B, 30, 150, 150, 4), (3, 5, 37, 53, 4), (3, 5, 37, 53, 5),
-                          (2, 3, 1, 1, 4), (2, 3, 1, 9, 4), (1, 2, 1500, 2100, 4),
-                          (4, 6, 704, 704, 4)):
+    for b, t, n, m, c in ((ORCED_B, 30, 150, 150, 4), (SERVE_CROPS, 30, 150, 150, 4),
+                          (3, 5, 37, 53, 4), (3, 5, 37, 53, 5), (2, 3, 1, 1, 4), (2, 3, 1, 9, 4),
+                          (1, 2, 1500, 2100, 4), (4, 6, 704, 704, 4)):
         preds, gts = chamfer_inputs(g, b, t, n, m, c)
         got = ck.frame_chamfer_kernel(preds, gts)
         torch.cuda.synchronize()
@@ -574,6 +685,14 @@ def check_chamfer_kernel(card: str) -> dict:
     for avg_out in (True, False):
         torch.testing.assert_close(ck.seq_chamfer_kernel(preds, gts, avg_out=avg_out),
                                    seq_chamfer(preds, gts, avg_out=avg_out), **CHAMFER_TOL)
+    first = ck.frame_chamfer_kernel(preds, gts)
+    alone = torch.cat([ck.frame_chamfer_kernel(preds[i:i + 1, j:j + 1], gts[i:i + 1, j:j + 1])
+                       for i, j in ((0, 0), (17, 29), (63, 5))], 1)
+    again = ck.frame_chamfer_kernel(preds, gts)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again), "two launches differ"
+    assert torch.equal(alone[0], first[[0, 17, 63], [0, 29, 5]]), "a frame alone differs"
+    log("phase 7a: Chamfer bitwise equal across two launches and for 3 frames launched alone")
 
     def cdist():  # the yardstick: one library call for the distances
         d = torch.cdist(gts, preds) ** 2
@@ -584,14 +703,13 @@ def check_chamfer_kernel(card: str) -> dict:
                     "plain": lambda: seq_chamfer(preds, gts, avg_out=False),
                     "library": cdist},
                    ("plain", "kernel", "library", "library", "kernel", "plain"), reps=20)
-    f, n, c = ORCED_B * 30, 150, 4
-    # per pair: the dot (2C), |x|^2 + |y|^2 - 2 x.y (2) and the two minima (2)
-    bms, by = bound(f * n * n * (2 * c + 4), nbytes(preds, gts) + f * 4)
-    log(f"phase 7a: Chamfer at ({ORCED_B}, 30, 150, 4): kernel {ms['kernel']:.4f} ms, plain "
-        f"{ms['plain']:.4f} ms, cdist + amin {ms['library']:.4f} ms; bound {bms:.4f} ms "
-        f"({by}); max relative gap to plain {rel:.3e} (bound rtol 1e-5, atol 1e-6) [{card}]")
-    return dict(err=err, ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=bms, bound_by=by,
-                bound_route="f32", library_ms=ms["library"])
+    log(f"phase 7a: Chamfer at ({ORCED_B}, 30, 150, 4), CUDA events around 20 calls each: "
+        f"kernel through its wrapper {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, cdist + "
+        f"amin {ms['library']:.4f} ms; max relative gap to plain {rel:.3e} (bound rtol 1e-5, "
+        f"atol 1e-6) [{card}]")
+    timed = time_chamfer(card)["chunk"]
+    return dict(err=err, ms=timed["graph_ms"], plain_ms=ms["plain"], bound_ms=timed["bound_ms"],
+                bound_by=timed["bound_by"], bound_route="f32", library_ms=ms["library"])
 
 
 def make_orced_run_folder(models: str, cfg, train_x: np.ndarray) -> None:
@@ -784,6 +902,30 @@ def orced_phase(card: str, gen: str) -> dict:
     return dict(pointnet=k_launch[0] + serve_launches[0], chamfer=k_launch[1] + serve_launches[1])
 
 
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+
+
+def chamfer_timing_only() -> int:
+    """``--chamfer-timing``: build the Chamfer kernel of the tree this file
+    lies in and time it as phase 7a does, one JSON line at the end. To
+    compare two trees, copy this file into each and run both in one call."""
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import _build
+
+    card = card_name()
+    log(card)
+    _build.load_libraries(("chamfer",))
+    for line in _build.BUILD_LOGS.get("chamfer", "").splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  nvcc chamfer: {line.strip()}")
+    log(json.dumps({"chamfer_timing": time_chamfer(card), "card": card, "tree": REPO}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -791,6 +933,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    if sys.argv[1:] == ["--chamfer-timing"]:
+        return chamfer_timing_only()
     from opensetgaitrecognition_pcaa_tpu_torch.config import SPLIT, VARIATION, Config
     from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import RadarCropDataset
     from opensetgaitrecognition_pcaa_tpu_torch.infer.common import ieee_f32
@@ -806,10 +950,7 @@ def main() -> int:
     from opensetgaitrecognition_pcaa_tpu_torch.ops import pointnet_infer as pn
 
     # --- 1. card, precision, build ------------------------------------------
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
+    card = card_name()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     ieee_f32()

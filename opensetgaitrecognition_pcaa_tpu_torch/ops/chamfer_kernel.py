@@ -9,16 +9,28 @@ its kernel. A CUDA tensor launches the kernel or raises. Unlike the TPU
 kernel, which sends clouds of more than 640 points to XLA, the CUDA kernel
 takes any N and M ≥ 1.
 
+The kernel computes each distance once, in one sweep over register tiles
+(a thread holds R gt points and walks the pred points staged in shared
+memory), and keeps both minima. ``launch_geometry`` picks R from N and the
+warps per frame from the number of frames, so that both the 1920 frames of
+an ``orced_inference`` chunk and the 480 of a serving request fill the
+card; a frame's result does not depend on that choice. The wrapper's host
+work per call is the argument checks, ``torch.empty`` and the ctypes call:
+the ctypes function is resolved once and the geometry is cached per shape.
+
 The gradient is a ``torch.autograd.Function`` whose backward is plain
 torch, ported from the JAX package's XLA backward ``_chamfer_bt_bwd``: the
 argmins are recomputed (``torch.argmin`` takes the first index on ties, as
 ``jnp.argmin`` does) and each nearest pair contributes ``2(y − x)``
-through ``scatter_add_``.
+through ``scatter_add_``. Without a gradient to record, the forward skips
+the Function.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -27,7 +39,51 @@ from opensetgaitrecognition_pcaa_tpu_torch.ops.chamfer import frame_chamfer, pai
 
 _KERNEL = "chamfer"
 _CHANNELS = (4, 5)  # a crop's channels: x, y, z, Doppler and, optionally, power in dB
-_MAX_THREADS = 256
+
+# The kernel's fixed shape (csrc/chamfer.cu): a warp is 16 row lanes x 2
+# column lanes; a thread holds R rows, one of ROWS_PER_THREAD (16 x 10 =
+# 160 rows cover the published NMAX = 150 in one pass).
+ROW_LANES, COL_LANES = 16, 2
+COL_GROUP = 8  # pred points a column lane takes in a step
+ROWS_PER_THREAD = (1, 2, 4, 6, 10)
+WARPS_PER_FRAME = (1, 2, 4, 8)
+COL_TILE = 1024  # staged pred points per tile at most
+SMEM_LIMIT = 48 * 1024  # dynamic shared memory a block may take without opting in
+SMS = 132  # streaming multiprocessors of an H100 SXM
+WARPS_PER_SM = 12  # warps the geometry aims to give each SM
+
+
+class Geometry(NamedTuple):
+    """One launch's shape: ``rows_per_thread`` gt points a thread holds,
+    ``warps`` per frame (one block a frame), ``tile_cap`` pred points staged
+    at once, ``smem_bytes`` of dynamic shared memory, and
+    ``scratch_floats`` of device memory for the per-point minima (0 when
+    they fit in shared memory)."""
+
+    rows_per_thread: int
+    warps: int
+    tile_cap: int
+    smem_bytes: int
+    scratch_floats: int
+
+
+@functools.lru_cache(maxsize=64)
+def launch_geometry(frames: int, n: int, m: int, c: int) -> Geometry:
+    """The kernel's launch geometry for ``frames`` frames of ``n`` gt and
+    ``m`` pred points of ``c`` channels, as ``csrc/chamfer.cu`` lays out
+    its shared memory."""
+    rows = next((r for r in ROWS_PER_THREAD if ROW_LANES * r >= n), ROWS_PER_THREAD[-1])
+    want = -(-SMS * WARPS_PER_SM // frames)
+    warps = next((w for w in WARPS_PER_FRAME if w >= want), WARPS_PER_FRAME[-1])
+    step = COL_GROUP * COL_LANES * warps
+    tile_cap = min(-(-m // step) * step, COL_TILE)
+    floats = tile_cap * (c + 2) + warps * ROW_LANES * rows
+    scratch = 0
+    if 4 * (floats + n + m) <= SMEM_LIMIT:
+        floats += n + m
+    else:
+        scratch = frames * (n + m)
+    return Geometry(rows, warps, tile_cap, 4 * floats, scratch)
 
 
 def _check_cuda_args(preds: torch.Tensor, gts: torch.Tensor) -> None:
@@ -52,12 +108,18 @@ def _check_cuda_args(preds: torch.Tensor, gts: torch.Tensor) -> None:
                          f"gts {tuple(gts.shape)}")
 
 
-def _library() -> ctypes.CDLL:
-    lib = load_library(_KERNEL)
-    fn = lib.seq_chamfer_frames_f32
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
+_FN: Optional[Callable[..., int]] = None
+
+
+def _kernel() -> Callable[..., int]:
+    """The C entry point, built, loaded and typed at the first call."""
+    global _FN
+    if _FN is None:
+        fn = load_library(_KERNEL).seq_chamfer_frames_f32
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
 
 
 def _launch(preds: torch.Tensor, gts: torch.Tensor) -> torch.Tensor:
@@ -65,17 +127,32 @@ def _launch(preds: torch.Tensor, gts: torch.Tensor) -> torch.Tensor:
     _check_cuda_args(preds, gts)
     b, t, m, c = preds.shape
     n = gts.shape[2]
-    out = torch.empty((b, t), dtype=torch.float32, device=preds.device)
-    threads = min(_MAX_THREADS, 32 * -(-max(n, m) // 32))
-    fn = _library().seq_chamfer_frames_f32
-    with torch.cuda.device(preds.device):
-        stream = torch.cuda.current_stream(preds.device).cuda_stream
-        err = fn(gts.data_ptr(), preds.data_ptr(), out.data_ptr(), b * t, n, m, c, threads,
-                 stream)
+    geo = launch_geometry(b * t, n, m, c)
+    device = preds.device
+    out = torch.empty((b, t), dtype=torch.float32, device=device)
+    scratch = (torch.empty(geo.scratch_floats, dtype=torch.float32, device=device)
+               if geo.scratch_floats else None)
+    args = (gts.data_ptr(), preds.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), b * t, n, m, c,
+            geo.rows_per_thread, geo.warps, geo.tile_cap, geo.smem_bytes,
+            torch.cuda.current_stream(device).cuda_stream)
+    if device.index == torch.cuda.current_device():
+        err = _kernel()(*args)
+    else:
+        with torch.cuda.device(device):
+            err = _kernel()(*args)
     if err != 0:
         raise RuntimeError(f"seq_chamfer kernel launch failed: cudaError {err}")
     seq_chamfer_kernel.launches += 1
     return out
+
+
+def _forward(preds: torch.Tensor, gts: torch.Tensor) -> torch.Tensor:
+    if preds.device.type == "cpu":
+        return frame_chamfer(preds, gts)
+    if preds.device.type != "cuda":
+        raise ValueError(f"no kernel for device {preds.device}")
+    return _launch(preds, gts)
 
 
 def _frame_chamfer_bwd(preds: torch.Tensor, gts: torch.Tensor, g: torch.Tensor):
@@ -101,11 +178,7 @@ class _FrameChamfer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, preds, gts):
         ctx.save_for_backward(preds, gts)
-        if preds.device.type == "cpu":
-            return frame_chamfer(preds, gts)
-        if preds.device.type != "cuda":
-            raise ValueError(f"no kernel for device {preds.device}")
-        return _launch(preds, gts)
+        return _forward(preds, gts)
 
     @staticmethod
     def backward(ctx, g):
@@ -117,7 +190,9 @@ def frame_chamfer_kernel(preds: torch.Tensor, gts: torch.Tensor) -> torch.Tensor
     """Per-frame Chamfer sums ``(B, T)`` of ``preds`` ``(B, T, N, C)`` and
     ``gts`` ``(B, T, M, C)``: the kernel on the card, ``frame_chamfer`` on
     the CPU."""
-    return _FrameChamfer.apply(preds, gts)
+    if torch.is_grad_enabled() and (preds.requires_grad or gts.requires_grad):
+        return _FrameChamfer.apply(preds, gts)
+    return _forward(preds, gts)
 
 
 def seq_chamfer_kernel(preds: torch.Tensor, gts: torch.Tensor, avg_out: bool = True) -> torch.Tensor:

@@ -324,8 +324,9 @@ def _check_chamfer(got, preds, gts):
 @pytest.mark.parametrize(
     "b,t,n,m",
     [(8, 30, 150, 150), (3, 5, 37, 53), (2, 3, 1, 1), (2, 3, 1, 9), (1, 2, 1500, 2100),
-     (4, 6, 704, 704)],
-    ids=["n150", "ragged_n37_m53", "n1", "n1_m9", "two_tiles", "n704"],
+     (4, 6, 704, 704), (16, 30, 150, 150), (1, 2, 3000, 4000)],
+    ids=["n150", "ragged_n37_m53", "n1", "n1_m9", "two_tiles", "n704", "serving_request",
+         "minima_in_scratch"],
 )
 def test_chamfer_kernel_matches_plain_and_f64(b, t, n, m):
     _needs_card()
@@ -338,6 +339,32 @@ def test_chamfer_kernel_matches_plain_and_f64(b, t, n, m):
     for avg_out in (True, False):
         torch.testing.assert_close(ck.seq_chamfer_kernel(preds, gts, avg_out=avg_out),
                                    seq_chamfer(preds, gts, avg_out=avg_out), **CHAMFER_TOL)
+
+
+@pytest.mark.gpu
+def test_chamfer_kernel_is_deterministic():
+    """A minimum is exact in any order and the sums of minima have a fixed
+    order: two launches give the same bits."""
+    _needs_card()
+    preds, gts = _clouds(np.random.default_rng(16), 64, 30, 150, 150)
+    first = ck.frame_chamfer_kernel(preds, gts)
+    second = ck.frame_chamfer_kernel(preds, gts)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+def test_chamfer_frame_does_not_depend_on_the_batch():
+    """A frame alone (8 warps a frame) gives the bits it gives inside a
+    batch of 1920 frames (1 warp a frame)."""
+    _needs_card()
+    preds, gts = _clouds(np.random.default_rng(17), 64, 30, 150, 150)
+    assert ck.launch_geometry(1, 150, 150, 4).warps != ck.launch_geometry(1920, 150, 150, 4).warps
+    whole = ck.frame_chamfer_kernel(preds, gts)
+    for i, j in ((0, 0), (31, 17), (63, 29)):
+        alone = ck.frame_chamfer_kernel(preds[i:i + 1, j:j + 1], gts[i:i + 1, j:j + 1])
+        torch.cuda.synchronize()
+        assert torch.equal(alone[0, 0], whole[i, j]), (i, j)
 
 
 @pytest.mark.gpu
