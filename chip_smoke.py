@@ -37,8 +37,9 @@ with seeded random weights and seeded crop files. Phases:
    a. the Chamfer kernel against its plain version (rtol 1e-5, atol 1e-6)
       and an f64 oracle (rtol 1e-3) at (64, 30, 150, 150), (16, 30, 150,
       150) and at ragged, five-channel, one-point, two-tile and N = M =
-      704 shapes; bitwise equal across two launches and for frames
-      launched alone; timed through its wrapper against plain and
+      704 shapes, and at C = 3, 6 (padded to 4 and 8), 8 and 12 (the
+      run-time-C kernel), each a counted launch; bitwise equal across two
+      launches and for frames launched alone; timed through its wrapper against plain and
       torch.cdist at (64, 30, 150, 4) (CUDA events around 20 calls each),
       then alone at (64, 30, 150, 4) and (16, 30, 150, 4): device time per
       launch from a CUDA graph of 50 raw launches and from
@@ -49,14 +50,26 @@ with seeded random weights and seeded crop files. Phases:
       pinned eps at batch 64: latents within atol 1e-4, rec errors within
       rtol 1e-3, decisions equal except knife-edge crops;
    d. ``make_orced_forward_fn`` + ``orced_decide_host`` answer 3 requests
-      of 16 test crops, with the decisions of ``orced_apply_ood``.
+      of 16 test crops, with the decisions of ``orced_apply_ood``;
+8. OR-CED from raw tracks, at the same full width, B = 16:
+   a. the port's synthetic generator writes 10 subjects x 3 scenarios x
+      10 raw tracks and ``generate_splits`` cuts them (6 seen subjects),
+      timed;
+   b. the ORCED step alone for 6 steps (warm ms per step, host clock,
+      synchronized), then ``train_orced`` for 2 epochs: finite losses, KL
+      exactly 0 in epoch 0, s per epoch from ``metrics.jsonl``, the E, G
+      and ML files, and no kernel launched (the JAX trainer reaches none);
+   c. ``orced_inference(generate_dataset=True)`` scores the trained folder
+      through the kernels and then plain, with pinned eps: decisions equal
+      except knife-edge crops, and the confusion PNG decodes (CRCs checked)
+      to the matrix of the decisions within one colour step.
 
 It exits non-zero, with no result line, when there is no CUDA card or a
 phase fails. The line before the last is the per-kernel JSON record (its
 ``launches`` counts each kernel's launches on the main paths, each path
-driven with the counts at 0: phases 3, 4, 6c, 7c and 7d for the PointNet
-inference kernel, 6b's kernel steps and 6c for the training kernels, 7c
-and 7d for the Chamfer kernel; the Chamfer kernel's ``ms`` is its device
+driven with the counts at 0: phases 3, 4, 6c, 7c, 7d and 8c for the
+PointNet inference kernel, 6b's kernel steps and 6c for the training
+kernels, 7c, 7d and 8c for the Chamfer kernel; the Chamfer kernel's ``ms`` is its device
 time per launch at (64, 30, 150, 4) from the CUDA graph, every other
 ``ms`` CUDA events around calls of the wrapper; ``bound_ms`` is the
 larger of the operations over 67 TFLOP/s and the bytes over 3.35 TB/s, the H100 SXM's
@@ -117,6 +130,12 @@ CHAMFER_TIMED = {"chunk": (ORCED_B, 30, 150, 150), "request": (SERVE_CROPS, 30, 
 CHAMFER_GRAPH_LAUNCHES = 50
 CHAMFER_HOST_CALLS = 50
 CHAMFER_HOST_BATCHES = 11
+# phase 8: raw tracks of 10 subjects x 3 scenarios x 10 tracks, 6 seen;
+# ORCED trained for 2 epochs, its step timed alone over a few steps
+RAW_SUBJECTS, RAW_TRACKS = 10, 10
+ORCED_TRAIN_NAME = "TRAIN_ORCED"
+ORCED_EPOCHS = 2
+ORCED_TIMED_STEPS = 6
 RE_EDGE = 1e-3  # rec error within this relative distance of its threshold
 P_EDGE = 1e-6  # latent score within this distance of 0.95
 # Published peaks of the H100 SXM (NVIDIA data sheet, 700 W): f32 outside
@@ -291,16 +310,25 @@ def check_train_kernels(card: str) -> dict:
     out = {}
     err, ms = 0.0, {"kernel": 0.0, "plain": 0.0}
     flops = moved = 0
+    # the training widths, ragged rows, then widths the wrapper pads to
+    # multiples of 4: NFEATURES = 5 (C_in 5) and POINTNET_OUT_DIM = 30
+    # (5 -> 15 -> 15 -> 30 -> 30)
     for n, c_in, c_out, timed in ((rows, 4, 512, True), (rows, 512, 512, True),
                                   (rows, 512, 1024, True), (rows, 1024, 1024, True),
                                   (2 * 3 * 37, 4, 512, False), (2 * 3 * 37, 512, 1024, False),
-                                  (2 * 3 * 1, 4, 512, False), (2 * 3 * 1, 512, 1024, False)):
+                                  (2 * 3 * 1, 4, 512, False), (2 * 3 * 1, 512, 1024, False),
+                                  (rows, 5, 512, False), (2 * 3 * 37, 5, 15, False),
+                                  (2 * 3 * 37, 15, 15, False), (2 * 3 * 37, 15, 30, False),
+                                  (2 * 3 * 37, 30, 30, False)):
         h = randn(n, c_in, scale=2.0, shift=0.5)
-        a = None if c_in == 4 else affine(c_in)
+        a = None if c_in in (4, 5) else affine(c_in)
         w = randn(c_in, c_out, scale=c_in ** -0.5)
         b = randn(c_out, scale=0.1)
+        before = pt.fused_layer.launches
         got = pt.fused_layer(h, a, w, b)
         torch.cuda.synchronize()
+        assert pt.fused_layer.launches == before + 1, (n, c_in, c_out)
+        assert tuple(got[0].shape) == (n, c_out) and got[1].shape == (c_out,)
         want = pt.fused_layer_ref(h, a, w, b)
         e = max(float((x - y).abs().max()) for x, y in zip(got, want))
         for x, y in zip(got, want):
@@ -663,12 +691,18 @@ def check_chamfer_kernel(card: str) -> dict:
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     err = rel = 0.0
+    # the main path's shapes, ragged, five-channel, one-point, two-tile and
+    # N = M = 704 shapes; then channel counts the wrapper pads (3 to 4, 6 to
+    # 8), the C = 8 build and C = 12 through the run-time-C kernel
     for b, t, n, m, c in ((ORCED_B, 30, 150, 150, 4), (SERVE_CROPS, 30, 150, 150, 4),
                           (3, 5, 37, 53, 4), (3, 5, 37, 53, 5), (2, 3, 1, 1, 4), (2, 3, 1, 9, 4),
-                          (1, 2, 1500, 2100, 4), (4, 6, 704, 704, 4)):
+                          (1, 2, 1500, 2100, 4), (4, 6, 704, 704, 4), (4, 30, 150, 150, 3),
+                          (3, 5, 37, 53, 6), (3, 5, 37, 53, 8), (4, 30, 150, 150, 12)):
         preds, gts = chamfer_inputs(g, b, t, n, m, c)
+        before = ck.seq_chamfer_kernel.launches
         got = ck.frame_chamfer_kernel(preds, gts)
         torch.cuda.synchronize()
+        assert ck.seq_chamfer_kernel.launches == before + 1, (b, t, n, m, c)
         want = frame_chamfer(preds, gts)
         d = ((gts.double()[:, :, :, None] - preds.double()[:, :, None]) ** 2).sum(-1)
         oracle = d.amin(2).sum(2) + d.amin(3).sum(2)
@@ -902,6 +936,216 @@ def orced_phase(card: str, gen: str) -> dict:
     return dict(pointnet=k_launch[0] + serve_launches[0], chamfer=k_launch[1] + serve_launches[1])
 
 
+def read_png(path: str) -> np.ndarray:
+    """Decode an 8-bit RGB PNG of unfiltered rows, as
+    ``infer/artifacts.py::write_png`` writes it, checking the signature
+    and every chunk's CRC → ``(H, W, 3)`` uint8."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as f:
+        data = f.read()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG"
+    pos, chunks = 8, {}
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
+        assert crc == zlib.crc32(tag + body) & 0xFFFFFFFF, f"bad CRC in {tag}"
+        chunks[tag] = chunks.get(tag, b"") + body
+        pos += 12 + length
+    w, h, depth, colour = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    assert (depth, colour) == (8, 2), (depth, colour)
+    rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8).reshape(h, 3 * w + 1)
+    assert not rows[:, 0].any(), "filtered rows"
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def orced_training_phase(card: str) -> dict:
+    """Phase 8: OR-CED from raw tracks at full width → launches of the
+    PointNet and Chamfer kernels while ``orced_inference`` scored the
+    trained run folder through them (8d)."""
+    import torch
+
+    from opensetgaitrecognition_pcaa_tpu_torch.config import SPLIT, Config
+    from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import (
+        RadarCropDataset,
+        epoch_batch_indices,
+    )
+    from opensetgaitrecognition_pcaa_tpu_torch.data.splits import generate_splits
+    from opensetgaitrecognition_pcaa_tpu_torch.data.synthetic import (
+        generate_synthetic_raw_dataset,
+    )
+    from opensetgaitrecognition_pcaa_tpu_torch.infer.artifacts import openset_confusion_matrix
+    from opensetgaitrecognition_pcaa_tpu_torch.infer.orced import orced_inference
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import chamfer_kernel as ck
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import pointnet_infer as pn
+    from opensetgaitrecognition_pcaa_tpu_torch.train.orced import (
+        build_orced,
+        make_orced_train_step,
+        train_orced,
+    )
+
+    # --- 8a. raw tracks and their splits -----------------------------------------
+    raw = os.path.join(WORK, "raw")
+    gen = os.path.join(WORK, "gen_orced")
+    t0 = time.perf_counter()
+    generate_synthetic_raw_dataset(raw, n_subjects=RAW_SUBJECTS,
+                                   tracks_per_scenario=RAW_TRACKS, seed=SEED)
+    raw_s = time.perf_counter() - t0
+    cfg = Config(
+        NMAX=150, NSTEPS=30, CROP_STEP=6, NFEATURES=4, POINTNET_OUT_DIM=1024,
+        DTC_FILTERS=(16, 32, 64, 128, 256, 512), SUP_LATENT_DIM=32,
+        TRAIN_CLASSES=tuple(range(N_SEEN)), BATCH_SIZE=TRAIN_B, EPOCHS=ORCED_EPOCHS,
+        CHECKPOINT_FREQUENCY=1, SEED=SEED, MODEL_NAME=ORCED_TRAIN_NAME, DATA_PATH=raw,
+        GEN_DATA_PATH=gen, MODELS_PATH=os.path.join(WORK, "models_orced_train"),
+    )
+    t0 = time.perf_counter()
+    counts = generate_splits(data_path=raw, gen_data_path=gen, train_classes=cfg.TRAIN_CLASSES,
+                             seed=0, nmax_points=cfg.NMAX, nsteps=cfg.NSTEPS,
+                             crop_step=cfg.CROP_STEP, verbose=False)
+    split_s = time.perf_counter() - t0
+    assert all(counts.values()), counts
+    log(f"phase 8a: {RAW_SUBJECTS} subjects x 3 scenarios x {RAW_TRACKS} raw tracks written in "
+        f"{raw_s:.2f} s; generate_splits {split_s:.2f} s, crops {counts} [{card}]")
+
+    # --- 8b. the ORCED step alone, then train_orced for 2 epochs --------------------
+    x_np, y_np = RadarCropDataset(SPLIT.TRAIN, gen).load_all()
+    x, y = torch.from_numpy(x_np).cuda(), torch.from_numpy(y_np).cuda()
+    perm = epoch_batch_indices(len(x_np), TRAIN_B, shuffle=True, rng=np.random.default_rng(SEED))
+    mods, state = build_orced(cfg, device="cuda")
+    step = make_orced_train_step(mods, cfg)
+    n_params = sum(p.numel() for p in mods.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for i in range(ORCED_TIMED_STEPS):
+        idx = torch.from_numpy(perm[i]).long().cuda()
+        t0 = time.perf_counter()
+        state, m = step(state, x[idx], y[idx], 0.5)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        assert all(np.isfinite(float(v)) for v in m.values()), m
+    warm = step_ms[1:]  # the first step pays cuBLAS/cuDNN set-up
+    warm_ms = sum(warm) / len(warm)
+    log(f"phase 8b: ORCED step ({n_params / 1e6:.1f}M parameters, B = {TRAIN_B}): ms per step "
+        f"{[round(t, 2) for t in step_ms]}, warm mean {warm_ms:.2f} ms (host clock, "
+        f"synchronized), {TRAIN_B / (warm_ms / 1e3):.1f} train windows/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
+    # where the step's device time goes: torch.profiler over 3 more warm steps
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(ORCED_TIMED_STEPS, ORCED_TIMED_STEPS + 3):
+            state, m = step(state, x[torch.from_numpy(perm[i]).long().cuda()],
+                            y[torch.from_numpy(perm[i]).long().cuda()], 0.5)
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.device_time_total / 3e3) for e in prof.key_averages()
+               if e.device_time_total > 0]
+    groups = {}
+    for name, ms in kernels:
+        low = name.lower()
+        group = ("gemm" if "gemm" in low or "cutlass" in low or "xmma" in low
+                 else "elementwise" if "elementwise" in low or "vectorized" in low
+                 else "reduce" if "reduce" in low else "other")
+        groups[group] = groups.get(group, 0.0) + ms
+    top = sorted(kernels, key=lambda k: -k[1])[:5]
+    log(f"phase 8b: ORCED step device time (torch.profiler, 3 warm steps): "
+        f"{sum(ms for _, ms in kernels):.2f} ms busy a step; by kind "
+        + ", ".join(f"{g} {ms:.2f}" for g, ms in sorted(groups.items(), key=lambda g: -g[1]))
+        + "; top kernels " + "; ".join(f"{name[:48]} {ms:.2f}" for name, ms in top)
+        + f" ms a step [{card}]")
+    del mods, state, step, m, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    pn.pointnet_pool_infer.launches = ck.seq_chamfer_kernel.launches = 0
+    reset_train_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = train_orced(cfg, verbose=False, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    # the JAX trainer reaches no Pallas kernel, and the port's none
+    assert (pn.pointnet_pool_infer.launches, ck.seq_chamfer_kernel.launches) == (0, 0)
+    assert train_counts() == (0, 0, 0), train_counts()
+    run_dir = cfg.run_dir()
+    want = {"config.json", "metrics.jsonl", "run_complete.json"} | {
+        f"{ORCED_TRAIN_NAME}_{tag}.msgpack" for tag in ("E", "G", "ML")}
+    assert set(os.listdir(run_dir)) == want, sorted(os.listdir(run_dir))
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    assert [r["_step"] for r in lines] == list(range(ORCED_EPOCHS))
+    for r in lines:
+        for k, v in r.items():
+            assert v is not None and np.isfinite(v), (k, v)
+    assert lines[0]["KL Loss"] == 0.0, lines[0]["KL Loss"]
+    epoch_s = [lines[0]["_wall"]] + [b["_wall"] - a["_wall"] for a, b in zip(lines, lines[1:])]
+    steps = len(x_np) // TRAIN_B
+    log(f"phase 8b: train_orced, {ORCED_EPOCHS} epochs of {steps} steps in {seconds:.2f} s "
+        f"(with validation and the run folder's write); s per epoch "
+        f"{[round(t, 2) for t in epoch_s]}; losses per epoch (rec, ce, triplet, KL) "
+        + "; ".join(f"{r['Reconstruction Loss Train']:.4f}, {r['Cross Entropy Loss Train']:.4f}, "
+                    f"{r['Triplet Loss']:.4f}, {r['KL Loss']:.4f}" for r in lines)
+        + f"; Valid Accuracy {out['Valid Accuracy']:.4f} [{card}]")
+
+    # --- 8c. score the trained folder from the raw tracks, kernels vs plain ---------
+    rng = np.random.default_rng(SEED + 8)
+    eps = {key: rng.normal(size=(counts[split.value], cfg.SUP_LATENT_DIM)).astype(np.float32)
+           for key, split in (("train", SPLIT.TRAIN), ("test", SPLIT.TEST),
+                              ("unseen", SPLIT.UNSEEN))}
+    runs = {}
+    for path in ("kernel", "plain"):
+        models = os.path.join(WORK, f"models_orced_train_{path}")
+        figures = os.path.join(WORK, f"figures_orced_train_{path}")
+        shutil.copytree(run_dir, os.path.join(models, ORCED_TRAIN_NAME))
+        pn.pointnet_pool_infer.launches = ck.seq_chamfer_kernel.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logs = orced_inference(
+            [ORCED_TRAIN_NAME], device="cuda", models_path=models, figures_path=figures,
+            generate_dataset=True, batch_size=ORCED_B, eps_streams=eps, dump_calibration=True,
+            use_kernel=path == "kernel",
+        )
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        folder = os.path.join(figures, ORCED_TRAIN_NAME)
+        final = {stem: np.load(os.path.join(folder, f"ensemble_ood_final_{stem}_fixed.npy"))
+                 for stem in ("preds", "labels")}
+        image = read_png(os.path.join(folder, "openset_cnfmtrx_ensemble_ood_fixed.png"))
+        cm = openset_confusion_matrix(final["labels"], final["preds"], cfg.n_classes)
+        cell = image.shape[0] // cm.shape[0]
+        assert image.shape == (cell * cm.shape[0], cell * cm.shape[0], 3)
+        decoded = (255 - image[cell // 2::cell, cell // 2::cell, 0].astype(np.float64)) / 255
+        assert np.abs(decoded - cm).max() <= 1 / 255, np.abs(decoded - cm).max()
+        cal = dict(np.load(os.path.join(models, ORCED_TRAIN_NAME, "orced_calibration.npz")))
+        runs[path] = dict(final=final, cal=cal, launches=(
+            pn.pointnet_pool_infer.launches, ck.seq_chamfer_kernel.launches))
+        m = logs[ORCED_TRAIN_NAME]
+        log(f"phase 8c: orced_inference(generate_dataset=True) of the trained folder via {path}: "
+            f"{seconds:.2f} s (the splits rewritten from the raw tracks), launches (PointNet, "
+            f"Chamfer) {runs[path]['launches']}, {len(final['preds'])} decisions, f1_micro "
+            f"{m['f1_micro']:.4f}; confusion PNG {image.shape[1]} x {image.shape[0]} decoded, "
+            f"cells within 1/255 of the matrix [{card}]")
+    k_launch = runs["kernel"]["launches"]
+    assert k_launch[0] > 0 and k_launch[1] > 0, k_launch
+    assert runs["plain"]["launches"] == (0, 0), runs["plain"]["launches"]
+    np.testing.assert_array_equal(runs["kernel"]["final"]["labels"],
+                                  runs["plain"]["final"]["labels"])
+    keep = runs["kernel"]["cal"]["unseen_keep"]
+    edge = np.zeros(len(runs["kernel"]["final"]["preds"]), bool)
+    for r in runs.values():
+        edge |= np.concatenate([orced_knife_edge(r["cal"], "test"),
+                                orced_knife_edge(r["cal"], "unseen", keep)])
+    bad = (runs["kernel"]["final"]["preds"] != runs["plain"]["final"]["preds"]) & ~edge
+    assert not bad.any(), f"{int(bad.sum())} decisions differ away from the knife edge"
+    log(f"phase 8c: decisions through the kernels equal the plain path's; {int(edge.sum())} "
+        f"knife-edge crops exempt")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(pointnet=k_launch[0], chamfer=k_launch[1])
+
+
 def card_name() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -978,13 +1222,21 @@ def main() -> int:
     max_err = 0.0
     # the main path's frames, then shapes that cut the kernel's tiles: 97
     # frames of N = 37 (4656 padded rows, not a multiple of 128), N = 1,
-    # D = 512, and C = 5 (channels padded to 8)
+    # D = 512, and C = 5 (channels padded to 8); then the widths the JAX
+    # wrapper takes beyond 512 and 1024: D = 32 and 64 (the JAX tests'
+    # POINTNET_OUT_DIM), 200, 1536, and D = 30 with C = 3 and D = 201 with
+    # C = 5, whose widths the wrapper pads to multiples of 4
     for shape, fw in (((16, 30, 150, 4), folded), ((1, 97, 37, 4), folded),
                       ((2, 3, 1, 4), folded), ((4, 9, 150, 4), make_folded(4, 512)),
-                      ((2, 3, 37, 5), make_folded(5, d))):
+                      ((2, 3, 37, 5), make_folded(5, d)), ((4, 12, 64, 4), make_folded(4, 32)),
+                      ((4, 12, 64, 4), make_folded(4, 64)), ((2, 3, 37, 4), make_folded(4, 200)),
+                      ((2, 3, 150, 4), make_folded(4, 1536)), ((2, 3, 37, 3), make_folded(3, 30)),
+                      ((2, 3, 37, 5), make_folded(5, 201))):
         x = torch.randn(shape, generator=g).cuda()
+        before = pn.pointnet_pool_infer.launches
         got = pn.pointnet_pool_infer(x, fw)
         torch.cuda.synchronize()
+        assert pn.pointnet_pool_infer.launches == before + 1, shape
         want = pn.pointnet_pool_ref(x, fw)
         err = (got - want).abs().max().item()
         max_err = max(max_err, err)
@@ -1136,6 +1388,11 @@ def main() -> int:
     checks["chamfer"] = check_chamfer_kernel(card)
     orced_launches = orced_phase(card, gen)
     main_launches += orced_launches["pointnet"]
+
+    # --- 8. OR-CED from raw tracks: splits, training, scoring ------------------------
+    orced_train_launches = orced_training_phase(card)
+    main_launches += orced_train_launches["pointnet"]
+    orced_launches["chamfer"] += orced_train_launches["chamfer"]
 
     checks["infer"] = dict(err=max_err, ms=pn_ms["kernel"], plain_ms=pn_ms["plain"],
                            library_ms=None, **pn_bound)

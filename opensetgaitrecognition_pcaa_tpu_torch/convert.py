@@ -3,7 +3,10 @@
 The JAX package stores a module's weights as ``{"params": ...,
 "batch_stats": ...}`` (``<NAME>_<TAG>.msgpack``): the PCAA encoder,
 decoder, critic and head (``E``, ``G``, ``D``, ``GPH``) and the ORCED
-encoder, decoder and mean learner (``E``, ``G``, ``ML``). The maps follow
+encoder, decoder and mean learner (``E``, ``G``, ``ML``). A training state
+(parameters, running statistics and Adam moments) maps across whole:
+``pcaa_state_from_jax``/``pcaa_state_to_jax`` and
+``orced_state_from_jax``/``orced_state_to_jax``. The maps follow
 ``tools/transplant.py``:
 
 - a dense kernel ``(in, out)`` is the transpose of ``Linear.weight``;
@@ -190,6 +193,12 @@ _GENERATOR = (
     ("decoder", decoder_variables, decoder_state_dict),
 )
 _CRITIC = (("discriminator", discriminator_variables, discriminator_state_dict),)
+# the ORCED modules: one Adam over all three (keys of the JAX ORCEDState trees)
+_ORCED = (
+    ("encoder", encoder_variables, encoder_state_dict),
+    ("decoder", decoder_variables, decoder_state_dict),
+    ("mean_learner", mean_learner_variables, mean_learner_state_dict),
+)
 
 
 def _sub(state_dict: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
@@ -257,6 +266,43 @@ def pcaa_state_from_jax(tree: Dict, mods, state) -> None:
             for name, value in sd.items():
                 moments[name].copy_(value.to(device))
     state.centroids.copy_(torch.tensor(np.asarray(tree["centroids"]), device=device))
+
+
+def orced_module_variables(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Dict]:
+    """An ``ORCEDModules`` state_dict (``encoder.…``, ``decoder.…``,
+    ``mean_learner.…``) → per-module JAX variables, the trees of the
+    ``E``, ``G`` and ``ML`` files."""
+    return {name: to_vars(_sub(state_dict, f"{name}.")) for name, to_vars, _ in _ORCED}
+
+
+def orced_state_from_jax(tree: Dict, mods, state) -> None:
+    """Load a JAX ``ORCEDState`` into the port's ``ORCEDModules`` and Adam
+    state, in place, on the modules' device.
+
+    ``tree`` has numpy leaves: ``params`` and ``batch_stats`` (keyed
+    ``encoder``, ``decoder``, ``mean_learner``) and ``opt``, the
+    ``{"count", "mu", "nu"}`` of the Adam state."""
+    mods.load_state_dict(_side_state_dict(tree["params"], _ORCED, tree["batch_stats"]))
+    opt = state.opt
+    opt.count = int(np.asarray(tree["opt"]["count"]))
+    for moments, key in ((opt.mu, "mu"), (opt.nu, "nu")):
+        sd = _side_state_dict(tree["opt"][key], _ORCED)
+        if set(sd) != set(moments):
+            raise ValueError(f"opt.{key} leaves differ from the port's parameters")
+        for name, value in sd.items():
+            moments[name].copy_(value.to(moments[name].device))
+
+
+def orced_state_to_jax(mods, state) -> Dict:
+    """The port's ORCED modules and Adam state → the tree that
+    ``orced_state_from_jax`` reads (numpy leaves)."""
+    params, stats = _side_tree(mods.state_dict(), _ORCED)
+    opt = state.opt
+    return {"params": params, "batch_stats": stats, "opt": {
+        "count": np.asarray(opt.count, np.int32),
+        "mu": _side_tree(opt.mu, _ORCED)[0],
+        "nu": _side_tree(opt.nu, _ORCED)[0],
+    }}
 
 
 def pcaa_state_to_jax(mods, state) -> Dict:

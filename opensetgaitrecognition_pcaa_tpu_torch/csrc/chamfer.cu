@@ -44,6 +44,14 @@
 // - any N and M: rows are walked in passes of 16R, columns in staged tiles
 //   of at most kColTile points. The per-point minima live in shared memory,
 //   or, when they do not fit, in a scratch buffer the wrapper allocates;
+// - any C: the tiled kernel is instantiated for C = 4 and 5 (a crop's
+//   channels: x, y, z, Doppler and, with NFEATURES = 5, the power in dB)
+//   and C = 8. The wrapper pads fewer than 4 channels to 4, and 6 or 7 to
+//   8, with zeros in preds and gts alike: a zero channel adds an exact 0 to
+//   each norm and dot (a fused multiply-add of 0 x 0), so every distance
+//   and the result keep their bits. Above 8 channels a plain kernel with C
+//   at run time (chamfer_any_kernel) computes each distance once for each
+//   direction, rounded alike, and is slow but exact in the same way;
 // - deterministic: a minimum is exact in any order, and the two sums of
 //   minima are taken by one warp in a fixed order that depends only on N
 //   and M. A frame's result is the same bits whatever the batch and
@@ -155,11 +163,12 @@ chamfer_kernel(const float* __restrict__ gts, int n, const float* __restrict__ p
   const float* x = gts + f * n * C;
   const float* y = preds + f * m * C;
 
-  // shared memory: tile coordinates 0-3 (float4), [coordinate 4,] tile
-  // norms, tile column minima, the warps' row minima, [the per-point
-  // minima]
+  // shared memory: tile coordinates 0-3 (float4), [coordinates 4 .. C - 1,
+  // one row of tile_cap each,] tile norms, tile column minima, the warps'
+  // row minima, [the per-point minima]
+  static_assert(C >= 4, "the wrapper pads fewer channels to 4");
   float4* tile_pts = reinterpret_cast<float4*>(smem);
-  float* tile_c4 = smem + 4 * tile_cap;
+  float* tile_ext = smem + 4 * tile_cap;
   float* tile_sq = smem + C * tile_cap;
   float* tile_min = tile_sq + tile_cap;  // the tile's column minima over this pass
   float* row_part = tile_min + tile_cap;
@@ -196,7 +205,8 @@ chamfer_kernel(const float* __restrict__ gts, int n, const float* __restrict__ p
           const int j = j0 + u * blockDim.x + threadIdx.x;
           if (j < padded) {
             tile_pts[j] = make_float4(q[u][0], q[u][1], q[u][2], q[u][3]);
-            if constexpr (C == 5) tile_c4[j] = q[u][4];
+#pragma unroll
+            for (int e = 4; e < C; ++e) tile_ext[(e - 4) * tile_cap + j] = q[u][e];
             tile_sq[j] = j < cnt ? sq_norm<C>(q[u]) : inf();
           }
         }
@@ -217,7 +227,8 @@ chamfer_kernel(const float* __restrict__ gts, int n, const float* __restrict__ p
           const float4 v = tile_pts[j0 + s];
           float q[C];
           q[0] = v.x, q[1] = v.y, q[2] = v.z, q[3] = v.w;
-          if constexpr (C == 5) q[4] = tile_c4[j0 + s];
+#pragma unroll
+          for (int e = 4; e < C; ++e) q[e] = tile_ext[(e - 4) * tile_cap + j0 + s];
           const float qq = tile_sq[j0 + s];
           cm[s] = inf();
 #pragma unroll
@@ -267,6 +278,51 @@ chamfer_kernel(const float* __restrict__ gts, int n, const float* __restrict__ p
   }
 }
 
+// Any C, at run time: one block a frame; each thread takes points, gt rows
+// first and then pred columns, and walks the other cloud from global memory
+// for that point's minimum. Every distance is rounded as chamfer_kernel
+// rounds it (the dot, the norms and the sum are symmetric in x and y), so
+// the minima, and the sums taken as chamfer_kernel takes them, are the
+// same bits. scratch: frames x (n + m) floats for the per-point minima.
+constexpr int kAnyThreads = 256;
+
+__device__ __forceinline__ float sq_norm_any(const float* __restrict__ p, int c) {
+  float s = __fmul_rn(__ldg(p), __ldg(p));
+  for (int k = 1; k < c; ++k) s = __fmaf_rn(__ldg(p + k), __ldg(p + k), s);
+  return s;
+}
+
+__global__ void __launch_bounds__(kAnyThreads)
+chamfer_any_kernel(const float* __restrict__ gts, int n, const float* __restrict__ preds, int m,
+                   int c, float* __restrict__ scratch, float* __restrict__ out) {
+  const size_t f = blockIdx.x;
+  const float* x = gts + f * n * c;
+  const float* y = preds + f * m * c;
+  float* mins = scratch + f * (n + m);
+  for (int i = threadIdx.x; i < n + m; i += blockDim.x) {
+    const bool row = i < n;
+    const float* p = row ? x + static_cast<size_t>(i) * c : y + static_cast<size_t>(i - n) * c;
+    const float* other = row ? y : x;
+    const int count = row ? m : n;
+    const float pp = sq_norm_any(p, c);
+    float best = inf();
+    for (int j = 0; j < count; ++j) {
+      const float* q = other + static_cast<size_t>(j) * c;
+      float dot = __fmul_rn(__ldg(p), __ldg(q));
+      for (int k = 1; k < c; ++k) dot = __fmaf_rn(__ldg(p + k), __ldg(q + k), dot);
+      best = fminf(best, __fmaf_rn(-2.f, dot, __fadd_rn(pp, sq_norm_any(q, c))));
+    }
+    mins[i] = best;
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const float cols = warp_sum(mins + n, m, lane);
+    const float rows = warp_sum(mins, n, lane);
+    if (lane == 0) out[f] = __fadd_rn(cols, rows);
+  }
+}
+
 template <int C, int R>
 cudaError_t launch(const float* gts, const float* preds, float* out, float* scratch, int frames,
                    int n, int m, int warps, int tile_cap, int smem_bytes, cudaStream_t stream) {
@@ -304,9 +360,9 @@ cudaError_t launch_rows(int rows, const float* gts, const float* preds, float* o
 // Plain C entry point for ctypes. gts: (frames, n, c) f32; preds:
 // (frames, m, c) f32, both contiguous; out: (frames,) f32, the per-frame
 // sum of min-over-gts for each pred point plus min-over-preds for each gt
-// point. c: the channels a crop has, 4 (x, y, z, Doppler) or 5 (with the
-// power in dB). The launch geometry comes from
-// ops/chamfer_kernel.py::launch_geometry: rows_per_thread (R), warps per
+// point. c: 4, 5 or 8 (the wrapper pads other counts up to 8, zeros in
+// both clouds; more go to seq_chamfer_frames_any_f32). The launch
+// geometry comes from ops/chamfer_kernel.py::launch_geometry: rows_per_thread (R), warps per
 // frame (1, 2, 4 or 8), tile_cap (staged columns, a multiple of 16 x warps,
 // at most 1024) and smem_bytes; scratch is null when the per-point minima
 // fit in shared memory, else frames x (n + m) floats. Returns the
@@ -328,6 +384,23 @@ extern "C" int seq_chamfer_frames_f32(const float* gts, const float* preds, floa
     case 5:
       return static_cast<int>(launch_rows<5>(rows_per_thread, gts, preds, out, scratch, frames, n,
                                              m, warps, tile_cap, smem_bytes, s));
+    case 8:
+      return static_cast<int>(launch_rows<8>(rows_per_thread, gts, preds, out, scratch, frames, n,
+                                             m, warps, tile_cap, smem_bytes, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The same function for any c >= 1, through chamfer_any_kernel: gts
+// (frames, n, c), preds (frames, m, c), out (frames,), scratch frames x
+// (n + m) floats, all f32, contiguous, on the card. Returns the
+// cudaError_t of the launch (0 on success).
+extern "C" int seq_chamfer_frames_any_f32(const float* gts, const float* preds, float* out,
+                                          float* scratch, int frames, int n, int m, int c,
+                                          void* stream) {
+  if (frames < 1 || n < 1 || m < 1 || c < 1 || scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  chamfer_any_kernel<<<frames, kAnyThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      gts, n, preds, m, c, scratch, out);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -5,7 +5,12 @@
 // Replaces opensetgaitrecognition_pcaa_tpu/ops/pallas/pointnet_infer.py::
 // _pointnet_kernel. Same function: BatchNorm is folded into W', b', and
 // every point of a frame runs 4 x (matmul -> + b' -> ELU) over the widths
-// C -> D/2 -> D/2 -> D -> D, then the frame's N points are averaged.
+// C -> H -> H -> D -> D (H = D // 2 in the models), then the frame's N
+// points are averaged. Any widths: the engine needs C, H and D to be
+// multiples of 4, and the wrapper pads them with zero weight rows and
+// columns and zero biases. A padded column is ELU(0) = 0 through every
+// layer and adds exact zeros to the real columns' sums; the wrapper slices
+// the output back to D.
 //
 // What bounds it: the 3xTF32 operations. A crop of 30 frames x 150 points
 // costs about 16.5 GFLOP at D = 1024 and C = 4, three tensor-core passes
@@ -133,11 +138,10 @@ group_mean_kernel(const float* __restrict__ partial, int groups, int d, int n_po
   out[static_cast<size_t>(blockIdx.x) * d + c] = s / static_cast<float>(n_points);
 }
 
-cudaError_t run_pass(const float* x, int frames, int n_points, int np, int c, int d,
+cudaError_t run_pass(const float* x, int frames, int n_points, int np, int c, int h, int d,
                      const float* const (&w)[4], const float* const (&b)[4], float* act_a,
                      float* act_b, float* partial, float* out, cudaStream_t s) {
   using tf32x3::Identity;
-  const int h = d / 2;
   const int rows = frames * np;
   cudaError_t err;
   err = tf32x3::launch(x, w[0], rows, c, h, Identity{}, BiasEluStore{b[0], act_a, rows, h}, s);
@@ -158,20 +162,20 @@ cudaError_t run_pass(const float* x, int frames, int n_points, int np, int c, in
 
 // Plain C entry point for ctypes. x: (frames, np, c) f32, each frame's
 // points past n_points and channels past the real ones zero; np a multiple
-// of 16, c a multiple of 4. The weights transposed, (out, in): w1t
-// (D/2, c), w2t (D/2, D/2), w3t (D, D/2), w4t (D, D); b1..b4; out
-// (frames, D). Scratch: act_a of frames_per_pass *
-// np * D floats, act_b of frames_per_pass * np * D/2, partial of
-// frames_per_pass * np / 16 * D. All f32, contiguous, on the card. D is 512
-// or 1024. Returns the cudaError_t of the launches (0 on success).
+// of 16; c, h and d multiples of 4 with h <= d. The weights transposed,
+// (out, in): w1t (h, c), w2t (h, h), w3t (d, h), w4t (d, d); b1..b4; out
+// (frames, d). Scratch: act_a of frames_per_pass * np * d floats, act_b of
+// frames_per_pass * np * h, partial of frames_per_pass * np / 16 * d. All
+// f32, contiguous, on the card. Returns the cudaError_t of the launches (0
+// on success).
 extern "C" int pointnet_pool_infer_f32(const float* x, const float* w1t, const float* b1,
                                        const float* w2t, const float* b2, const float* w3t,
                                        const float* b3, const float* w4t, const float* b4,
                                        float* out, float* act_a, float* act_b, float* partial,
-                                       int frames, int n_points, int np, int c, int d,
-                                       int frames_per_pass, void* stream) {
+                                       int frames, int n_points, int np, int c, int h,
+                                       int d, int frames_per_pass, void* stream) {
   if (frames < 1 || n_points < 1 || np < n_points || np % kGroup != 0 || c < 4 || c % 4 != 0 ||
-      frames_per_pass < 1 || (d != 512 && d != 1024) ||
+      h < 4 || h % 4 != 0 || d < h || d % 4 != 0 || frames_per_pass < 1 ||
       static_cast<long long>(frames_per_pass) * np * d > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -181,7 +185,7 @@ extern "C" int pointnet_pool_infer_f32(const float* x, const float* w1t, const f
   for (int f0 = 0; f0 < frames; f0 += frames_per_pass) {
     const int nf = frames - f0 < frames_per_pass ? frames - f0 : frames_per_pass;
     const cudaError_t err =
-        run_pass(x + static_cast<size_t>(f0) * np * c, nf, n_points, np, c, d, w, b, act_a,
+        run_pass(x + static_cast<size_t>(f0) * np * c, nf, n_points, np, c, h, d, w, b, act_a,
                  act_b, partial, out + static_cast<size_t>(f0) * d, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }

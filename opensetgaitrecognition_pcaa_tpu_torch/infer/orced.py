@@ -12,7 +12,8 @@ Port of ``opensetgaitrecognition_pcaa_tpu/infer/orced.py:58-474``:
 4. the unseen split leaves out its first-encountered subject, filtering
    whole batches by their *first* label, so the result depends on
    ``batch_size``;
-5. ``ensemble_ood_final_{preds,labels}_fixed.npy`` go to the figures folder
+5. ``ensemble_ood_final_{preds,labels}_fixed.npy`` and the confusion-matrix
+   PNG ``openset_cnfmtrx_ensemble_ood_fixed.png`` go to the figures folder
    and ``ensemble_ood_log.json`` to the run folder, under the JAX package's
    names.
 
@@ -29,8 +30,9 @@ split draws fresh noise per chunk from its own ``torch.Generator`` on the
 device, seeded from ``seed``. The port cannot replay JAX's PRNG, so only
 the distribution of those draws matches the JAX package's.
 
-Not yet in the port: regenerating the splits (``generate_dataset=True``)
-and the confusion-matrix PNG; both raise ``NotImplementedError``.
+With ``generate_dataset=True`` (the default, as in the JAX package) the
+setup first rewrites the run's split directories from the raw tracks with
+``data/splits.py::generate_splits``, seed 0.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ import torch
 from opensetgaitrecognition_pcaa_tpu_torch.config import SPLIT, Config
 from opensetgaitrecognition_pcaa_tpu_torch.convert import decoder_state_dict, encoder_state_dict
 from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import RadarCropDataset
+from opensetgaitrecognition_pcaa_tpu_torch.data.splits import generate_splits
 from opensetgaitrecognition_pcaa_tpu_torch.infer.artifacts import (
     openset_metrics,
     plot_openset_confusion_matrix,
@@ -174,22 +177,25 @@ def orced_inference_setup(
     *,
     device: Device = "cuda",
     models_path: str = "models",
+    data_path: Optional[str] = None,
     generate_dataset: bool = True,
 ):
     """Load one run folder → ``(cfg, encoder, decoder)``, the modules on
-    ``device`` in eval mode.
+    ``device`` in eval mode; first rewrite the run's splits from the raw
+    tracks under ``data_path`` (default ``cfg.DATA_PATH``) if
+    ``generate_dataset``.
 
     The JAX package's setup also reads the mean learner ``ML`` and returns
     its cluster means; no OR-CED decision reads them, so the port reads
     only ``E`` and ``G``."""
-    if generate_dataset:
-        raise NotImplementedError(
-            "regenerating the splits needs generate_splits, which the port "
-            "does not have yet (the JAX package's uses sklearn); write the "
-            "splits first and pass generate_dataset=False"
-        )
     run_dir = os.path.join(models_path, model_name)
     cfg = Config.load(os.path.join(run_dir, "config.json"))
+    if generate_dataset:
+        generate_splits(
+            data_path=data_path or cfg.DATA_PATH, gen_data_path=cfg.GEN_DATA_PATH,
+            train_classes=cfg.TRAIN_CLASSES, seed=0, nmax_points=cfg.NMAX,
+            nsteps=cfg.NSTEPS, crop_step=cfg.CROP_STEP, verbose=False,
+        )
     encoder = ORCEDEncoder(
         n_out_labels=cfg.n_classes, in_features=cfg.NFEATURES,
         sup_latent_dim=cfg.SUP_LATENT_DIM, pointnet_out_dim=cfg.POINTNET_OUT_DIM,
@@ -207,12 +213,13 @@ def orced_inference(
     device: Device = "cuda",
     models_path: str = "models",
     figures_path: str = "figures",
+    data_path: Optional[str] = None,
     generate_dataset: bool = True,
     batch_size: int = 64,
     seed: int = 0,
     eps_streams: Optional[Dict[str, np.ndarray]] = None,
     crop_order: Optional[Dict[str, Sequence[str]]] = None,
-    confusion_png: bool = False,
+    confusion_png: bool = True,
     dump_calibration: bool = False,
     use_kernel: bool = True,
 ) -> Dict:
@@ -237,7 +244,7 @@ def orced_inference(
         figures_folder = os.path.join(figures_path, model_name)
         os.makedirs(figures_folder, exist_ok=True)
         cfg, encoder, decoder = orced_inference_setup(
-            model_name, device=device, models_path=models_path,
+            model_name, device=device, models_path=models_path, data_path=data_path,
             generate_dataset=generate_dataset,
         )
         # every split honours the run's SUBSAMPLE_FACTOR, each with its own

@@ -12,11 +12,14 @@ Port of ``opensetgaitrecognition_pcaa_tpu/infer/pcaa.py:64-475``:
 4. vote over non-overlapping k-crop windows: a window whose crops are
    mostly above the threshold takes the majority class, otherwise
    "unknown" (= ``n_labels``);
-5. write ``naive_seq_log_{k}.json``, ``final_{preds,labels}_{k}.npy`` and
-   ``naive_seq_log_subsampled{s}.json`` under the JAX package's names.
+5. write ``naive_seq_log_{k}.json``, ``final_{preds,labels}_{k}.npy``,
+   ``naive_seq_log_subsampled{s}.json`` and the confusion-matrix PNG
+   ``openset_confusion_matrix_naive_seq_{k}.png`` under the JAX package's
+   names.
 
-Not yet in the port: regenerating the splits (``generate_dataset=True``)
-and the confusion-matrix PNG; both raise ``NotImplementedError``.
+With ``generate_dataset=True`` (the default, as in the JAX package) the
+setup first rewrites the run's split directories from the raw tracks with
+``data/splits.py::generate_splits``, seed 0.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from opensetgaitrecognition_pcaa_tpu_torch.config import (
 )
 from opensetgaitrecognition_pcaa_tpu_torch.convert import encoder_state_dict
 from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import RadarCropDataset
+from opensetgaitrecognition_pcaa_tpu_torch.data.splits import generate_splits
 from opensetgaitrecognition_pcaa_tpu_torch.infer.artifacts import (
     openset_metrics,
     plot_openset_confusion_matrix,
@@ -61,18 +65,23 @@ def pcaa_inference_setup(
     *,
     device: Device = "cuda",
     models_path: str = "models",
+    data_path: Optional[str] = None,
     generate_dataset: bool = True,
+    force_pc_subsampling: int = 0,
 ):
     """Load config, encoder weights and centroids of one run folder →
-    ``(cfg, encoder on device in eval mode, means)``."""
-    if generate_dataset:
-        raise NotImplementedError(
-            "regenerating the splits needs generate_splits, which the port "
-            "does not have yet (the JAX package's uses sklearn); write the "
-            "splits first and pass generate_dataset=False"
-        )
+    ``(cfg, encoder on device in eval mode, means)``; first rewrite the
+    run's splits from the raw tracks under ``data_path`` (default
+    ``cfg.DATA_PATH``) if ``generate_dataset``."""
     run_dir = os.path.join(models_path, model_name)
     cfg = Config.load(os.path.join(run_dir, "config.json"))
+    if generate_dataset:
+        generate_splits(
+            data_path=data_path or cfg.DATA_PATH, gen_data_path=cfg.GEN_DATA_PATH,
+            train_classes=cfg.TRAIN_CLASSES, seed=0,
+            force_pc_subsampling=force_pc_subsampling, nmax_points=cfg.NMAX,
+            nsteps=cfg.NSTEPS, crop_step=cfg.CROP_STEP, verbose=False,
+        )
     # the projection head exists for V1 and V4 (see the JAX package)
     encoder = CGEncoder(
         n_out_labels=cfg.n_classes,
@@ -226,7 +235,8 @@ def naive_sequential_procedure(
     confusion_png: bool = False,
 ) -> Tuple[Dict, np.ndarray, np.ndarray]:
     """k-window voting over a calibration → ``(metrics, preds, labels)``;
-    writes ``naive_seq_log_<suffix>.json``."""
+    writes ``naive_seq_log_<suffix>.json`` and, with ``confusion_png``, the
+    confusion-matrix PNG into ``figures_folder``."""
     p1, l1 = _window_vote(
         cal.test_ll, cal.test_preds, cal.test_labels, k, cal.log_threshold, cal.n_labels
     )
@@ -254,19 +264,22 @@ def pcaa_inference(
     device: Device = "cuda",
     models_path: str = "models",
     figures_path: str = "figures",
+    data_path: Optional[str] = None,
     force_pc_subsampling: int = 0,
     scenarios_list: Sequence[SCENARIO] = ALL_SCENARIOS,
     variation: Optional[VARIATION] = None,
     generate_dataset: bool = True,
     dump_calibration: bool = False,
-    confusion_png: bool = False,
+    confusion_png: bool = True,
     use_kernel: bool = True,
 ) -> Dict:
     """Open-set inference over runs × window sizes (reference
     ``CGAAE_inference``, ``inference_PCAA.py:382-469``).
 
-    ``force_pc_subsampling`` only names the artifacts here: the points
-    were subsampled when the splits were written. ``dump_calibration``
+    ``generate_dataset`` rewrites each run's splits from the raw tracks
+    under ``data_path`` (default the run's ``DATA_PATH``), with
+    ``force_pc_subsampling`` points a frame if it is set; that value also
+    names the artifacts. ``dump_calibration``
     also writes the per-crop calibration arrays to
     ``<model_folder>/calibration.npz``. ``use_kernel=False`` runs the plain
     PointNet version on the card, for comparison with the kernel.
@@ -283,8 +296,8 @@ def pcaa_inference(
         os.makedirs(figures_folder, exist_ok=True)
         var = variation or variation_from_model_name(model_name)
         cfg, encoder, means = pcaa_inference_setup(
-            model_name, var, device=device, models_path=models_path,
-            generate_dataset=generate_dataset,
+            model_name, var, device=device, models_path=models_path, data_path=data_path,
+            generate_dataset=generate_dataset, force_pc_subsampling=force_pc_subsampling,
         )
         cal = calibrate_open_set(
             encoder, means, cfg, device=device, scenarios_list=scenarios_list,

@@ -7,7 +7,12 @@ tensors and from the plain ``frame_chamfer`` for CPU tensors; the mean over
 T (or over everything) is taken here, as the JAX package takes it outside
 its kernel. A CUDA tensor launches the kernel or raises. Unlike the TPU
 kernel, which sends clouds of more than 640 points to XLA, the CUDA kernel
-takes any N and M ≥ 1.
+takes any N and M ≥ 1, and any C ≥ 1: it is built for C = 4 and 5 (a
+crop's channels) and 8, ``pad_channels`` pads fewer than 4 channels to 4
+and 6 or 7 to 8 with zeros in both clouds (an exact 0 in every norm and
+dot, so the same bits), and more than 8 go to a plain kernel that takes C
+at run time (``csrc/chamfer.cu::chamfer_any_kernel``), slower but exact in
+the same way. Both count as launches of the kernel.
 
 The kernel computes each distance once, in one sweep over register tiles
 (a thread holds R gt points and walks the pred points staged in shared
@@ -30,15 +35,18 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from opensetgaitrecognition_pcaa_tpu_torch.ops._build import load_library
 from opensetgaitrecognition_pcaa_tpu_torch.ops.chamfer import frame_chamfer, pairwise_sq_dists
 
 _KERNEL = "chamfer"
-_CHANNELS = (4, 5)  # a crop's channels: x, y, z, Doppler and, optionally, power in dB
+# the channel counts the tiled kernel is built for: a crop's x, y, z, Doppler
+# and, optionally, power in dB; and 8, which 6 and 7 are padded to
+_CHANNELS = (4, 5, 8)
 
 # The kernel's fixed shape (csrc/chamfer.cu): a warp is 16 row lanes x 2
 # column lanes; a thread holds R rows, one of ROWS_PER_THREAD (16 x 10 =
@@ -101,46 +109,76 @@ def _check_cuda_args(preds: torch.Tensor, gts: torch.Tensor) -> None:
     if (gts.shape[0], gts.shape[1], gts.shape[3]) != (b, t, c):
         raise ValueError(f"preds {tuple(preds.shape)} and gts {tuple(gts.shape)} differ "
                          "in batch, time or channels")
-    if c not in _CHANNELS:
-        raise ValueError(f"the kernel takes {_CHANNELS} channels, got {c}")
+    if c < 1:
+        raise ValueError(f"no channels: preds {tuple(preds.shape)}")
     if b * t < 1 or m < 1 or gts.shape[2] < 1:
         raise ValueError(f"no frames or no points: preds {tuple(preds.shape)}, "
                          f"gts {tuple(gts.shape)}")
 
 
-_FN: Optional[Callable[..., int]] = None
+def kernel_channels(c: int) -> int:
+    """The channel count the kernel runs ``c`` channels at: the smallest of
+    ``_CHANNELS`` that holds them, or ``c`` itself above 8 (the run-time-C
+    kernel)."""
+    return next((k for k in _CHANNELS if k >= c), c)
 
 
-def _kernel() -> Callable[..., int]:
-    """The C entry point, built, loaded and typed at the first call."""
-    global _FN
-    if _FN is None:
-        fn = load_library(_KERNEL).seq_chamfer_frames_f32
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+def pad_channels(preds: torch.Tensor, gts: torch.Tensor):
+    """Zero-pad the channels of both clouds to ``kernel_channels`` →
+    ``(preds, gts)``; the inputs where nothing needs padding. A padded
+    channel adds an exact 0 to every norm and dot product."""
+    c = preds.shape[-1]
+    extra = kernel_channels(c) - c
+    if extra == 0:
+        return preds, gts
+    return F.pad(preds, (0, extra)), F.pad(gts, (0, extra))
+
+
+# the C entry points, each with the number of int arguments it takes after
+# its four pointers: the tiled kernel and the run-time-C kernel
+_ENTRY_INTS = {"seq_chamfer_frames_f32": 8, "seq_chamfer_frames_any_f32": 4}
+_FNS: Dict[str, Callable[..., int]] = {}
+
+
+def _kernel(name: str = "seq_chamfer_frames_f32") -> Callable[..., int]:
+    """A C entry point, built, loaded and typed at its first call."""
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(load_library(_KERNEL), name)
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * _ENTRY_INTS[name]
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        _FNS[name] = fn
+    return fn
 
 
 def _launch(preds: torch.Tensor, gts: torch.Tensor) -> torch.Tensor:
     """The kernel's per-frame sums ``(B, T)``."""
     _check_cuda_args(preds, gts)
+    preds, gts = pad_channels(preds, gts)
     b, t, m, c = preds.shape
     n = gts.shape[2]
-    geo = launch_geometry(b * t, n, m, c)
     device = preds.device
     out = torch.empty((b, t), dtype=torch.float32, device=device)
-    scratch = (torch.empty(geo.scratch_floats, dtype=torch.float32, device=device)
-               if geo.scratch_floats else None)
-    args = (gts.data_ptr(), preds.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), b * t, n, m, c,
-            geo.rows_per_thread, geo.warps, geo.tile_cap, geo.smem_bytes,
-            torch.cuda.current_stream(device).cuda_stream)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if c in _CHANNELS:
+        geo = launch_geometry(b * t, n, m, c)
+        scratch = (torch.empty(geo.scratch_floats, dtype=torch.float32, device=device)
+                   if geo.scratch_floats else None)
+        fn = _kernel()
+        args = (gts.data_ptr(), preds.data_ptr(), out.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), b * t, n, m, c,
+                geo.rows_per_thread, geo.warps, geo.tile_cap, geo.smem_bytes, stream)
+    else:
+        scratch = torch.empty(b * t * (n + m), dtype=torch.float32, device=device)
+        fn = _kernel("seq_chamfer_frames_any_f32")
+        args = (gts.data_ptr(), preds.data_ptr(), out.data_ptr(), scratch.data_ptr(), b * t,
+                n, m, c, stream)
     if device.index == torch.cuda.current_device():
-        err = _kernel()(*args)
+        err = fn(*args)
     else:
         with torch.cuda.device(device):
-            err = _kernel()(*args)
+            err = fn(*args)
     if err != 0:
         raise RuntimeError(f"seq_chamfer kernel launch failed: cudaError {err}")
     seq_chamfer_kernel.launches += 1

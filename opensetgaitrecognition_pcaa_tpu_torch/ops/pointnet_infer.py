@@ -13,11 +13,15 @@ computes ``pointnet_pool_ref``, the plain version that the tests and
 ``chip_smoke.py`` hold the kernel against. The kernel runs the four layers
 on the tensor cores in the exact three-pass TF32 mode (``ops/tf32x3.py``).
 The TPU kernel's VMEM budget, grid-size guard and precision routing are not
-carried over: the CUDA kernel takes any number of frames, points and
-channels. The wrapper pads each frame's points to a multiple of 16 and the
-channels to a multiple of 4 with zeros, hands the weights over transposed
-(the kernel reads them K-major), and allocates the activations of at most
-``_PASS_ROWS`` padded points, through which the kernel walks the batch.
+carried over: the CUDA kernel takes every shape the JAX wrapper takes, any
+number of frames and points, any channels and any widths. The wrapper pads
+each frame's points to a multiple of 16, and the channels C and the widths
+H = D // 2 and D to multiples of 4, with zeros (``pad_widths``: a padded
+width has zero weights and a zero bias, so it is ELU(0) = 0 in every layer
+and adds exact zeros to the real widths' sums); it hands the weights over
+transposed (the kernel reads them K-major), allocates the activations of at
+most ``_PASS_ROWS`` padded points (fewer above D = 1024), through which the
+kernel walks the batch, and slices the output back to D.
 """
 
 from __future__ import annotations
@@ -33,8 +37,11 @@ from opensetgaitrecognition_pcaa_tpu_torch.ops._build import load_library
 _KERNEL = "pointnet_infer"
 _GROUP = 16  # points per partial row of the pool: the kernel's m16 row tile
 # padded points per pass of the kernel: 256 crops of 30 frames x 150 points
-# (1,228,800 padded) go in one pass, with 7.5 GB of activations at D = 1024
+# (1,228,800 padded) go in one pass, with 7.5 GB of activations at D = 1024;
+# above D = 1024 a pass takes as many activation floats as at 1024
 _PASS_ROWS = 1_310_720
+_PASS_FLOATS = _PASS_ROWS * 1024
+_WIDTHS = ("w1", "w2", "w3", "w4")
 
 
 def fold_batchnorm(
@@ -79,21 +86,43 @@ def pointnet_pool_ref(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> torch
     return h.mean(dim=2)
 
 
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def pad_widths(x: torch.Tensor, folded: Dict[str, torch.Tensor]
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Zero-pad the channels C of ``x`` ``(B, T, N, C)`` and the widths of
+    the folded stack (C → H → H → D → D) to multiples of 4, as the kernel
+    takes them → ``(x, folded)``; the inputs where nothing needs padding.
+    Every padded term of a sum is an exact 0, and a padded output column
+    is ELU(0) = 0; the first D columns are the function of the inputs."""
+    widths = [folded["w1"].shape[0]] + [folded[k].shape[1] for k in _WIDTHS]
+    padded = [_round4(w) for w in widths]
+    if padded == widths:
+        return x, folded
+    out = {}
+    for i, k in enumerate(_WIDTHS):
+        w, b = folded[k], folded[f"b{i + 1}"]
+        out[k] = F.pad(w, (0, padded[i + 1] - w.shape[1], 0, padded[i] - w.shape[0]))
+        out[f"b{i + 1}"] = F.pad(b, (0, padded[i + 1] - b.shape[0]))
+    return F.pad(x, (0, padded[0] - widths[0])), out
+
+
 def _check_cuda_args(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> int:
     """Raise unless the kernel takes these arguments; return D."""
     if x.dim() != 4:
         raise ValueError(f"x must be (B, T, N, C), got shape {tuple(x.shape)}")
     c = x.shape[3]
+    h = folded["w1"].shape[1]
     d = folded["w4"].shape[1]
-    h = d // 2
     want = {
         "w1": (c, h), "b1": (h,), "w2": (h, h), "b2": (h,),
         "w3": (h, d), "b3": (d,), "w4": (d, d), "b4": (d,),
     }
-    if d not in (512, 1024):
-        raise ValueError(f"the kernel takes D in (512, 1024), got D={d}")
-    if c < 1:
-        raise ValueError(f"x has no channels: {tuple(x.shape)}")
+    if c < 1 or h < 1 or h > d:
+        raise ValueError(f"the kernel takes widths 1 <= H <= D and C >= 1, got C={c}, "
+                         f"H={h}, D={d}")
     for name, t in [("x", x)] + [(k, folded[k]) for k in want]:
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
@@ -111,7 +140,7 @@ def _check_cuda_args(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> int:
 def _library() -> ctypes.CDLL:
     lib = load_library(_KERNEL)
     fn = lib.pointnet_pool_infer_f32
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -128,24 +157,22 @@ def pointnet_pool_infer(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> tor
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     d = _check_cuda_args(x, folded)
-    b, t, n, c = x.shape
+    b, t, n, _ = x.shape
+    x, folded = pad_widths(x, folded)
+    c, h, dp = x.shape[3], folded["w1"].shape[1], folded["w4"].shape[1]
     frames = b * t
     np_ = -(-n // _GROUP) * _GROUP
-    c4 = -(-c // 4) * 4
     xp = x.reshape(frames, n, c)
-    if (np_, c4) != (n, c):
-        xp = F.pad(xp, (0, c4 - c, 0, np_ - n))
-    w1 = folded["w1"]
-    if c4 != c:
-        w1 = F.pad(w1, (0, 0, 0, c4 - c))
+    if np_ != n:
+        xp = F.pad(xp, (0, 0, 0, np_ - n))
     # the kernel reads the weights K-major: (out, in)
-    wts = [w1.t().contiguous()] + [folded[f"w{i}"].t().contiguous() for i in range(2, 5)]
-    per_pass = max(1, min(frames, _PASS_ROWS // np_))
+    wts = [folded[k].t().contiguous() for k in _WIDTHS]
+    per_pass = max(1, min(frames, _PASS_ROWS // np_, _PASS_FLOATS // (np_ * dp)))
     rows = per_pass * np_
-    out = torch.empty((b, t, d), dtype=torch.float32, device=x.device)
-    act_a = torch.empty((rows, d), dtype=torch.float32, device=x.device)
-    act_b = torch.empty((rows, d // 2), dtype=torch.float32, device=x.device)
-    partial = torch.empty((rows // _GROUP, d), dtype=torch.float32, device=x.device)
+    out = torch.empty((frames, dp), dtype=torch.float32, device=x.device)
+    act_a = torch.empty((rows, dp), dtype=torch.float32, device=x.device)
+    act_b = torch.empty((rows, h), dtype=torch.float32, device=x.device)
+    partial = torch.empty((rows // _GROUP, dp), dtype=torch.float32, device=x.device)
     weights = [p for i in range(4) for p in (wts[i], folded[f"b{i + 1}"])]
     fn = _library().pointnet_pool_infer_f32
     with torch.cuda.device(x.device):
@@ -153,12 +180,13 @@ def pointnet_pool_infer(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> tor
         err = fn(
             xp.data_ptr(), *(w.data_ptr() for w in weights), out.data_ptr(),
             act_a.data_ptr(), act_b.data_ptr(), partial.data_ptr(),
-            frames, n, np_, c4, d, per_pass, stream,
+            frames, n, np_, c, h, dp, per_pass, stream,
         )
     if err != 0:
         raise RuntimeError(f"pointnet_pool_infer kernel launch failed: cudaError {err}")
     pointnet_pool_infer.launches += 1
-    return out
+    out = out.reshape(b, t, dp)
+    return out if dp == d else out[..., :d].contiguous()
 
 
 # Kernel launches since the last reset; the plain path does not count.

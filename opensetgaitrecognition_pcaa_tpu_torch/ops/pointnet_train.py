@@ -22,7 +22,14 @@ BatchNorm + ELU and averages over the points of each frame.
   raw outputs, and the matmul VJPs by ``torch.matmul``.
 
 The kernel masks a ragged last row tile itself, so the TPU kernel's
-padding-row correction (``_stats_from_sums``) has no counterpart here.
+padding-row correction (``_stats_from_sums``) has no counterpart here. It
+takes widths that are multiples of 4; ``fused_layer`` pads other widths
+(``NFEATURES=5``, ``POINTNET_OUT_DIM=30``) with zeros (``pad_layer``: zero
+input columns and weight rows, an affine of mean 0, scale 0 and shift 0, so
+a padded input is ELU(0) = 0; zero weight columns and biases, so a padded
+output is 0) and slices y and the statistics back to the real widths. The
+autograd Function sees only real widths, so no gradient reaches a padded
+column.
 ``pointnet_pool_train_ref`` is the whole forward in plain PyTorch, which
 autograd differentiates on its own.
 """
@@ -96,21 +103,41 @@ def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> No
 
 
 def _check_layer_args(h, affine, w, b) -> Tuple[int, int, int]:
-    """Raise unless the layer kernel takes these arguments → (R, C_in, C_out)."""
+    """Raise unless the layer kernel takes these arguments (widths padded
+    by ``pad_layer``) → (R, C_in, C_out)."""
     if h.dim() != 2 or w.dim() != 2:
         raise ValueError(f"h and w must be 2-D, got {tuple(h.shape)} and {tuple(w.shape)}")
     rows, c_in = h.shape
     c_out = w.shape[1]
     if rows < 1:
         raise ValueError("h has no rows")
-    if c_in % 4 or c_out % 4:
-        raise ValueError(f"the kernel takes widths that are multiples of 4, got {c_in} -> {c_out}")
+    if c_in < 1 or c_out < 1:
+        raise ValueError(f"the kernel takes widths of at least 1, got {c_in} -> {c_out}")
     _check("h", h, (rows, c_in), h.device)
     _check("w", w, (c_in, c_out), h.device)
     _check("b", b, (c_out,), h.device)
     if affine is not None:
         _check("affine", affine, (3, c_in), h.device)
     return rows, c_in, c_out
+
+
+def pad_layer(h: torch.Tensor, affine: Optional[torch.Tensor], w: torch.Tensor,
+              b: torch.Tensor):
+    """Zero-pad C_in and C_out to multiples of 4, as the layer kernel
+    takes them → ``(h, affine, w, b)``; the inputs where nothing needs
+    padding. Every padded term of a sum is an exact 0, and a padded output
+    column and its statistics are 0; the first C_out columns are the
+    function of the inputs."""
+    c_in, c_out = w.shape
+    pi, po = -(-c_in // 4) * 4 - c_in, -(-c_out // 4) * 4 - c_out
+    if pi:
+        h = F.pad(h, (0, pi))
+        if affine is not None:
+            affine = F.pad(affine, (0, pi))
+    if pi or po:
+        w = F.pad(w, (0, po, 0, pi))
+        b = F.pad(b, (0, po))
+    return h, affine, w, b
 
 
 def fused_layer(h: torch.Tensor, affine: Optional[torch.Tensor], w: torch.Tensor,
@@ -120,13 +147,16 @@ def fused_layer(h: torch.Tensor, affine: Optional[torch.Tensor], w: torch.Tensor
     and y's batch mean and biased variance → ``(y, mean, var)``.
 
     A CPU tensor takes ``fused_layer_ref``; a CUDA tensor launches the
-    layer kernel and its fixed-order reduction, or raises.
+    layer kernel and its fixed-order reduction, or raises. Widths that are
+    not multiples of 4 are padded (``pad_layer``) and sliced back.
     """
     if h.device.type == "cpu":
         return fused_layer_ref(h, affine, w, b)
     if h.device.type != "cuda":
         raise ValueError(f"no kernel for device {h.device}")
-    rows, c_in, c_out = _check_layer_args(h, affine, w, b)
+    rows, _, c_real = _check_layer_args(h, affine, w, b)
+    h, affine, w, b = pad_layer(h, affine, w, b)
+    c_in, c_out = w.shape
     lib = _library()
     row_tile = lib.pointnet_train_row_tile()  # rows per block of the layer kernel
     y = torch.empty((rows, c_out), dtype=torch.float32, device=h.device)
@@ -144,6 +174,8 @@ def fused_layer(h: torch.Tensor, affine: Optional[torch.Tensor], w: torch.Tensor
     if err != 0:
         raise RuntimeError(f"pointnet_train layer kernel launch failed: cudaError {err}")
     fused_layer.launches += 1
+    if c_out != c_real:
+        y, mean, var = y[:, :c_real].contiguous(), mean[:c_real], var[:c_real]
     return y, mean, var
 
 

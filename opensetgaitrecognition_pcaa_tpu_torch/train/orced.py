@@ -1,0 +1,306 @@
+"""OR-CED baseline training (VAE + metric learning).
+
+Port of ``opensetgaitrecognition_pcaa_tpu/train/orced.py:69-555``. One Adam
+over the encoder, the decoder and the mean learner; the loss of a batch is
+
+    REC_W·Chamfer + CE_W·CE + TRIPLET_W·Triplet(MS-mined, L2-normalized z)
+    + KL_W·CG-KL·(epoch / EPOCHS)
+
+with the KL weight annealed linearly by epoch (reference
+``train_ORCED.py:122``), so epoch 0 trains with no KL term. Kept
+semantics of the JAX trainer:
+
+- the reference quirk ``betas=(B1, B1)``: Adam's second-moment decay is
+  B1 = 0.9, not B2;
+- the rec loss is the plain ``seq_chamfer``, the encoder the plain
+  ``GaitBackbone``, and Adam the plain ``train/optim.py`` update, as the
+  JAX trainer uses XLA and optax there: no kernel runs in ORCED training,
+  and ``FUSED_POINTNET`` is not read;
+- the train step runs the encoder and the mean learner in train mode, both
+  BatchNorm stacks moving their running statistics; the valid epoch runs
+  the encoder in eval mode and still samples the reparametrization noise;
+- ``eps`` injection replays given noise, so that a port step and a JAX
+  step can run on the same state, batch and noise; otherwise the noise of
+  the train steps and of every valid epoch comes from one
+  ``torch.Generator`` seeded from ``cfg.SEED`` (fresh draws each epoch,
+  which cannot be JAX's);
+- a best-by-valid-accuracy checkpoint every ``CHECKPOINT_FREQUENCY``
+  epochs, a strict ``>`` from 0.0, and the final state when no epoch
+  improved; the run folder holds ``<NAME>_{E,G,ML}.msgpack``, which both
+  packages' ``orced_inference_setup`` read.
+
+Modules, parameters, running statistics and Adam moments are updated in
+place. ``FUSED_ADAM`` and ``DEFERRED_DECODER_UPDATE`` are PCAA-only and
+raise ``ValueError`` as in the JAX package; bf16 compute, the TPU-only
+options, data/tensor parallelism and the resume state are not ported yet
+and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from opensetgaitrecognition_pcaa_tpu_torch.config import SPLIT, Config
+from opensetgaitrecognition_pcaa_tpu_torch.convert import orced_module_variables
+from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import (
+    RadarCropDataset,
+    epoch_batch_indices,
+)
+from opensetgaitrecognition_pcaa_tpu_torch.infer.common import ieee_f32
+from opensetgaitrecognition_pcaa_tpu_torch.models.mean_learner import GaussianMeanLearner
+from opensetgaitrecognition_pcaa_tpu_torch.models.orced import ORCEDDecoder, ORCEDEncoder
+from opensetgaitrecognition_pcaa_tpu_torch.ops.chamfer import seq_chamfer
+from opensetgaitrecognition_pcaa_tpu_torch.ops.losses import (
+    cg_kl_divergence,
+    cross_entropy,
+    triplet_loss_with_ms_miner,
+)
+from opensetgaitrecognition_pcaa_tpu_torch.train.metrics import MetricLogger
+from opensetgaitrecognition_pcaa_tpu_torch.train.optim import AdamState, adam_init, adam_update_
+from opensetgaitrecognition_pcaa_tpu_torch.train.pcaa import (
+    _ckpt_payload,
+    _stack,
+    check_unported,
+)
+from opensetgaitrecognition_pcaa_tpu_torch.train.run_folder import (
+    mark_run_completed,
+    module_path,
+    save_params,
+)
+
+Device = Union[str, torch.device]
+
+
+def _check_supported(cfg: Config) -> None:
+    for flag in ("FUSED_ADAM", "DEFERRED_DECODER_UPDATE"):
+        if getattr(cfg, flag):
+            raise ValueError(f"Config.{flag} is PCAA-only; unset it for ORCED runs")
+    check_unported(cfg)
+
+
+class ORCEDModules(nn.Module):
+    """The encoder, the decoder and the mean learner, under the keys of the
+    JAX package's ``ORCEDState.params``."""
+
+    def __init__(self, cfg: Config, generator: torch.Generator):
+        super().__init__()
+        n, latent = cfg.n_classes, cfg.SUP_LATENT_DIM
+        self.encoder = ORCEDEncoder(
+            n, in_features=cfg.NFEATURES, sup_latent_dim=latent,
+            pointnet_out_dim=cfg.POINTNET_OUT_DIM, dtc_filters=tuple(cfg.DTC_FILTERS),
+            generator=generator,
+        )
+        self.decoder = ORCEDDecoder(latent, cfg.NSTEPS, cfg.NMAX, cfg.NFEATURES, generator)
+        self.mean_learner = GaussianMeanLearner(n, latent, generator)
+
+
+@dataclasses.dataclass
+class ORCEDState:
+    opt: AdamState
+    generator: torch.Generator  # the reparametrization noise when none is injected
+
+
+def build_orced(cfg: Config, *, device: Device = "cuda") -> Tuple[ORCEDModules, ORCEDState]:
+    """Modules with torch's default init drawn from ``cfg.SEED`` and a zero
+    Adam state, on ``device``."""
+    _check_supported(cfg)
+    mods = ORCEDModules(cfg, torch.Generator().manual_seed(cfg.SEED)).to(device)
+    noise = torch.Generator(device=device).manual_seed(cfg.SEED + 1)
+    return mods, ORCEDState(opt=adam_init(mods.named_parameters()), generator=noise)
+
+
+def make_orced_train_step(mods: ORCEDModules, cfg: Config):
+    """→ ``step(state, pcs, labels, kl_mult, eps=None) → (state, metrics)``."""
+    ieee_f32()
+    n = cfg.n_classes
+    params = dict(mods.named_parameters())
+    # reference quirk: betas=(B1, B1)
+    adam = dict(lr=cfg.LR, b1=cfg.B1, b2=cfg.B1)
+
+    def step(state: ORCEDState, pcs: torch.Tensor, labels: torch.Tensor, kl_mult: float,
+             eps: Optional[torch.Tensor] = None):
+        mods.train()
+        oh = F.one_hot(labels.long(), n).float()
+        logits, z, mu, logvar = mods.encoder(pcs, eps=eps, generator=state.generator)
+        rec = mods.decoder(z)
+        mu_gts = mods.mean_learner(oh)
+
+        rec_loss = cfg.REC_W * seq_chamfer(rec, pcs)
+        sup_loss = cfg.CE_W * cross_entropy(logits, labels)
+        z_norm = z / torch.linalg.norm(z, dim=1, keepdim=True)
+        trip_loss = cfg.TRIPLET_W * triplet_loss_with_ms_miner(
+            z_norm, labels, margin=cfg.TRIPLET_MARGIN
+        )
+        kl_loss = cfg.KL_W * cg_kl_divergence(mu, logvar, mu_gts) * kl_mult
+        tot_loss = rec_loss + sup_loss + trip_loss + kl_loss
+        grads = torch.autograd.grad(tot_loss, list(params.values()), allow_unused=True,
+                                    materialize_grads=True)
+        adam_update_(state.opt, params, dict(zip(params, grads)), **adam)
+        metrics = {
+            "rec_loss": rec_loss.detach(),
+            "sup_loss": sup_loss.detach(),
+            "trip_loss": trip_loss.detach(),
+            "kl_loss": kl_loss.detach(),
+            "tot_loss": tot_loss.detach(),
+            "n_correct": torch.sum(torch.argmax(logits, dim=1) == labels).float(),
+        }
+        return state, metrics
+
+    return step
+
+
+def make_orced_epoch_fns(mods: ORCEDModules, cfg: Config):
+    """→ ``(train_epoch, valid_epoch)``: Python loops over the batches that
+    a ``(steps, B)`` index matrix picks from device-resident splits.
+    ``noise`` (optional, both): ``eps`` of shape ``(steps, B, latent)``
+    replayed instead of fresh draws."""
+    train_step = make_orced_train_step(mods, cfg)
+
+    def train_epoch(state: ORCEDState, x_all, y_all, perm, kl_mult: float, noise=None):
+        perm = torch.as_tensor(perm, device=x_all.device).long()
+        out = []
+        for i in range(perm.shape[0]):
+            idx = perm[i]
+            eps = None if noise is None else noise[i]
+            state, m = train_step(state, x_all[idx], y_all[idx], kl_mult, eps)
+            out.append(m)
+        return state, _stack(out)
+
+    @torch.no_grad()
+    def valid_epoch(state: ORCEDState, x_all, y_all, perm, noise=None):
+        perm = torch.as_tensor(perm, device=x_all.device).long()
+        mods.eval()
+        try:
+            out = []
+            for i in range(perm.shape[0]):
+                idx = perm[i]
+                pcs, labels = x_all[idx], y_all[idx]
+                eps = None if noise is None else noise[i]
+                # eval mode still samples the reparametrization noise
+                logits, z, _, _ = mods.encoder(pcs, eps=eps, generator=state.generator)
+                out.append({
+                    "rec_loss": cfg.REC_W * seq_chamfer(mods.decoder(z), pcs),
+                    "ce_loss": cfg.CE_W * cross_entropy(logits, labels),
+                    "n_correct": torch.sum(torch.argmax(logits, dim=1) == labels).float(),
+                })
+        finally:
+            mods.train()
+        return _stack(out)
+
+    return train_epoch, valid_epoch
+
+
+def write_orced_checkpoint(run_dir: str, name: str, payload: Dict[str, torch.Tensor]) -> None:
+    """Write the reference's E (with the running statistics), G and ML
+    files from an ``ORCEDModules`` state_dict."""
+    variables = orced_module_variables(payload)
+    for module, tag in (("encoder", "E"), ("decoder", "G"), ("mean_learner", "ML")):
+        save_params(variables[module], module_path(run_dir, name, tag))
+
+
+def train_orced(
+    cfg: Config,
+    *,
+    wandb_mode: str = "disabled",
+    datasets: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]] = None,
+    verbose: bool = True,
+    resume: bool = True,
+    device: Device = "cuda",
+) -> Dict[str, float]:
+    """Train one OR-CED run end to end; write the run folder the JAX
+    package writes (``config.json``, ``metrics.jsonl``,
+    ``<NAME>_{E,G,ML}.msgpack``, ``run_complete.json``) and return the final
+    metrics, throughput included.
+
+    :param datasets: optional ``(x_train, y_train, x_valid, y_valid)``;
+        otherwise the splits are read from ``cfg.GEN_DATA_PATH``.
+    :param device: the CUDA card unless the caller asks for the CPU.
+    """
+    ieee_f32()
+    _check_supported(cfg)
+    run_dir = cfg.run_dir()
+    if resume and os.path.exists(os.path.join(run_dir, "train_state.msgpack")):
+        raise NotImplementedError(
+            f"{run_dir} holds a resume state, which the port cannot read yet"
+        )
+    device = torch.device(device)
+    os.makedirs(run_dir, exist_ok=True)
+    cfg.save(os.path.join(run_dir, "config.json"))
+    name = cfg.MODEL_NAME
+
+    if datasets is None:
+        splits = [
+            RadarCropDataset(split, cfg.GEN_DATA_PATH, scenarios=cfg.scenarios,
+                             subsample_factor=cfg.SUBSAMPLE_FACTOR).load_all()
+            for split in (SPLIT.TRAIN, SPLIT.VALID)
+        ]
+        datasets = (*splits[0], *splits[1])
+    x_train, y_train, x_valid, y_valid = (
+        torch.as_tensor(np.asarray(a)).to(device) for a in datasets
+    )
+
+    mods, state = build_orced(cfg, device=device)
+    train_epoch, valid_epoch = make_orced_epoch_fns(mods, cfg)
+    logger = MetricLogger(run_dir, cfg.to_dict(), mode=wandb_mode)
+    host_rng = np.random.default_rng(cfg.SEED)
+
+    n_train = x_train.shape[0]
+    steps = n_train // cfg.BATCH_SIZE
+    valid_steps = x_valid.shape[0] // cfg.BATCH_SIZE
+    valid_perm = epoch_batch_indices(x_valid.shape[0], cfg.BATCH_SIZE, shuffle=False)
+    best_valid_acc = 0.0
+    best_payload = None
+    out: Dict[str, float] = {}
+    t_start = time.time()
+    for epoch in range(cfg.EPOCHS):
+        kl_mult = float(np.float32(epoch / cfg.EPOCHS))  # train_ORCED.py:122
+        perm = epoch_batch_indices(n_train, cfg.BATCH_SIZE, shuffle=True, rng=host_rng)
+        state, m = train_epoch(state, x_train, y_train, perm, kl_mult)
+        vm = valid_epoch(state, x_valid, y_valid, valid_perm)
+        m = {k: v.cpu().numpy() for k, v in m.items()}
+        vm = {k: v.cpu().numpy() for k, v in vm.items()}
+
+        train_acc = float(np.sum(m["n_correct"]) / (steps * cfg.BATCH_SIZE))
+        valid_acc = float(np.sum(vm["n_correct"]) / (valid_steps * cfg.BATCH_SIZE))
+        epoch_metrics = {
+            "Reconstruction Loss Train": float(np.mean(m["rec_loss"])),
+            "Reconstruction Loss Valid": float(np.mean(vm["rec_loss"])),
+            "Cross Entropy Loss Train": float(np.mean(m["sup_loss"])),
+            "Cross Entropy Loss Valid": float(np.mean(vm["ce_loss"])),
+            "Triplet Loss": float(np.mean(m["trip_loss"])),
+            "KL Loss": float(np.mean(m["kl_loss"])),
+            "Total Loss Train": float(np.mean(m["tot_loss"])),
+            "Train Accuracy": train_acc,
+            "Valid Accuracy": valid_acc,
+        }
+        logger.log(epoch_metrics, step=epoch)
+        if verbose:
+            print(
+                f"[{name}] epoch {epoch + 1}/{cfg.EPOCHS} "
+                f"rec={epoch_metrics['Reconstruction Loss Train']:.4f} "
+                f"kl={epoch_metrics['KL Loss']:.4f} "
+                f"trip={epoch_metrics['Triplet Loss']:.4f} "
+                f"acc={train_acc:.3f} vacc={valid_acc:.3f}"
+            )
+        if epoch % cfg.CHECKPOINT_FREQUENCY == 0 and valid_acc > best_valid_acc:
+            best_valid_acc = valid_acc
+            best_payload = _ckpt_payload(mods)
+        out = dict(epoch_metrics)
+
+    elapsed = time.time() - t_start
+    out["windows_per_sec"] = cfg.EPOCHS * steps * cfg.BATCH_SIZE / max(elapsed, 1e-9)
+    out["best_valid_accuracy"] = best_valid_acc
+    logger.finish()
+    # the final state if no checkpoint epoch improved the valid accuracy
+    write_orced_checkpoint(run_dir, name, best_payload if best_payload is not None
+                           else _ckpt_payload(mods))
+    mark_run_completed(run_dir, out)
+    return out

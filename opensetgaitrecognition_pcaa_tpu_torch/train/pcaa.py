@@ -95,18 +95,30 @@ VARIANTS: Dict[VARIATION, VariantSpec] = {
 }
 
 
+def check_unported(cfg: Config) -> None:
+    """Raise ``NotImplementedError`` on the options that neither trainer of
+    the port has yet: bf16 compute, the TPU-only optimizer and weight
+    options, data/tensor parallelism and the resume state."""
+    if cfg.COMPUTE_DTYPE != "float32":
+        raise NotImplementedError(f"COMPUTE_DTYPE={cfg.COMPUTE_DTYPE!r}: the port trains in f32")
+    for flag in ("BF16_ADAM_NU", "FACTORED_ADAM_NU", "BF16_WEIGHT_CACHE"):
+        if getattr(cfg, flag):
+            raise NotImplementedError(f"{flag} is not ported")
+    if cfg.DP_DEVICES * cfg.MP_DEVICES > 1:
+        raise NotImplementedError("data and tensor parallelism are not ported yet")
+    if cfg.SAVE_RESUME_STATE:
+        raise NotImplementedError("SAVE_RESUME_STATE: the resume state is not ported yet")
+
+
 def _check_supported(cfg: Config, spec: VariantSpec) -> None:
     if spec != VARIANTS[VARIATION.V4]:
         raise NotImplementedError(
             f"variant {spec}: the port trains V4 without the discriminator "
             "projection head only (V1, V2/BASE, V3 and the head are not ported yet)"
         )
-    if cfg.COMPUTE_DTYPE != "float32":
-        raise NotImplementedError(f"COMPUTE_DTYPE={cfg.COMPUTE_DTYPE!r}: the port trains in f32")
-    for flag in ("BF16_ADAM_NU", "FACTORED_ADAM_NU", "DEFERRED_DECODER_UPDATE",
-                 "BF16_WEIGHT_CACHE"):
-        if getattr(cfg, flag):
-            raise NotImplementedError(f"{flag} is not ported")
+    if cfg.DEFERRED_DECODER_UPDATE:
+        raise NotImplementedError("DEFERRED_DECODER_UPDATE is not ported")
+    check_unported(cfg)
 
 
 class PCAAModules(nn.Module):
@@ -320,10 +332,6 @@ def train_pcaa(
     if variation == VARIATION.V4 and proj_head_on_discriminator:
         spec = dataclasses.replace(spec, use_disc_head=True)
     _check_supported(cfg, spec)
-    if cfg.DP_DEVICES * cfg.MP_DEVICES > 1:
-        raise NotImplementedError("data and tensor parallelism are not ported yet")
-    if cfg.SAVE_RESUME_STATE:
-        raise NotImplementedError("SAVE_RESUME_STATE: the resume state is not ported yet")
     run_dir = cfg.run_dir()
     if resume and os.path.exists(os.path.join(run_dir, "train_state.msgpack")):
         raise NotImplementedError(
@@ -350,7 +358,7 @@ def train_pcaa(
     save_array(state.centroids.cpu().numpy(), os.path.join(run_dir, "discriminator_means.npy"))
 
     train_epoch, valid_epoch = make_epoch_fns(mods, cfg)
-    logger = MetricLogger(run_dir, mode=wandb_mode)
+    logger = MetricLogger(run_dir, cfg.to_dict(), mode=wandb_mode)
     host_rng = np.random.default_rng(cfg.SEED)
 
     n_train = x_train.shape[0]

@@ -13,18 +13,22 @@ import json
 import os
 import shutil
 
+import matplotlib.image as mpimg
 import numpy as np
 import pytest
 import torch
 
 from opensetgaitrecognition_pcaa_tpu.config import SPLIT as JAX_SPLIT, Config
 from opensetgaitrecognition_pcaa_tpu.data.dataset import RadarCropDataset as JaxDataset
+from opensetgaitrecognition_pcaa_tpu.data.splits import generate_splits as jax_generate_splits
 from opensetgaitrecognition_pcaa_tpu.infer.pcaa import pcaa_inference as jax_pcaa_inference
 from opensetgaitrecognition_pcaa_tpu.models import CGEncoder as FlaxCGEncoder
 from opensetgaitrecognition_pcaa_tpu.train.run_folder import module_path, save_params
 
-from opensetgaitrecognition_pcaa_tpu_torch.config import SPLIT, VARIATION
+from opensetgaitrecognition_pcaa_tpu_torch.config import SPLIT, VARIATION, Config as PortConfig
 from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import RadarCropDataset
+from opensetgaitrecognition_pcaa_tpu_torch.data.synthetic import generate_synthetic_raw_dataset
+from opensetgaitrecognition_pcaa_tpu_torch.infer.artifacts import openset_confusion_matrix
 from opensetgaitrecognition_pcaa_tpu_torch.infer.pcaa import (
     OpenSetCalibration,
     _window_vote,
@@ -34,6 +38,7 @@ from opensetgaitrecognition_pcaa_tpu_torch.infer.pcaa import (
 )
 from opensetgaitrecognition_pcaa_tpu_torch.infer.serving import make_pcaa_decision_fn
 
+from tests.test_torch_splits import assert_splits_equal
 from tests.test_torch_models import flax_encoder_vars
 
 NAME = "PORT_V4"
@@ -115,22 +120,56 @@ def test_decisions_and_metrics_equal(runs, k):
             assert json.load(f) == want
 
 
-def test_generate_dataset_is_not_ported(runs):
+def test_generate_dataset_writes_the_jax_splits(runs, tmp_path):
+    """``generate_dataset=True`` (the default) rewrites the run's splits
+    from the raw tracks, at the run's NMAX, NSTEPS and CROP_STEP, seed 0
+    and 10 subjects, as the JAX setup does: the same files, bit-equal.
+    ``data_path`` overrides the run's ``DATA_PATH`` and
+    ``force_pc_subsampling`` reaches the points."""
     _, _, port_path = runs
-    with pytest.raises(NotImplementedError, match="generate_splits"):
-        pcaa_inference_setup(NAME, VARIATION.V4, device="cpu", models_path=port_path)
+    raw = str(tmp_path / "raw")
+    generate_synthetic_raw_dataset(raw, n_subjects=10, tracks_per_scenario=10,
+                                   frames_per_track=(20, 30), seed=11)
+    models = str(tmp_path / "models")
+    shutil.copytree(os.path.join(port_path, NAME), os.path.join(models, NAME))
+    config_path = os.path.join(models, NAME, "config.json")
+    cfg = PortConfig.load(config_path).replace(GEN_DATA_PATH=str(tmp_path / "gen_port"),
+                                               DATA_PATH=str(tmp_path / "absent"))
+    cfg.save(config_path)
+    got_cfg, encoder, _ = pcaa_inference_setup(NAME, VARIATION.V4, device="cpu",
+                                               models_path=models, data_path=raw,
+                                               force_pc_subsampling=20)
+    assert got_cfg == cfg and not encoder.training
+    jax_generate_splits(data_path=raw, gen_data_path=str(tmp_path / "gen_jax"),
+                        train_classes=cfg.TRAIN_CLASSES, seed=0, force_pc_subsampling=20,
+                        nmax_points=cfg.NMAX, nsteps=cfg.NSTEPS, crop_step=cfg.CROP_STEP,
+                        verbose=False)
+    assert_splits_equal(str(tmp_path / "gen_port"), str(tmp_path / "gen_jax"))
 
 
-def test_confusion_png_is_not_ported(runs, tmp_path):
+def test_confusion_png_is_written(runs, tmp_path):
+    """``pcaa_inference`` wrote the PNG of each k by default (the fixture),
+    and ``naive_sequential_procedure`` writes the matrix of its decisions."""
     _, _, port_path = runs
+    figures = os.path.join(os.path.dirname(port_path), "fig_port", NAME)
+    for k in KS:
+        assert os.path.getsize(os.path.join(figures,
+                                            f"openset_confusion_matrix_naive_seq_{k}.png")) > 0
     cal = _calibration(port_path)
     fields = {k: cal[k] for k in OpenSetCalibration._fields}
     fields.update(log_threshold=float(cal["log_threshold"]), n_labels=int(cal["n_labels"]))
-    with pytest.raises(NotImplementedError, match="matplotlib"):
-        naive_sequential_procedure(
-            1, OpenSetCalibration(**fields), str(tmp_path),
-            figures_folder=str(tmp_path), confusion_png=True,
-        )
+    _, preds, labels = naive_sequential_procedure(
+        1, OpenSetCalibration(**fields), str(tmp_path),
+        figures_folder=str(tmp_path), confusion_png=True,
+    )
+    path = tmp_path / "openset_confusion_matrix_naive_seq_1.png"
+    with open(path, "rb") as f:
+        assert f.read(8) == b"\x89PNG\r\n\x1a\n"
+    image = np.rint(mpimg.imread(str(path)) * 255).astype(np.int64)
+    cm = openset_confusion_matrix(labels, preds, int(cal["n_labels"]))
+    cell = image.shape[0] // cm.shape[0]
+    steps = 255 - image[cell // 2::cell, cell // 2::cell, 0]  # the ramp's red is 255 - step
+    np.testing.assert_allclose(steps / 255, cm, rtol=0, atol=1 / 255)
 
 
 @pytest.mark.parametrize("k", KS)

@@ -37,8 +37,11 @@ def _needs_card():
 @pytest.mark.parametrize(
     "shape,d",
     [((2, 3, 150, 4), 1024), ((1, 97, 37, 4), 1024), ((3, 5, 33, 4), 512),
-     ((2, 3, 1, 4), 1024), ((4, 5, 16, 4), 1024), ((3, 7, 150, 4), 512), ((2, 3, 150, 5), 1024)],
-    ids=["n150", "ragged_f97_n37", "d512", "n1", "n16_no_padding", "d512_n150", "c5"],
+     ((2, 3, 1, 4), 1024), ((4, 5, 16, 4), 1024), ((3, 7, 150, 4), 512), ((2, 3, 150, 5), 1024),
+     ((4, 12, 64, 4), 32), ((4, 12, 64, 4), 64), ((2, 3, 37, 4), 200), ((2, 3, 150, 4), 1536),
+     ((2, 3, 37, 3), 30), ((2, 3, 37, 5), 201)],
+    ids=["n150", "ragged_f97_n37", "d512", "n1", "n16_no_padding", "d512_n150", "c5",
+         "d32", "d64", "d200", "d1536", "c3_d30_padded", "c5_d201_padded"],
 )
 def test_kernel_matches_plain(shape, d):
     _needs_card()
@@ -109,9 +112,14 @@ def test_argument_checks(mutate, match):
 
 @pytest.mark.parametrize("d,c", [(256, 4), (2048, 4), (1024, 0)], ids=["d256", "d2048", "c0"])
 def test_argument_checks_width_limits(d, c):
+    """The kernel takes any width (the wrapper pads to multiples of 4), and
+    at least one channel."""
     x, folded = _cpu_case(d, c)
-    with pytest.raises(ValueError):
-        pn._check_cuda_args(x, folded)
+    if c == 0:
+        with pytest.raises(ValueError):
+            pn._check_cuda_args(x, folded)
+    else:
+        assert pn._check_cuda_args(x, folded) == d
 
 
 @pytest.mark.parametrize("c", [5, 300], ids=["c5", "c300"])
@@ -151,9 +159,12 @@ def _layer_case(rng, rows, c_in, c_out, with_affine, device="cuda"):
 @pytest.mark.parametrize(
     "rows,c_in,c_out,with_affine",
     [(222, 4, 16, False), (222, 16, 20, True), (5000, 512, 512, True), (3001, 1024, 1024, True),
-     (6, 4, 512, False), (6, 512, 1024, True), (300, 36, 132, True), (72000, 4, 512, False)],
+     (6, 4, 512, False), (6, 512, 1024, True), (300, 36, 132, True), (72000, 4, 512, False),
+     (222, 5, 512, False), (222, 5, 15, False), (222, 15, 15, True), (222, 15, 30, True),
+     (222, 30, 30, True)],
     ids=["ragged_2x3x37_k4", "ragged_cols", "w512", "w1024", "n1_k4", "n1_w1024",
-         "ragged_k36_n132", "train_rows_k4"],
+         "ragged_k36_n132", "train_rows_k4", "nfeatures5", "nfeatures5_out15", "w15",
+         "w15_30", "w30"],
 )
 def test_layer_kernel_matches_plain(rows, c_in, c_out, with_affine):
     _needs_card()
@@ -198,19 +209,28 @@ def test_pool_kernel_matches_plain(shape):
 
 
 @pytest.mark.gpu
-def test_pointnet_train_gradients_on_the_card():
+@pytest.mark.parametrize(
+    "widths",
+    [[(4, 8), (8, 8), (8, 16), (16, 16)], [(5, 15), (15, 15), (15, 30), (30, 30)]],
+    ids=["w4_16", "nfeatures5_d30_padded"],
+)
+def test_pointnet_train_gradients_on_the_card(widths):
     """The autograd Function through the kernels against autograd through
-    the plain version, on the card (tolerances as in the CPU test)."""
+    the plain version, on the card (tolerances as in the CPU test); also at
+    NFEATURES = 5 and POINTNET_OUT_DIM = 30, whose widths the layer
+    wrapper pads to multiples of 4: the statistics and gradients come back
+    at the real widths."""
     _needs_card()
     rng = np.random.default_rng(5)
-    x = rng.normal(size=(2, 3, 37, 4)).astype(np.float32)
-    widths = [(4, 8), (8, 8), (8, 16), (16, 16)]
+    c, d = widths[0][0], widths[-1][1]
+    x = rng.normal(size=(2, 3, 37, c)).astype(np.float32)
     layers = [((rng.uniform(-1, 1, (a, c)) / np.sqrt(a)).astype(np.float32),
                rng.uniform(-0.1, 0.1, c).astype(np.float32),
                (1 + 0.2 * rng.normal(size=c)).astype(np.float32),
                (0.1 * rng.normal(size=c)).astype(np.float32)) for a, c in widths]
-    cot = torch.from_numpy(rng.normal(size=(2, 3, 16)).astype(np.float32)).cuda()
+    cot = torch.from_numpy(rng.normal(size=(2, 3, d)).astype(np.float32)).cuda()
     grads = []
+    before = pt.fused_layer.launches
     for fn in (pt.pointnet_pool_train, pt.pointnet_pool_train_ref):
         params = [[torch.tensor(a, device="cuda", requires_grad=True) for a in layer]
                   for layer in layers]
@@ -219,9 +239,11 @@ def test_pointnet_train_gradients_on_the_card():
         torch.sum(pooled * cot).backward()
         grads.append([pooled, *means, *variances, xt.grad]
                      + [p.grad for i, layer in enumerate(params) for p in layer])
+    assert pt.fused_layer.launches == before + 4
     names = ["pooled"] + [f"stat{i}" for i in range(8)] + ["x"] + [
         f"{n}{i}" for i in range(4) for n in ("W", "b", "gamma", "beta")]
     for name, got, want in zip(names, *grads):
+        assert got.shape == want.shape, name
         # the bias ahead of a train-mode BatchNorm has a zero gradient: noise only
         tol = dict(rtol=0, atol=5e-6) if name.startswith("b") and name[1:].isdigit() else \
             dict(rtol=1e-4, atol=1e-5)
@@ -231,10 +253,9 @@ def test_pointnet_train_gradients_on_the_card():
 @pytest.mark.gpu
 def test_pointnet_train_raises_instead_of_falling_back():
     _needs_card()
-    h, affine, w, b = _layer_case(np.random.default_rng(6), 64, 6, 8, True)
-    with pytest.raises(ValueError, match="multiples of 4"):
-        pt.fused_layer(h, affine, w, b)
     h, affine, w, b = _layer_case(np.random.default_rng(6), 64, 8, 8, True)
+    with pytest.raises(ValueError, match="float32"):
+        pt.fused_layer(h.double(), affine, w, b)
     with pytest.raises(ValueError, match="is on cpu"):
         pt.fused_layer(h, affine, w.cpu(), b)
 
@@ -374,6 +395,41 @@ def test_chamfer_kernel_five_channels():
     got = ck.frame_chamfer_kernel(preds, gts)
     torch.cuda.synchronize()
     _check_chamfer(got, preds, gts)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [1, 3, 6, 8, 12], ids=["c1", "c3", "c6", "c8", "c12"])
+def test_chamfer_kernel_any_channels(c):
+    """C < 4 padded to 4, 6 padded to 8 and 8 take the tiled kernel; 12 the
+    run-time-C kernel: each a counted launch, against the plain version and
+    the f64 oracle."""
+    _needs_card()
+    preds, gts = _clouds(np.random.default_rng(19 + c), 3, 5, 37, 53, c=c)
+    before = ck.seq_chamfer_kernel.launches
+    got = ck.frame_chamfer_kernel(preds, gts)
+    torch.cuda.synchronize()
+    assert ck.seq_chamfer_kernel.launches == before + 1
+    _check_chamfer(got, preds, gts)
+
+
+@pytest.mark.gpu
+def test_chamfer_padding_keeps_the_bits():
+    """Three channels padded to 4 give the bits of the same clouds with an
+    explicit zero fourth channel, and twelve through the run-time-C kernel
+    give the bits of the tiled C = 8 kernel where channels 8-11 are zero."""
+    _needs_card()
+    preds, gts = _clouds(np.random.default_rng(20), 4, 30, 150, 150, c=3)
+    zero = torch.zeros_like(preds[..., :1]), torch.zeros_like(gts[..., :1])
+    got = ck.frame_chamfer_kernel(preds, gts)
+    want = ck.frame_chamfer_kernel(torch.cat([preds, zero[0]], -1).contiguous(),
+                                   torch.cat([gts, zero[1]], -1).contiguous())
+    p8, g8 = _clouds(np.random.default_rng(21), 4, 30, 150, 150, c=8)
+    tiled = ck.frame_chamfer_kernel(p8, g8)
+    wide = ck.frame_chamfer_kernel(torch.cat([p8, torch.zeros_like(p8[..., :4])], -1),
+                                   torch.cat([g8, torch.zeros_like(g8[..., :4])], -1))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(wide, tiled)
 
 
 @pytest.mark.gpu

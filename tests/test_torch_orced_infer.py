@@ -21,12 +21,14 @@ import shutil
 
 import jax
 import jax.numpy as jnp
+import matplotlib.image as mpimg
 import numpy as np
 import pytest
 import torch
 
 from opensetgaitrecognition_pcaa_tpu.config import SPLIT as JAX_SPLIT, Config as JaxConfig
 from opensetgaitrecognition_pcaa_tpu.data.dataset import RadarCropDataset as JaxDataset
+from opensetgaitrecognition_pcaa_tpu.data.splits import generate_splits as jax_generate_splits
 from opensetgaitrecognition_pcaa_tpu.infer import orced as jax_orced
 from opensetgaitrecognition_pcaa_tpu.infer import serving as jax_serving
 from opensetgaitrecognition_pcaa_tpu.models import (
@@ -36,15 +38,18 @@ from opensetgaitrecognition_pcaa_tpu.models import (
 from opensetgaitrecognition_pcaa_tpu.ops import openset as jax_openset
 from opensetgaitrecognition_pcaa_tpu.train.run_folder import module_path, save_params
 
-from opensetgaitrecognition_pcaa_tpu_torch.config import SPLIT
+from opensetgaitrecognition_pcaa_tpu_torch.config import SPLIT, Config as PortConfig
 from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import RadarCropDataset
+from opensetgaitrecognition_pcaa_tpu_torch.data.synthetic import generate_synthetic_raw_dataset
 from opensetgaitrecognition_pcaa_tpu_torch.infer import orced
+from opensetgaitrecognition_pcaa_tpu_torch.infer.artifacts import openset_confusion_matrix
 from opensetgaitrecognition_pcaa_tpu_torch.infer.serving import (
     make_orced_forward_fn,
     orced_decide_host,
 )
 from opensetgaitrecognition_pcaa_tpu_torch.ops import openset
 
+from tests.test_torch_splits import assert_splits_equal
 from tests.test_torch_orced_models import (
     _perturbed,
     flax_mean_learner_vars,
@@ -247,10 +252,31 @@ def test_fresh_noise_is_seeded(runs, tmp_path):
     assert not np.array_equal(out[0]["test_z"], out[2]["test_z"])
 
 
-def test_unported_options_raise(runs, tmp_path):
-    common = dict(models_path=runs["paths"]["port"], figures_path=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="generate_splits"):
-        orced.orced_inference([NAME], **common)
-    with pytest.raises(NotImplementedError, match="matplotlib"):
-        orced.orced_inference([NAME], generate_dataset=False, eps_streams=runs["eps"],
-                              confusion_png=True, **common)
+def test_generate_dataset_and_confusion_png(runs, tmp_path):
+    """``generate_dataset=True`` (the default) rewrites the run's splits
+    from the raw tracks under ``data_path`` as the JAX setup does (the same
+    files, bit-equal), and the confusion PNG is written by default, the
+    matrix of the final decisions."""
+    raw = str(tmp_path / "raw")
+    generate_synthetic_raw_dataset(raw, n_subjects=10, tracks_per_scenario=10,
+                                   frames_per_track=(20, 30), seed=12)
+    models = str(tmp_path / "models")
+    shutil.copytree(os.path.join(runs["paths"]["port"], NAME), os.path.join(models, NAME))
+    config_path = os.path.join(models, NAME, "config.json")
+    cfg = PortConfig.load(config_path).replace(GEN_DATA_PATH=str(tmp_path / "gen_port"),
+                                               DATA_PATH=str(tmp_path / "absent"))
+    cfg.save(config_path)
+    orced.orced_inference([NAME], models_path=models, figures_path=str(tmp_path / "fig"),
+                          data_path=raw, device="cpu", batch_size=BATCH)
+    jax_generate_splits(data_path=raw, gen_data_path=str(tmp_path / "gen_jax"),
+                        train_classes=cfg.TRAIN_CLASSES, seed=0, nmax_points=cfg.NMAX,
+                        nsteps=cfg.NSTEPS, crop_step=cfg.CROP_STEP, verbose=False)
+    assert_splits_equal(str(tmp_path / "gen_port"), str(tmp_path / "gen_jax"))
+    figures = tmp_path / "fig" / NAME
+    preds = np.load(figures / "ensemble_ood_final_preds_fixed.npy")
+    labels = np.load(figures / "ensemble_ood_final_labels_fixed.npy")
+    image = np.rint(mpimg.imread(str(figures / "openset_cnfmtrx_ensemble_ood_fixed.png")) * 255)
+    cm = openset_confusion_matrix(labels, preds, cfg.n_classes)
+    cell = image.shape[0] // cm.shape[0]
+    steps = 255 - image[cell // 2::cell, cell // 2::cell, 0]  # the ramp's red is 255 - step
+    np.testing.assert_allclose(steps / 255, cm, rtol=0, atol=1 / 255)

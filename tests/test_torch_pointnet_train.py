@@ -134,7 +134,7 @@ def _layer_args(c_in=8, c_out=16, rows=10):
         (lambda h, a, w, b: (h.double(), a, w, b), "float32"),
         (lambda h, a, w, b: (h.t().contiguous().t(), a, w, b), "contiguous"),
         (lambda h, a, w, b: (h[:, :6].contiguous(), a[:, :6].contiguous(),
-                             w[:6].contiguous(), b), "multiples of 4"),
+                             w[:6].contiguous(), b), None),
         (lambda h, a, w, b: (h, a, w, b[:-4]), "b has shape"),
         (lambda h, a, w, b: (h, a[:2], w, b), "affine has shape"),
         (lambda h, a, w, b: (h[:0], a, w, b), "no rows"),
@@ -143,8 +143,14 @@ def _layer_args(c_in=8, c_out=16, rows=10):
     ids=["dtype", "contiguity", "width", "b_shape", "affine_shape", "no_rows", "rank"],
 )
 def test_layer_argument_checks(mutate, match):
+    """Each bad argument raises; a width that is not a multiple of 4 passes
+    (``match`` None): the wrapper pads it."""
+    args = mutate(*_layer_args())
+    if match is None:
+        assert pt._check_layer_args(*args) == (10, 6, 16)
+        return
     with pytest.raises(ValueError, match=match):
-        pt._check_layer_args(*mutate(*_layer_args()))
+        pt._check_layer_args(*args)
 
 
 def test_layer_argument_checks_accept_the_first_layer():
