@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch port on one CUDA card: ``python3 chip_smoke.py``.
 
 Drives the port's main paths, V4 open-set inference and in-process serving,
-V4 training, and OR-CED open-set inference and serving, at the full width
+V4 training, OR-CED open-set inference, serving and training, and the PCAA
+ablation (every variant, the driver, the resume), at the full width
 of the published models (NMAX=150, NSTEPS=30, C=4, PointNet width 1024,
 TCN filters 16..512, latent 32; decoder S = 18000, 215.2M parameters),
 with seeded random weights and seeded crop files. Phases:
@@ -62,14 +63,35 @@ with seeded random weights and seeded crop files. Phases:
    c. ``orced_inference(generate_dataset=True)`` scores the trained folder
       through the kernels and then plain, with pinned eps: decisions equal
       except knife-edge crops, and the confusion PNG decodes (CRCs checked)
-      to the matrix of the decisions within one colour step.
+      to the matrix of the decisions within one colour step;
+9. the PCAA ablation at the same full width, B = 16:
+   a. V1, V2, V3 and V4 with the discriminator projection head, each from
+      one seeded state on phase 6's crops with injected noise: 3 steps
+      through the kernels (launches (layer, pool, adam) (4, 1, 4) a step,
+      (4, 1, 0) for V3, whose leaves are all below the Adam kernel's
+      size), the same again under torch.profiler (does a step repeat bit
+      for bit, and which first-step gradients do not; device time by
+      kind), then 3 plain; losses within phase 6b's bound, the DPH at its
+      init; on V1's live state, the resume file's save and load timed;
+   b. the port's ``run_pcaa_ablation`` driver, kernels on, trains V1-V4
+      one epoch on a 6-class subset of phase 8's raw tracks, each run
+      folder's file set checked; a second call skips all four and writes
+      no splits; ``pcaa_inference`` scores the four folders through the
+      inference kernel and then plain, decisions equal but for knife-edge
+      windows;
+   c. V1 (kernels on, phase 6's crops) and ORCED (a quarter of phase 8's
+      crops), each 2 epochs straight against 1 epoch with the resume
+      state and a second call resuming: per-epoch metrics and module files
+      reported bitwise equal or with their gaps; one ORCED step repeated
+      from the same state names the gradients that do not repeat.
 
 It exits non-zero, with no result line, when there is no CUDA card or a
 phase fails. The line before the last is the per-kernel JSON record (its
 ``launches`` counts each kernel's launches on the main paths, each path
-driven with the counts at 0: phases 3, 4, 6c, 7c, 7d and 8c for the
-PointNet inference kernel, 6b's kernel steps and 6c for the training
-kernels, 7c, 7d and 8c for the Chamfer kernel; the Chamfer kernel's ``ms`` is its device
+driven with the counts at 0: phases 3, 4, 6c, 7c, 7d, 8c and 9b for the
+PointNet inference kernel, 6b's kernel steps, 6c, 9a's first kernel steps,
+9b's training and 9c's PCAA runs for the training kernels, 7c, 7d and 8c
+for the Chamfer kernel; the Chamfer kernel's ``ms`` is its device
 time per launch at (64, 30, 150, 4) from the CUDA graph, every other
 ``ms`` CUDA events around calls of the wrapper; ``bound_ms`` is the
 larger of the operations over 67 TFLOP/s and the bytes over 3.35 TB/s, the H100 SXM's
@@ -82,9 +104,12 @@ four layers), the last ``{"ok": true, "device": {...}}``.
 Files go to ``build/chip_smoke/``.
 
 ``python3 chip_smoke.py --chamfer-timing`` builds only the Chamfer kernel
-and runs phase 7a's timing, for comparing trees of the port in one call.
+and runs phase 7a's timing, for comparing trees of the port in one call;
+``--codec-timing`` times the run-folder codec alone the same way.
 """
 
+import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -136,6 +161,13 @@ RAW_SUBJECTS, RAW_TRACKS = 10, 10
 ORCED_TRAIN_NAME = "TRAIN_ORCED"
 ORCED_EPOCHS = 2
 ORCED_TIMED_STEPS = 6
+# phase 9: the PCAA ablation; steps per path of each variant's step check
+# (the first pays cuBLAS/cuDNN set-up), the driver's names, and the ORCED
+# resume's cut of phase 8's train and valid crops
+ABLATION = (("V1", False), ("V2", False), ("V3", False), ("V4", True))
+VARIANT_STEPS = 3
+ABLATION_BASE = "SMOKE_ABL_"
+ORCED_RESUME_SUBSAMPLE = 0.25
 RE_EDGE = 1e-3  # rec error within this relative distance of its threshold
 P_EDGE = 1e-6  # latent score within this distance of 0.95
 # Published peaks of the H100 SXM (NVIDIA data sheet, 700 W): f32 outside
@@ -1146,6 +1178,440 @@ def orced_training_phase(card: str) -> dict:
     return dict(pointnet=k_launch[0], chamfer=k_launch[1])
 
 
+def full_width(**kw):
+    """The published widths (``config.py`` defaults), 6 train classes, B = 16."""
+    from opensetgaitrecognition_pcaa_tpu_torch.config import Config
+
+    return Config(TRAIN_CLASSES=tuple(range(N_SEEN)), BATCH_SIZE=TRAIN_B, SEED=SEED, **kw)
+
+
+def variant_spec(variant: str, dph: bool):
+    from opensetgaitrecognition_pcaa_tpu_torch.config import VARIATION
+    from opensetgaitrecognition_pcaa_tpu_torch.train.pcaa import VARIANTS
+
+    spec = VARIANTS[VARIATION(variant)]
+    return dataclasses.replace(spec, use_disc_head=True) if dph else spec
+
+
+def _busy_ms(prof, steps: int) -> tuple:
+    """→ (device ms a step, {kind: ms a step}) from a torch.profiler run."""
+    groups, total = {}, 0.0
+    for e in prof.key_averages():
+        if e.device_time_total <= 0:
+            continue
+        ms = e.device_time_total / 1e3 / steps
+        low = e.key.lower()
+        group = ("layer_kernel" if "tf32x3" in low
+                 else "pool_kernel" if "pool_kernel" in low or "stats_kernel" in low
+                 else "adam_kernel" if "adam_kernel" in low
+                 else "conv" if any(w in low for w in ("conv", "cudnn", "fprop", "dgrad", "wgrad"))
+                 else "gemm" if "gemm" in low or "cutlass" in low or "xmma" in low
+                 else "elementwise" if "elementwise" in low or "vectorized" in low
+                 else "reduce" if "reduce" in low else "other")
+        groups[group] = groups.get(group, 0.0) + ms
+        total += ms
+    return total, groups
+
+
+def _differing(a: dict, b: dict) -> list:
+    """The names of the tensors of two same-keyed dicts that differ in a bit."""
+    import torch
+
+    return sorted(k for k in a if not torch.equal(a[k], b[k]))
+
+
+def variant_steps(card: str, gen: str) -> tuple:
+    """Phase 9a: each variant's step from one seeded state, VARIANT_STEPS
+    steps through the kernels, the same again under torch.profiler (to see
+    whether a step repeats bit for bit, and where its device time goes),
+    then as many plain (the weights restored before each run), on phase
+    6's crops with injected noise; for V1, the resume file's save and load
+    timed on its live state → (launches of the layer, pool and Adam
+    kernels in the first kernel run, warm ms per variant)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from opensetgaitrecognition_pcaa_tpu_torch.config import SPLIT
+    from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import (
+        RadarCropDataset,
+        epoch_batch_indices,
+    )
+    from opensetgaitrecognition_pcaa_tpu_torch.train.optim import adam_init
+    from opensetgaitrecognition_pcaa_tpu_torch.train.pcaa import (
+        PCAAState,
+        _ckpt_payload,
+        build_pcaa,
+        make_train_step,
+        restore_resume_tree,
+        resume_tree,
+    )
+    from opensetgaitrecognition_pcaa_tpu_torch.train.run_folder import (
+        load_train_state,
+        save_train_state,
+    )
+
+    x_np, y_np = RadarCropDataset(SPLIT.TRAIN, gen).load_all()
+    x, y = torch.from_numpy(x_np).cuda(), torch.from_numpy(y_np).cuda()
+    perm = torch.from_numpy(
+        epoch_batch_indices(len(x_np), TRAIN_B, shuffle=True, rng=np.random.default_rng(SEED))
+    ).long().cuda()
+    rng = np.random.default_rng(SEED + 9)
+    noise = (torch.from_numpy(rng.normal(size=(VARIANT_STEPS, TRAIN_B, 32)).astype(np.float32)
+                              ).cuda(),
+             torch.from_numpy(rng.uniform(size=(VARIANT_STEPS, TRAIN_B, 1)).astype(np.float32)
+                              ).cuda())
+    launches, warm = [0, 0, 0], {}
+    for variant, dph in ABLATION:
+        cfg = full_width()
+        mods, state = build_pcaa(cfg, variant_spec(variant, dph), device="cuda")
+        start = _ckpt_payload(mods)
+        n_params = sum(p.numel() for p in mods.parameters())
+        runs = {}
+        for path, fused in (("kernel", True), ("again", True), ("plain", False)):
+            run_cfg = cfg.replace(FUSED_POINTNET=fused, FUSED_ADAM=fused)
+            mods.load_state_dict(start)
+            state = PCAAState(adam_init(mods.g.named_parameters()),
+                              adam_init(mods.d.named_parameters()), state.centroids,
+                              state.generator)
+            step = make_train_step(mods, run_cfg)
+            r = runs[path] = dict(losses=[], ms=[], counts=[])
+            with profile(activities=[ProfilerActivity.CUDA]) if path == "again" else (
+                    contextlib.nullcontext()) as prof:
+                for i in range(VARIANT_STEPS):
+                    idx = perm[i]
+                    reset_train_counts()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, m = step(state, x[idx], y[idx], i, (noise[0][i], noise[1][i]))
+                    torch.cuda.synchronize()
+                    r["ms"].append(1e3 * (time.perf_counter() - t0))
+                    r["counts"].append(train_counts())
+                    r["losses"].append({k: float(v) for k, v in m.items()})
+                    if i == 0 and fused:  # the first step's gradients: mu = (1 - b1) g
+                        r["mu"] = {f"{side}.{k}": v.clone() for side, opt in
+                                   (("g", state.opt_g), ("d", state.opt_d))
+                                   for k, v in opt.mu.items()}
+            if prof is not None:
+                r["busy"] = _busy_ms(prof, VARIANT_STEPS)
+            if dph:  # every path into the head is detached: it never moves
+                for k, v in mods.d["disc_head"].state_dict().items():
+                    assert torch.equal(v, start[f"d.disc_head.{k}"]), k
+                assert state.opt_d.count == VARIANT_STEPS
+        want = (4, 1, 0 if variant == "V3" else 4)
+        for path in ("kernel", "again"):
+            assert all(c == want for c in runs[path]["counts"]), runs[path]["counts"]
+        assert all(c == (0, 0, 0) for c in runs["plain"]["counts"]), runs["plain"]["counts"]
+        launches = [a + VARIANT_STEPS * b for a, b in zip(launches, want)]
+        worst = 0.0
+        for i, (k, p) in enumerate(zip(runs["kernel"]["losses"], runs["plain"]["losses"])):
+            for key in ("rec_loss", "d_loss", "sup_loss", "tot_loss"):
+                assert np.isfinite(k[key]) and np.isfinite(p[key]), (variant, i, key)
+                gap = abs(k[key] - p[key]) / max(abs(p[key]), 1.0)
+                worst = max(worst, gap)
+                assert gap <= LOSS_RTOL, (variant, i, key, k[key], p[key])
+            assert (k["rec_loss"] == 0.0) == (variant == "V3"), (variant, k["rec_loss"])
+        repeat = runs["kernel"]["losses"] == runs["again"]["losses"]
+        grads = _differing(runs["kernel"]["mu"], runs["again"]["mu"])
+        busy, groups = runs["again"]["busy"]
+        name = variant + ("+DPH" if dph else "")
+        warm[name] = {path: sum(runs[path]["ms"][1:]) / (VARIANT_STEPS - 1)
+                      for path in ("kernel", "plain")}
+        log(f"phase 9a: {name} step ({n_params / 1e6:.1f}M parameters, B = {TRAIN_B}): ms per "
+            f"step kernel {[round(t, 2) for t in runs['kernel']['ms']]}, plain "
+            f"{[round(t, 2) for t in runs['plain']['ms']]}; warm kernel "
+            f"{warm[name]['kernel']:.2f} ms, plain {warm[name]['plain']:.2f} ms; launches "
+            f"(layer, pool, adam) per step {want}; losses kernel vs plain within {worst:.3e} "
+            f"(bound {LOSS_RTOL})" + ("; DPH weights equal their init" if dph else "")
+            + f" [{card}]")
+        log(f"phase 9a: {name} kernel steps repeated from the same state: losses "
+            f"{'bitwise equal' if repeat else 'DIFFER'}; first-step gradients (Adam mu) differ "
+            f"in {len(grads)} of {len(runs['kernel']['mu'])} leaves {grads[:6]}; device time "
+            f"{busy:.2f} ms a step (torch.profiler), by kind "
+            + ", ".join(f"{g} {ms:.2f}" for g, ms in sorted(groups.items(), key=lambda g: -g[1]))
+            + f" [{card}]")
+        if variant == "V1":  # the resume file of a full-width V1 state, alone
+            opts = {"opt_g": state.opt_g, "opt_d": state.opt_d}
+            path = os.path.join(WORK, "resume_timing", "train_state.msgpack")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save_train_state(resume_tree(mods, opts, state.generator, centroids=state.centroids),
+                             0, {}, path)
+            save_s = time.perf_counter() - t0
+            before = _ckpt_payload(mods)
+            t0 = time.perf_counter()
+            restore_resume_tree(load_train_state(path)[0], mods, opts, state.generator,
+                                centroids=state.centroids)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            assert not _differing(before, _ckpt_payload(mods))
+            moments = 2 * sum(4 * v.numel() for opt in opts.values() for v in opt.mu.values())
+            log(f"phase 9a: V1 resume file {os.path.getsize(path) / 1e9:.3f} GB "
+                f"({4 * n_params / 1e9:.3f} GB of parameters, {moments / 1e9:.3f} GB of Adam "
+                f"moments): save (card to host, msgpack, write) {save_s:.2f} s, load (read, "
+                f"msgpack, host to card) {load_s:.2f} s, the state restored bit for bit "
+                f"[{card}]")
+            shutil.rmtree(os.path.dirname(path))
+            del opts, before
+        del mods, state, step, start, m, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches, warm
+
+
+def ablation_driver(card: str, raw: str) -> dict:
+    """Phase 9b: the port's sequential ablation driver trains V1-V4 for one
+    epoch on a 6-class subset of phase 8's raw tracks with the kernels on,
+    then a second call skips every run and writes no splits; each folder is
+    scored by ``pcaa_inference`` through the inference kernel and then plain
+    → launches of the training kernels and of the inference kernel."""
+    import io
+
+    import torch
+
+    from opensetgaitrecognition_pcaa_tpu_torch import config as port_config
+    from opensetgaitrecognition_pcaa_tpu_torch.config import SPLIT
+    from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import RadarCropDataset
+    from opensetgaitrecognition_pcaa_tpu_torch.infer.pcaa import pcaa_inference
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import pointnet_infer as pn
+    from opensetgaitrecognition_pcaa_tpu_torch.scripts import run_pcaa_ablation as rpa
+
+    gen = os.path.join(WORK, "gen_ablation")
+    models = os.path.join(WORK, "models_ablation")
+    argv = ["--data-path", raw, "--gen-data-path", gen, "--models-path", models,
+            "--model-name-base", ABLATION_BASE, "--n-training-classes", str(N_SEEN),
+            "--n-tests", "1", "--variants", "V1", "V2", "V3", "V4", "--epochs", "1"]
+    names = [f"{ABLATION_BASE}{v}.{N_SEEN}.1" for v in ("V1", "V2", "V3", "V4")]
+    files = {"V1": ("E", "D", "G", "GPH", "ML"), "V2": ("E", "D", "G"), "V3": ("E", "D"),
+             "V4": ("E", "D", "G", "GPH")}
+    writes = []
+    real_generate = rpa.generate_splits
+
+    def counted_generate(**kw):
+        writes.append(kw["train_classes"])
+        return real_generate(**kw)
+
+    # the kernels are switched on through the driver's base configuration
+    rpa.default_config = lambda **kw: port_config.default_config(
+        FUSED_POINTNET=True, FUSED_ADAM=True, **kw)
+    rpa.generate_splits = counted_generate
+    try:
+        out = {}
+        for call in ("fresh", "again"):
+            reset_train_counts()
+            pn.pointnet_pool_infer.launches = 0
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rpa.main(argv)
+            torch.cuda.synchronize()
+            out[call] = dict(s=time.perf_counter() - t0, text=buf.getvalue(),
+                             counts=train_counts(), infer=pn.pointnet_pool_infer.launches)
+    finally:
+        rpa.default_config = port_config.default_config
+        rpa.generate_splits = real_generate
+    steps = len(RadarCropDataset(SPLIT.TRAIN, gen)) // TRAIN_B
+    want = (4 * 4 * steps, 4 * steps, 3 * 4 * steps)  # V3's step launches no Adam kernel
+    assert out["fresh"]["counts"] == want, (out["fresh"]["counts"], want)
+    assert out["fresh"]["infer"] == 0
+    assert len(writes) == 1, writes
+    for name in names:
+        assert f"=== training {name} ===" in out["fresh"]["text"], name
+        assert f"=== skipping completed {name} ===" in out["again"]["text"], name
+        tags = files[name.split(".")[0][-2:]]
+        want_files = {"config.json", "metrics.jsonl", "discriminator_means.npy",
+                      "run_complete.json"} | {f"{name}_{tag}.msgpack" for tag in tags}
+        assert set(os.listdir(os.path.join(models, name))) == want_files, name
+    assert "=== training" not in out["again"]["text"]
+    assert out["again"]["counts"] == (0, 0, 0)
+    accs = [line.split(": ", 1)[1] for line in out["fresh"]["text"].splitlines()
+            if "best_valid_acc=" in line]
+    log(f"phase 9b: run_pcaa_ablation (kernels on) trained {', '.join(names)}: 1 epoch of "
+        f"{steps} steps each, splits of classes {writes[0]}, in {out['fresh']['s']:.2f} s "
+        f"with the splits' write and the run folders; launches (layer, pool, adam) "
+        f"{out['fresh']['counts']}; {accs}; the second call skipped all four runs, wrote no "
+        f"splits and took {out['again']['s']:.3f} s [{card}]")
+
+    runs = {}
+    for path in ("kernel", "plain"):
+        root = os.path.join(WORK, f"models_ablation_{path}")
+        for name in names:
+            shutil.copytree(os.path.join(models, name), os.path.join(root, name))
+        pn.pointnet_pool_infer.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logs = pcaa_inference(
+            names, ks=KS, models_path=root, figures_path=os.path.join(WORK, f"fig_abl_{path}"),
+            generate_dataset=False, dump_calibration=True, device="cuda",
+            use_kernel=path == "kernel",
+        )
+        torch.cuda.synchronize()
+        runs[path] = dict(root=root, s=time.perf_counter() - t0,
+                          launches=pn.pointnet_pool_infer.launches, logs=logs)
+    assert runs["kernel"]["launches"] > 0 and runs["plain"]["launches"] == 0
+    exempt = {}
+    for name in names:
+        dirs = [os.path.join(runs[p]["root"], name) for p in ("kernel", "plain")]
+        cals = [dict(np.load(os.path.join(d, "calibration.npz"))) for d in dirs]
+        for key in ("log_threshold", "test_ll", "unseen_ll"):
+            assert np.isfinite(cals[0][key]).all(), (name, key)
+        exempt[name] = compare_decisions(cals[0], cals[1], dirs[0], dirs[1])
+    f1 = {name.split(".")[0][-2:]: [round(runs["kernel"]["logs"][name][k]["f1_micro"], 4)
+                                    for k in KS] for name in names}
+    log(f"phase 9b: pcaa_inference of the 4 folders, ks={list(KS)}: via kernel "
+        f"{runs['kernel']['s']:.2f} s ({runs['kernel']['launches']} launches), plain "
+        f"{runs['plain']['s']:.2f} s; decisions equal, knife-edge windows exempt {exempt}; "
+        f"f1_micro {f1} [{card}]")
+    c = out["fresh"]["counts"]
+    return dict(layer=c[0], pool=c[1], adam=c[2], infer=runs["kernel"]["launches"])
+
+
+def _run_record(run_dir: str) -> tuple:
+    """→ (metrics.jsonl lines without their wall clock, {module file: bytes})."""
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        lines = [{k: v for k, v in json.loads(line).items() if k != "_wall"} for line in f]
+    blobs = {}
+    for name in sorted(os.listdir(run_dir)):
+        if name.endswith(".msgpack") and not name.startswith("train_state"):
+            with open(os.path.join(run_dir, name), "rb") as f:
+                blobs[name] = f.read()
+    return lines, blobs
+
+
+def _compare_runs(straight: str, resumed: str) -> str:
+    """How a resumed run's per-epoch metrics and module files compare with
+    the straight run's: bitwise, or the largest relative gap of each
+    epoch's metrics and the largest gap of the weights."""
+    from opensetgaitrecognition_pcaa_tpu_torch.train.run_folder import unpackb
+
+    (lines_a, files_a), (lines_b, files_b) = _run_record(straight), _run_record(resumed)
+    assert [r["_step"] for r in lines_a] == [r["_step"] for r in lines_b]
+    assert files_a.keys() == files_b.keys()
+    if lines_a == lines_b and files_a == files_b:
+        return "bitwise equal"
+    gaps = [max([abs(a[k] - b[k]) / max(abs(a[k]), 1e-12) for k in a], default=0.0)
+            for a, b in zip(lines_a, lines_b)]
+    weights = 0.0
+    for name in files_a:
+        stack = [(unpackb(files_a[name]), unpackb(files_b[name]))]
+        while stack:
+            a, b = stack.pop()
+            if isinstance(a, dict):
+                stack += [(a[k], b[k]) for k in a]
+            else:
+                weights = max(weights, float(np.abs(a - b).max()))
+    return ("NOT bitwise equal: metrics of epochs 0, 1 within "
+            + ", ".join(f"{g:.3e}" for g in gaps)
+            + f" relative; module weights within {weights:.3e} absolute")
+
+
+def orced_repeat(card: str, gen_orced: str) -> str:
+    """One full-width ORCED step twice from the same state, batch and eps:
+    are its losses and gradients (Adam mu after one step) bit for bit the
+    same?"""
+    import torch
+
+    from opensetgaitrecognition_pcaa_tpu_torch.config import SPLIT
+    from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import RadarCropDataset
+    from opensetgaitrecognition_pcaa_tpu_torch.train.optim import adam_init
+    from opensetgaitrecognition_pcaa_tpu_torch.train.orced import (
+        build_orced,
+        make_orced_train_step,
+    )
+    from opensetgaitrecognition_pcaa_tpu_torch.train.pcaa import _ckpt_payload
+
+    x_np, y_np = RadarCropDataset(SPLIT.TRAIN, gen_orced).load_all()
+    x = torch.from_numpy(x_np[:TRAIN_B]).cuda()
+    y = torch.from_numpy(y_np[:TRAIN_B]).cuda()
+    eps = torch.from_numpy(np.random.default_rng(SEED + 10).normal(
+        size=(TRAIN_B, 32)).astype(np.float32)).cuda()
+    mods, state = build_orced(full_width(), device="cuda")
+    start = _ckpt_payload(mods)
+    step = make_orced_train_step(mods, full_width())
+    out = []
+    for _ in range(2):
+        mods.load_state_dict(start)
+        state.opt = adam_init(mods.named_parameters())
+        _, m = step(state, x, y, 0.5, eps)
+        out.append(({k: float(v) for k, v in m.items()},
+                    {k: v.clone() for k, v in state.opt.mu.items()}))
+    same = out[0][0] == out[1][0]
+    grads, n = _differing(out[0][1], out[1][1]), len(out[0][1])
+    del mods, state, start, step, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (f"losses {'bitwise equal' if same else 'DIFFER'}; gradients (Adam mu) differ in "
+            f"{len(grads)} of {n} leaves {grads[:6]}")
+
+
+def resume_phase(card: str, gen: str, gen_orced: str) -> dict:
+    """Phase 9c: full-width V1 (kernels on, phase 6's crops) and ORCED (a
+    quarter of phase 8's crops), each 2 epochs straight against 1 epoch
+    with SAVE_RESUME_STATE and a second call that resumes from it →
+    launches of the training kernels in the PCAA runs."""
+    import torch
+
+    from opensetgaitrecognition_pcaa_tpu_torch.config import VARIATION
+    from opensetgaitrecognition_pcaa_tpu_torch.train.orced import train_orced
+    from opensetgaitrecognition_pcaa_tpu_torch.train.pcaa import train_pcaa
+
+    launches = [0, 0, 0]
+    for kind in ("pcaa", "orced"):
+        if kind == "pcaa":
+            cfg = full_width(GEN_DATA_PATH=gen, MODEL_NAME="RESUME_V1", FUSED_POINTNET=True,
+                             FUSED_ADAM=True, CHECKPOINT_FREQUENCY=1)
+
+            def train(c):
+                return train_pcaa(c, VARIATION.V1, verbose=False, device="cuda")
+        else:
+            cfg = full_width(GEN_DATA_PATH=gen_orced, MODEL_NAME="RESUME_ORCED",
+                             SUBSAMPLE_FACTOR=ORCED_RESUME_SUBSAMPLE, CHECKPOINT_FREQUENCY=1)
+
+            def train(c):
+                return train_orced(c, verbose=False, device="cuda")
+        seconds, dirs = {}, {}
+        # the straight run writes no resume state: it would not change its path
+        for run, calls in (("straight", ((2, False),)), ("resumed", ((1, True), (2, True)))):
+            c = cfg.replace(MODELS_PATH=os.path.join(WORK, f"models_resume_{run}"))
+            dirs[run] = c.run_dir()
+            reset_train_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for epochs, save in calls:
+                out = train(c.replace(EPOCHS=epochs, SAVE_RESUME_STATE=save))
+            torch.cuda.synchronize()
+            seconds[run] = time.perf_counter() - t0
+            launches = [a + b for a, b in zip(launches, train_counts())]
+            for k, v in out.items():
+                assert np.isfinite(v), (kind, run, k, v)
+        verdict = _compare_runs(dirs["straight"], dirs["resumed"])
+        size = os.path.getsize(os.path.join(dirs["resumed"], "train_state.msgpack"))
+        log(f"phase 9c: {kind.upper()}{' V1' if kind == 'pcaa' else ''} resume at full width: "
+            f"2 epochs straight {seconds['straight']:.2f} s; 1 epoch with the resume state "
+            f"written, then a second call resuming for epoch 1, {seconds['resumed']:.2f} s; "
+            f"per-epoch metrics and module files of the resumed run against the straight "
+            f"one: {verdict}; resume file {size / 1e9:.3f} GB [{card}]")
+        for run in dirs.values():
+            shutil.rmtree(run)
+    log(f"phase 9c: the ORCED step repeated from the same state, batch and eps: "
+        f"{orced_repeat(card, gen_orced)} [{card}]")
+    return dict(layer=launches[0], pool=launches[1], adam=launches[2])
+
+
+def ablation_phase(card: str, gen: str) -> dict:
+    """Phase 9 → launches of each kernel on its paths (9a's kernel steps,
+    9b's driver and scoring, 9c's PCAA runs)."""
+    t0 = time.perf_counter()
+    step_launches, _ = variant_steps(card, gen)
+    driver = ablation_driver(card, os.path.join(WORK, "raw"))
+    resumed = resume_phase(card, gen, os.path.join(WORK, "gen_orced"))
+    out = {k: step_launches[i] + driver[k] + resumed[k]
+           for i, k in enumerate(("layer", "pool", "adam"))}
+    out["infer"] = driver["infer"]
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s [{card}]")
+    return out
+
+
 def card_name() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -1170,6 +1636,42 @@ def chamfer_timing_only() -> int:
     return 0
 
 
+def codec_timing() -> int:
+    """``--codec-timing``: the run-folder codec of the tree this file lies
+    in, on arrays of the full-width decoder's shapes: ``save_params`` and
+    ``load_params`` of the G file (860 MB) and of parameters + two moments
+    (2.6 GB, a resume file's arrays), host clock, the median of 3; one JSON
+    line at the end. To compare two trees, copy this file into each and run
+    both in one call."""
+    from opensetgaitrecognition_pcaa_tpu_torch.train.run_folder import load_params, save_params
+
+    card = card_name()
+    log(card)
+    size = 30 * 150 * 4
+    widths = (64, size // 16, size // 8, size // 4, size // 2, size)
+    decoder = {f"TorchDense_{i}": {"kernel": np.full((a, b), 0.5, np.float32),
+                                   "bias": np.full((b,), 0.5, np.float32)}
+               for i, (a, b) in enumerate(zip(widths, widths[1:]))}
+    trees = {"G": {"params": decoder},
+             "state": {"params": decoder, "mu": decoder, "nu": decoder}}
+    path = os.path.join(WORK, "codec", "T.msgpack")
+    out = {"card": card, "tree": REPO}
+    for name, tree in trees.items():
+        times = {"save": [], "load": []}
+        for _ in range(3):
+            t0 = time.perf_counter()
+            save_params(tree, path)
+            times["save"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            load_params(path)
+            times["load"].append(time.perf_counter() - t0)
+        out[name] = {"bytes": os.path.getsize(path),
+                     **{k: sorted(v)[1] for k, v in times.items()}}
+        os.remove(path)
+    log(json.dumps({"codec_timing": out}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1179,6 +1681,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     if sys.argv[1:] == ["--chamfer-timing"]:
         return chamfer_timing_only()
+    if sys.argv[1:] == ["--codec-timing"]:
+        return codec_timing()
     from opensetgaitrecognition_pcaa_tpu_torch.config import SPLIT, VARIATION, Config
     from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import RadarCropDataset
     from opensetgaitrecognition_pcaa_tpu_torch.infer.common import ieee_f32
@@ -1393,6 +1897,12 @@ def main() -> int:
     orced_train_launches = orced_training_phase(card)
     main_launches += orced_train_launches["pointnet"]
     orced_launches["chamfer"] += orced_train_launches["chamfer"]
+
+    # --- 9. the PCAA ablation: every variant's step, the driver, the resume ------------
+    ablation_launches = ablation_phase(card, gen)
+    main_launches += ablation_launches["infer"]
+    for k in ("layer", "pool", "adam"):
+        train_launches[k] += ablation_launches[k]
 
     checks["infer"] = dict(err=max_err, ms=pn_ms["kernel"], plain_ms=pn_ms["plain"],
                            library_ms=None, **pn_bound)

@@ -168,6 +168,12 @@ class Config:
             return cls.from_dict(json.load(f))
 
 
+def default_config(**overrides) -> Config:
+    """The reference defaults with ``overrides`` applied (the drivers' base
+    configuration)."""
+    return Config().replace(**overrides)
+
+
 def variation_from_model_name(model_name: str) -> VARIATION:
     """The ablation variant from a run name: the two characters before the
     first '.' select V1..V4, anything else is BASE."""

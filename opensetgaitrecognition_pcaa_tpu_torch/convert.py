@@ -2,8 +2,9 @@
 
 The JAX package stores a module's weights as ``{"params": ...,
 "batch_stats": ...}`` (``<NAME>_<TAG>.msgpack``): the PCAA encoder,
-decoder, critic and head (``E``, ``G``, ``D``, ``GPH``) and the ORCED
-encoder, decoder and mean learner (``E``, ``G``, ``ML``). A training state
+decoder, critic, heads and V1's mean learner (``E``, ``G``, ``D``,
+``GPH``, ``DPH``, ``ML``) and the ORCED encoder, decoder and mean learner
+(``E``, ``G``, ``ML``). A training state
 (parameters, running statistics and Adam moments) maps across whole:
 ``pcaa_state_from_jax``/``pcaa_state_to_jax`` and
 ``orced_state_from_jax``/``orced_state_to_jax``. The maps follow
@@ -186,13 +187,20 @@ def mean_learner_variables(state_dict: Dict[str, torch.Tensor]) -> Dict:
 
 
 # (module key in the port's generator/critic ModuleDict = key in the JAX
-# params_g/params_d tree, state_dict → variables, variables → state_dict)
+# params_g/params_d tree, state_dict → variables, variables → state_dict);
+# a variant holds only some of them (train/pcaa.py::PCAAModules)
 _GENERATOR = (
     ("encoder", encoder_variables, encoder_state_dict),
     ("dec_head", head_variables, head_state_dict),
     ("decoder", decoder_variables, decoder_state_dict),
 )
-_CRITIC = (("discriminator", discriminator_variables, discriminator_state_dict),)
+_CRITIC = (
+    ("discriminator", discriminator_variables, discriminator_state_dict),
+    ("disc_head", head_variables, head_state_dict),
+)
+# V1's frozen mean learner: JAX ml_params and batch_stats["mean_learner"]
+_MEAN_LEARNER = (("mean_learner", mean_learner_variables, mean_learner_state_dict),)
+_PCAA_SIDES = (("g", _GENERATOR), ("d", _CRITIC), ("ml", _MEAN_LEARNER))
 # the ORCED modules: one Adam over all three (keys of the JAX ORCEDState trees)
 _ORCED = (
     ("encoder", encoder_variables, encoder_state_dict),
@@ -206,11 +214,13 @@ def _sub(state_dict: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Te
 
 
 def module_variables(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Dict]:
-    """A ``PCAAModules`` state_dict (``g.encoder.…``, ``d.discriminator.…``)
-    → per-module JAX variables ``{"encoder": {"params", "batch_stats"},
-    "dec_head": {"params"}, "decoder": …, "discriminator": …}``."""
+    """A ``PCAAModules`` state_dict (``g.encoder.…``, ``d.discriminator.…``,
+    ``ml.mean_learner.…``) → per-module JAX variables of the modules it
+    holds: ``{"encoder": {"params", "batch_stats"}, "dec_head": {"params"},
+    "decoder": …, "discriminator": …, "disc_head": …, "mean_learner":
+    {"params", "batch_stats"}}``."""
     out = {}
-    for side, table in (("g", _GENERATOR), ("d", _CRITIC)):
+    for side, table in _PCAA_SIDES:
         for name, to_vars, _ in table:
             sub = _sub(state_dict, f"{side}.{name}.")
             if sub:
@@ -250,11 +260,13 @@ def pcaa_state_from_jax(tree: Dict, mods, state) -> None:
 
     ``tree`` has numpy leaves: ``params_g``, ``params_d``, ``batch_stats``,
     ``opt_g`` and ``opt_d`` (each ``{"count", "mu", "nu"}``, the Adam
-    state of ``opt[0]``) and ``centroids``.
+    state of ``opt[0]``), ``centroids`` and, for V1, ``ml_params``.
     """
     g_sd = _side_state_dict(tree["params_g"], _GENERATOR, tree["batch_stats"])
     mods.g.load_state_dict(g_sd)
     mods.d.load_state_dict(_side_state_dict(tree["params_d"], _CRITIC))
+    ml = {"mean_learner": tree["ml_params"]} if tree.get("ml_params") else {}
+    mods.ml.load_state_dict(_side_state_dict(ml, _MEAN_LEARNER, tree["batch_stats"]))
     device = state.centroids.device
     for opt, side, table in ((state.opt_g, "g", _GENERATOR), (state.opt_d, "d", _CRITIC)):
         t = tree[f"opt_{side}"]
@@ -307,11 +319,16 @@ def orced_state_to_jax(mods, state) -> Dict:
 
 def pcaa_state_to_jax(mods, state) -> Dict:
     """The port's modules and optimizer state → the tree that
-    ``pcaa_state_from_jax`` reads (numpy leaves)."""
+    ``pcaa_state_from_jax`` reads (numpy leaves); ``ml_params`` only where
+    the variant has a mean learner."""
     params_g, stats = _side_tree(mods.g.state_dict(), _GENERATOR)
     params_d, _ = _side_tree(mods.d.state_dict(), _CRITIC)
     tree = {"params_g": params_g, "params_d": params_d, "batch_stats": stats,
             "centroids": state.centroids.cpu().numpy()}
+    ml_params, ml_stats = _side_tree(mods.ml.state_dict(), _MEAN_LEARNER)
+    if ml_params:
+        tree["ml_params"] = ml_params["mean_learner"]
+        stats.update(ml_stats)
     for opt, side, table in ((state.opt_g, "g", _GENERATOR), (state.opt_d, "d", _CRITIC)):
         tree[f"opt_{side}"] = {
             "count": np.asarray(opt.count, np.int32),

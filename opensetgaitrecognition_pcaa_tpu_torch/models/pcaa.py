@@ -10,8 +10,10 @@ quirks:
   S = T·C·NMAX, ELU between them, no norm, no output activation, and its
   flat output reshaped channels-last to ``(B, T, N, C)``;
 - the critic is ``concat(z, onehot)`` → 64 → 32 → 1 with ELU between;
-- a projection head is one dense layer + ELU (the V4 decoder head is
-  latent → 2·latent).
+- a projection head is one dense layer + ELU (the decoder head of V1 and
+  V4 is latent → 2·latent; the discriminator head latent → latent, as
+  the JAX package builds it where the reference declares 2·latent →
+  latent but feeds it the latent).
 """
 
 from __future__ import annotations

@@ -1,0 +1,139 @@
+"""PCAA ablation, sequential: openness levels × splits × variants.
+
+Port of the sequential mode of ``scripts/run_pcaa_ablation.py`` (``main``,
+``:226-337``, and ``unique_class_subsets``, ``:33-41``): for each number
+of training classes, draw ``--n-tests`` unique class subsets (numpy seed
+0), write that subset's splits (seed 0) and train each variant on them;
+run names ``<base><variant>.<n_tr>.<i>``, ``SEED`` = the subset's index,
+``Openness`` from the class counts. A run whose folder holds
+``run_complete.json`` is skipped; the splits of a subset are written only
+when one of its runs still has to train, as the JAX driver's ``--grid``
+mode decides, so a finished sweep is skipped without touching the data.
+An interrupted run resumes from its ``train_state.msgpack`` when the
+configuration saves one (``SAVE_RESUME_STATE``).
+
+    python -m opensetgaitrecognition_pcaa_tpu_torch.scripts.run_pcaa_ablation \\
+        --data-path RAW_TRACKS [--variants V1 V2 V3 V4] [--device cuda]
+
+The flags are the JAX driver's, plus ``--device`` (default ``cuda``).
+``--grid`` and the bf16 options are not ported and raise
+``NotImplementedError``. The CUDA training kernels are switched by the
+base configuration's ``FUSED_POINTNET``/``FUSED_ADAM``, whose defaults are
+off as in the JAX package: a caller replaces this module's
+``default_config`` to turn them on.
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from opensetgaitrecognition_pcaa_tpu_torch.config import N_SUBJECTS, VARIATION, default_config
+from opensetgaitrecognition_pcaa_tpu_torch.data.splits import generate_splits
+from opensetgaitrecognition_pcaa_tpu_torch.ops.openset import openness
+from opensetgaitrecognition_pcaa_tpu_torch.train.pcaa import train_pcaa
+from opensetgaitrecognition_pcaa_tpu_torch.train.run_folder import run_completed
+
+
+def unique_class_subsets(n_tr: int, n_tests: int, rng: np.random.Generator) -> List[List[int]]:
+    """``n_tests`` unique sorted random subsets of ``n_tr`` of the
+    ``N_SUBJECTS`` classes (reference ``PCAA_ablation.py:1140-1150``)."""
+    chosen: List[List[int]] = []
+    while len(chosen) < n_tests:
+        subset = sorted(rng.choice(N_SUBJECTS, n_tr, replace=False).tolist())
+        if subset not in chosen:
+            chosen.append(subset)
+    return chosen
+
+
+def _parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--data-path", required=True, help="raw tracks root")
+    p.add_argument("--gen-data-path", default="data/generated_dataset")
+    p.add_argument("--models-path", default="models")
+    p.add_argument("--model-name-base", default="PCAA_Abl2_")
+    p.add_argument("--n-training-classes", type=int, nargs="+", default=[2, 4, 6, 8])
+    p.add_argument("--n-tests", type=int, default=5)
+    p.add_argument("--variants", nargs="+", default=["V1", "V2", "V3", "V4"])
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--wandb-mode", default="disabled")
+    p.add_argument("--no-skip-completed", action="store_true",
+                   help="retrain runs whose folder already has a completion marker")
+    p.add_argument("--grid-runs-per-device", type=int, default=2,
+                   help="lockstep runs per device in --grid mode (not ported)")
+    p.add_argument("--compute-dtype", default=None, choices=["float32", "bfloat16"],
+                   help="override Config.COMPUTE_DTYPE (bfloat16 is not ported)")
+    p.add_argument("--bf16-adam-nu", action="store_true",
+                   help="store Adam second moments in bf16 (not ported)")
+    p.add_argument("--bf16-weight-cache", action="store_true",
+                   help="bf16 copies of the decoder kernels (not ported)")
+    p.add_argument("--grid", action="store_true",
+                   help="train all splits of a (variant, openness) cell in lockstep (not ported)")
+    p.add_argument("--device", default="cuda", help="torch device to train on")
+    return p
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    args = _parser().parse_args(argv)
+    if args.grid:
+        raise NotImplementedError(
+            "--grid (lockstep multi-split training) is not ported: ROADMAP.md Queue 1 item 11"
+        )
+    if args.compute_dtype == "bfloat16" or args.bf16_adam_nu or args.bf16_weight_cache:
+        raise NotImplementedError(
+            "the bf16 options are not ported: ROADMAP.md Queue 1 item 10"
+        )
+    variations = [VARIATION(v) for v in args.variants]
+
+    base_cfg = default_config(
+        DATA_PATH=args.data_path,
+        GEN_DATA_PATH=args.gen_data_path,
+        MODELS_PATH=args.models_path,
+    )
+    if args.epochs:
+        base_cfg = base_cfg.replace(EPOCHS=args.epochs)
+
+    rng = np.random.default_rng(0)  # splits_seed = 0 (PCAA_ablation.py:1132)
+    for n_tr in args.n_training_classes:
+        for i, train_classes in enumerate(unique_class_subsets(n_tr, args.n_tests, rng)):
+            # SEED=i: the subsets of an openness level get distinct init,
+            # shuffle and noise streams, as in the JAX driver
+            cfg = base_cfg.replace(
+                TRAIN_CLASSES=tuple(train_classes),
+                Openness=openness(n_tr, N_SUBJECTS),
+                SEED=i,
+            )
+            todo = []
+            for v, variation in zip(args.variants, variations):
+                name = f"{args.model_name_base}{v}.{n_tr}.{i + 1}"
+                run_cfg = cfg.replace(MODEL_NAME=name, NOTES=f"Ablation run, Variant {v[-1]}")
+                if not args.no_skip_completed and run_completed(run_cfg.run_dir()):
+                    print(f"=== skipping completed {name} ===")
+                else:
+                    todo.append((run_cfg, variation))
+            if not todo:
+                continue
+            generate_splits(
+                data_path=cfg.DATA_PATH,
+                gen_data_path=cfg.GEN_DATA_PATH,
+                train_classes=train_classes,
+                seed=0,
+                nmax_points=cfg.NMAX,
+                nsteps=cfg.NSTEPS,
+                crop_step=cfg.CROP_STEP,
+            )
+            for run_cfg, variation in todo:
+                name = run_cfg.MODEL_NAME
+                print(f"=== training {name} ===")
+                out = train_pcaa(run_cfg, variation, wandb_mode=args.wandb_mode,
+                                 device=args.device)
+                print(
+                    f"{name}: best_valid_acc={out['best_valid_accuracy']:.4f} "
+                    f"windows/s={out['windows_per_sec']:.1f}"
+                )
+
+
+if __name__ == "__main__":
+    main()

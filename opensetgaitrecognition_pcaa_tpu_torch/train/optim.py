@@ -11,7 +11,9 @@ state is optax's: a step ``count`` and per-leaf f32 moments ``mu`` and
 
 Parameters and moments are updated in place. The narrow-moment options of
 the JAX package (``BF16_ADAM_NU``, ``FACTORED_ADAM_NU``) are not ported:
-``train/pcaa.py::build_pcaa`` raises on them.
+``train/pcaa.py::build_pcaa`` raises on them. ``adam_state_tree`` and
+``load_adam_state_tree`` carry a state to and from the numpy tree of the
+resume file (``train/run_folder.py::save_train_state``).
 """
 
 from __future__ import annotations
@@ -54,3 +56,33 @@ def adam_update_(state: AdamState, params: Dict[str, torch.Tensor],
         m.copy_((1.0 - b1) * g + b1 * m)
         v.copy_((1.0 - b2) * (g * g) + b2 * v)
         w.add_((-lr) * ((m / c1) / (torch.sqrt(v / c2) + eps)))
+
+
+def adam_state_tree(state: AdamState) -> Dict:
+    """``{"count", "mu", "nu"}`` with numpy leaves, on the host."""
+    return {
+        "count": np.asarray(state.count, np.int64),
+        "mu": {k: v.detach().cpu().numpy() for k, v in state.mu.items()},
+        "nu": {k: v.detach().cpu().numpy() for k, v in state.nu.items()},
+    }
+
+
+@torch.no_grad()
+def load_tensors_(dst: Dict[str, torch.Tensor], src: Dict, what: str) -> None:
+    """Copy the arrays ``src`` into the tensors ``dst`` in place, on their
+    devices; ``ValueError`` where their names or shapes differ."""
+    if set(dst) != set(src):
+        raise ValueError(f"{what}: the saved entries differ from the run's "
+                         f"({sorted(set(dst) ^ set(src))[:4]} ...)")
+    for k, t in dst.items():
+        a = np.asarray(src[k])
+        if a.shape != tuple(t.shape):
+            raise ValueError(f"{what}[{k!r}]: saved shape {a.shape}, run {tuple(t.shape)}")
+        t.copy_(torch.from_numpy(np.array(a)))
+
+
+def load_adam_state_tree(state: AdamState, tree: Dict) -> None:
+    """Load an ``adam_state_tree`` into ``state`` in place, on its devices."""
+    load_tensors_(state.mu, tree["mu"], "mu")
+    load_tensors_(state.nu, tree["nu"], "nu")
+    state.count = int(np.asarray(tree["count"]))

@@ -27,13 +27,18 @@ semantics of the JAX trainer:
 - a best-by-valid-accuracy checkpoint every ``CHECKPOINT_FREQUENCY``
   epochs, a strict ``>`` from 0.0, and the final state when no epoch
   improved; the run folder holds ``<NAME>_{E,G,ML}.msgpack``, which both
-  packages' ``orced_inference_setup`` read.
+  packages' ``orced_inference_setup`` read;
+- with ``SAVE_RESUME_STATE`` the full state (parameters, running
+  statistics, the Adam state, the noise generator of the train and valid
+  eps, the host shuffle generator, the epoch and the best weights so far)
+  is written at each checkpoint epoch, and a later call resumes from it;
+  the KL weight of a resumed epoch is that epoch's.
 
 Modules, parameters, running statistics and Adam moments are updated in
 place. ``FUSED_ADAM`` and ``DEFERRED_DECODER_UPDATE`` are PCAA-only and
 raise ``ValueError`` as in the JAX package; bf16 compute, the TPU-only
-options, data/tensor parallelism and the resume state are not ported yet
-and raise ``NotImplementedError``.
+options and data/tensor parallelism are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -67,13 +72,20 @@ from opensetgaitrecognition_pcaa_tpu_torch.train.metrics import MetricLogger
 from opensetgaitrecognition_pcaa_tpu_torch.train.optim import AdamState, adam_init, adam_update_
 from opensetgaitrecognition_pcaa_tpu_torch.train.pcaa import (
     _ckpt_payload,
+    _payload_from_arrays,
     _stack,
     check_unported,
+    restore_resume_tree,
+    resume_tree,
 )
 from opensetgaitrecognition_pcaa_tpu_torch.train.run_folder import (
+    load_best_payload,
+    load_train_state,
     mark_run_completed,
     module_path,
+    save_best_payload,
     save_params,
+    save_train_state,
 )
 
 Device = Union[str, torch.device]
@@ -222,16 +234,17 @@ def train_orced(
 
     :param datasets: optional ``(x_train, y_train, x_valid, y_valid)``;
         otherwise the splits are read from ``cfg.GEN_DATA_PATH``.
+    :param resume: continue from the run folder's ``train_state.msgpack``
+        if the port wrote one (``ValueError`` if another program did).
     :param device: the CUDA card unless the caller asks for the CPU.
     """
     ieee_f32()
     _check_supported(cfg)
     run_dir = cfg.run_dir()
-    if resume and os.path.exists(os.path.join(run_dir, "train_state.msgpack")):
-        raise NotImplementedError(
-            f"{run_dir} holds a resume state, which the port cannot read yet"
-        )
     device = torch.device(device)
+    # read first: a state the port cannot resume raises before anything is written
+    ckpt_path = os.path.join(run_dir, "train_state.msgpack")
+    restored = load_train_state(ckpt_path) if resume else None
     os.makedirs(run_dir, exist_ok=True)
     cfg.save(os.path.join(run_dir, "config.json"))
     name = cfg.MODEL_NAME
@@ -251,22 +264,38 @@ def train_orced(
     train_epoch, valid_epoch = make_orced_epoch_fns(mods, cfg)
     logger = MetricLogger(run_dir, cfg.to_dict(), mode=wandb_mode)
     host_rng = np.random.default_rng(cfg.SEED)
+    opts = {"opt": state.opt}
+
+    best_valid_acc = 0.0
+    best_payload = None
+    start_epoch = 0
+    if restored is not None:
+        tree, start_epoch, meta = restored
+        restore_resume_tree(tree, mods, opts, state.generator)
+        del restored, tree  # the host copy: 2.6 GB at the published widths
+        host_rng.bit_generator.state = meta["host_rng_state"]
+        best_valid_acc = meta.get("best_valid_acc", 0.0)
+        best = load_best_payload(ckpt_path)
+        if best is not None:
+            best_payload = _payload_from_arrays(best, mods)
+        if verbose:
+            print(f"[{name}] resuming from epoch {start_epoch}")
 
     n_train = x_train.shape[0]
     steps = n_train // cfg.BATCH_SIZE
     valid_steps = x_valid.shape[0] // cfg.BATCH_SIZE
     valid_perm = epoch_batch_indices(x_valid.shape[0], cfg.BATCH_SIZE, shuffle=False)
-    best_valid_acc = 0.0
-    best_payload = None
     out: Dict[str, float] = {}
     t_start = time.time()
-    for epoch in range(cfg.EPOCHS):
+    total_windows = 0
+    for epoch in range(start_epoch, cfg.EPOCHS):
         kl_mult = float(np.float32(epoch / cfg.EPOCHS))  # train_ORCED.py:122
         perm = epoch_batch_indices(n_train, cfg.BATCH_SIZE, shuffle=True, rng=host_rng)
         state, m = train_epoch(state, x_train, y_train, perm, kl_mult)
         vm = valid_epoch(state, x_valid, y_valid, valid_perm)
         m = {k: v.cpu().numpy() for k, v in m.items()}
         vm = {k: v.cpu().numpy() for k, v in vm.items()}
+        total_windows += steps * cfg.BATCH_SIZE
 
         train_acc = float(np.sum(m["n_correct"]) / (steps * cfg.BATCH_SIZE))
         valid_acc = float(np.sum(vm["n_correct"]) / (valid_steps * cfg.BATCH_SIZE))
@@ -290,13 +319,21 @@ def train_orced(
                 f"trip={epoch_metrics['Triplet Loss']:.4f} "
                 f"acc={train_acc:.3f} vacc={valid_acc:.3f}"
             )
-        if epoch % cfg.CHECKPOINT_FREQUENCY == 0 and valid_acc > best_valid_acc:
-            best_valid_acc = valid_acc
-            best_payload = _ckpt_payload(mods)
+        if epoch % cfg.CHECKPOINT_FREQUENCY == 0:
+            improved = valid_acc > best_valid_acc
+            if improved:
+                best_valid_acc = valid_acc
+                best_payload = _ckpt_payload(mods)
+            if cfg.SAVE_RESUME_STATE:
+                save_train_state(resume_tree(mods, opts, state.generator), epoch,
+                                 host_rng.bit_generator.state, ckpt_path,
+                                 extra={"best_valid_acc": best_valid_acc})
+                if improved:
+                    save_best_payload(best_payload, ckpt_path)
         out = dict(epoch_metrics)
 
     elapsed = time.time() - t_start
-    out["windows_per_sec"] = cfg.EPOCHS * steps * cfg.BATCH_SIZE / max(elapsed, 1e-9)
+    out["windows_per_sec"] = total_windows / max(elapsed, 1e-9)
     out["best_valid_accuracy"] = best_valid_acc
     logger.finish()
     # the final state if no checkpoint epoch improved the valid accuracy

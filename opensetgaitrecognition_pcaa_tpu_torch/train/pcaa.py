@@ -1,8 +1,9 @@
-"""PCAA V4 adversarial training.
+"""PCAA adversarial training: one trainer for the ablation variants.
 
-Port of ``opensetgaitrecognition_pcaa_tpu/train/pcaa.py:83-1007`` for the
-published variant V4 (fixed centroids, encoder and decoder projection
-heads). The JAX package scans a jitted step over an epoch; here a Python
+Port of ``opensetgaitrecognition_pcaa_tpu/train/pcaa.py:83-1007``: V1, V2,
+BASE, V3 and V4, and V4 with the discriminator projection head
+(``proj_head_on_discriminator``), each a ``VariantSpec`` of which pieces
+exist. The JAX package scans a jitted step over an epoch; here a Python
 loop runs an eager step. Kept semantics of the JAX step:
 
 - **one** train-mode encoder forward per step: the critic (D) step sees its
@@ -17,22 +18,33 @@ loop runs an eager step. Kept semantics of the JAX step:
 - two Adam states (``train/optim.py``); ``Config.FUSED_ADAM`` sends the
   generator's update through ``ops/adam.py``, ``Config.FUSED_POINTNET``
   the encoder's PointNet through ``train/fused_encoder.py``;
-- the prior sample ``z0 + centroid`` is detached; ``inject=(z0, alphas)``
-  replays given noise so that a port step and a JAX step can run on the
-  same state, batch and noise;
+- the prior sample ``z0 + mu`` is detached; ``mu`` is the class's fixed
+  centroid, or for V1 the output of the frozen mean learner run in train
+  mode on the batch's one-hots (its running statistics move, its
+  parameters never); ``inject=(z0, alphas)`` replays given noise so that
+  a port step and a JAX step can run on the same state, batch and noise;
+- V3 has no decoder: its reconstruction loss is an f32 zero;
+- the discriminator projection head (DPH) is applied to detached latents
+  in the D step and its output detached again, and in the G step only the
+  latents take gradients: the head never moves. Its leaves stay in D's
+  Adam, stepping on zero gradients, as in the JAX package;
 - a best-by-valid-accuracy checkpoint every ``CHECKPOINT_FREQUENCY``
   epochs, epoch 0 included, validated with the eval-mode encoder, decoder
-  and ``seq_chamfer``.
+  and ``seq_chamfer``; with ``SAVE_RESUME_STATE`` the full state
+  (parameters, running statistics, both Adam states, the centroids, the
+  noise generator, the host shuffle generator, the epoch and the best
+  weights so far) is written at each such epoch, and a later call resumes
+  from it (``train/run_folder.py``).
 
 Modules, parameters, running statistics and Adam moments are updated in
-place. Not ported yet, and raising ``NotImplementedError``: V1, V2/BASE and
-V3, the discriminator projection head, data/tensor parallelism, bf16
-compute, the resume state, and the TPU-only options (``BF16_ADAM_NU``,
+place. Not ported yet, and raising ``NotImplementedError``: data/tensor
+parallelism, bf16 compute and the TPU-only options (``BF16_ADAM_NU``,
 ``FACTORED_ADAM_NU``, ``DEFERRED_DECODER_UPDATE``, ``BF16_WEIGHT_CACHE``).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 import time
@@ -50,6 +62,7 @@ from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import (
     epoch_batch_indices,
 )
 from opensetgaitrecognition_pcaa_tpu_torch.infer.common import ieee_f32
+from opensetgaitrecognition_pcaa_tpu_torch.models.mean_learner import GaussianMeanLearner
 from opensetgaitrecognition_pcaa_tpu_torch.models.pcaa import (
     CGDecoder,
     CGDiscriminator,
@@ -63,12 +76,23 @@ from opensetgaitrecognition_pcaa_tpu_torch.ops.gp import gradient_penalty
 from opensetgaitrecognition_pcaa_tpu_torch.ops.losses import cross_entropy
 from opensetgaitrecognition_pcaa_tpu_torch.train.fused_encoder import fused_train_encoder_apply
 from opensetgaitrecognition_pcaa_tpu_torch.train.metrics import MetricLogger
-from opensetgaitrecognition_pcaa_tpu_torch.train.optim import AdamState, adam_init, adam_update_
+from opensetgaitrecognition_pcaa_tpu_torch.train.optim import (
+    AdamState,
+    adam_init,
+    adam_state_tree,
+    adam_update_,
+    load_adam_state_tree,
+    load_tensors_,
+)
 from opensetgaitrecognition_pcaa_tpu_torch.train.run_folder import (
+    load_best_payload,
+    load_train_state,
     mark_run_completed,
     module_path,
     save_array,
+    save_best_payload,
     save_params,
+    save_train_state,
 )
 
 Device = Union[str, torch.device]
@@ -98,7 +122,7 @@ VARIANTS: Dict[VARIATION, VariantSpec] = {
 def check_unported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` on the options that neither trainer of
     the port has yet: bf16 compute, the TPU-only optimizer and weight
-    options, data/tensor parallelism and the resume state."""
+    options, and data/tensor parallelism."""
     if cfg.COMPUTE_DTYPE != "float32":
         raise NotImplementedError(f"COMPUTE_DTYPE={cfg.COMPUTE_DTYPE!r}: the port trains in f32")
     for flag in ("BF16_ADAM_NU", "FACTORED_ADAM_NU", "BF16_WEIGHT_CACHE"):
@@ -106,46 +130,57 @@ def check_unported(cfg: Config) -> None:
             raise NotImplementedError(f"{flag} is not ported")
     if cfg.DP_DEVICES * cfg.MP_DEVICES > 1:
         raise NotImplementedError("data and tensor parallelism are not ported yet")
-    if cfg.SAVE_RESUME_STATE:
-        raise NotImplementedError("SAVE_RESUME_STATE: the resume state is not ported yet")
 
 
 def _check_supported(cfg: Config, spec: VariantSpec) -> None:
-    if spec != VARIANTS[VARIATION.V4]:
-        raise NotImplementedError(
-            f"variant {spec}: the port trains V4 without the discriminator "
-            "projection head only (V1, V2/BASE, V3 and the head are not ported yet)"
-        )
+    if spec.use_disc_head and spec.name != "V4":
+        raise ValueError(f"variant {spec.name}: the discriminator projection head is V4-only")
     if cfg.DEFERRED_DECODER_UPDATE:
         raise NotImplementedError("DEFERRED_DECODER_UPDATE is not ported")
     check_unported(cfg)
 
 
 class PCAAModules(nn.Module):
-    """The generator side ``g`` (encoder, decoder head, decoder: one Adam)
-    and the critic side ``d`` (discriminator: the other Adam). Keys match
-    the JAX package's ``params_g`` / ``params_d`` trees."""
+    """The generator side ``g`` (one Adam): the encoder, and the decoder
+    head and decoder where the variant has them; the critic side ``d``
+    (the other Adam): the discriminator, and the discriminator projection
+    head (DPH) for V4 with ``proj_head_on_discriminator``; and ``ml``, V1's
+    frozen mean learner (no Adam; JAX ``ml_params`` and
+    ``batch_stats["mean_learner"]``), empty for the other variants. Keys
+    match the JAX package's ``params_g`` / ``params_d`` trees."""
 
     def __init__(self, cfg: Config, spec: VariantSpec, generator: torch.Generator):
         super().__init__()
         n, latent = cfg.n_classes, cfg.SUP_LATENT_DIM
-        self.g = nn.ModuleDict({
-            "encoder": CGEncoder(
-                n, in_features=cfg.NFEATURES, sup_latent_dim=latent,
-                pointnet_out_dim=cfg.POINTNET_OUT_DIM, dtc_filters=tuple(cfg.DTC_FILTERS),
-                use_projection_head=spec.use_enc_head, generator=generator,
-            ),
-            "dec_head": ProjectionHead(latent, 2 * latent, generator),
-            "decoder": CGDecoder(2 * latent, cfg.NSTEPS, cfg.NMAX, cfg.NFEATURES, generator),
-        })
-        self.d = nn.ModuleDict({"discriminator": CGDiscriminator(latent, n, generator)})
+        g = {"encoder": CGEncoder(
+            n, in_features=cfg.NFEATURES, sup_latent_dim=latent,
+            pointnet_out_dim=cfg.POINTNET_OUT_DIM, dtc_filters=tuple(cfg.DTC_FILTERS),
+            use_projection_head=spec.use_enc_head, generator=generator,
+        )}
+        if spec.use_dec_head:
+            g["dec_head"] = ProjectionHead(latent, 2 * latent, generator)
+        if spec.use_decoder:
+            dec_in = 2 * latent if spec.use_dec_head else latent
+            g["decoder"] = CGDecoder(dec_in, cfg.NSTEPS, cfg.NMAX, cfg.NFEATURES, generator)
+        self.g = nn.ModuleDict(g)
+        d = {"discriminator": CGDiscriminator(latent, n, generator)}
+        if spec.use_disc_head:
+            # latent -> latent, as the JAX package builds it: the reference
+            # declares Linear(2·latent, latent) but feeds it the latent
+            d["disc_head"] = ProjectionHead(latent, latent, generator)
+        self.d = nn.ModuleDict(d)
+        self.ml = nn.ModuleDict(
+            {"mean_learner": GaussianMeanLearner(n, latent, generator)}
+            if spec.learned_centroids else {}
+        )
+        self.spec = spec
 
 
 @dataclasses.dataclass
 class PCAAState:
     opt_g: AdamState
     opt_d: AdamState
-    centroids: torch.Tensor  # (n_classes, latent) fixed prior means
+    centroids: torch.Tensor  # (n_classes, latent) fixed prior means; V1 ignores them
     generator: torch.Generator  # the step's noise when none is injected
 
 
@@ -169,15 +204,25 @@ def build_pcaa(cfg: Config, spec: VariantSpec, *,
     return mods, state
 
 
+def _rec_loss(mods: PCAAModules, fv: torch.Tensor, pcs: torch.Tensor) -> torch.Tensor:
+    """Chamfer loss of the decoder's reconstruction of ``pcs`` from the
+    latents; an f32 zero for a variant without a decoder (V3)."""
+    if "decoder" not in mods.g:
+        return fv.new_zeros(())
+    h = mods.g["dec_head"](fv) if "dec_head" in mods.g else fv
+    return seq_chamfer(mods.g["decoder"](h), pcs)
+
+
 def make_train_step(mods: PCAAModules, cfg: Config):
     """→ ``step(state, pcs, labels, step_idx, inject=None) → (state, metrics)``."""
     ieee_f32()
+    spec = mods.spec
     n = cfg.n_classes
     latent = cfg.SUP_LATENT_DIM
     encoder = mods.g["encoder"]
-    dec_head = mods.g["dec_head"]
-    decoder = mods.g["decoder"]
     discriminator = mods.d["discriminator"]
+    disc_head = mods.d["disc_head"] if spec.use_disc_head else None
+    mean_learner = mods.ml["mean_learner"] if spec.learned_centroids else None
     g_params = dict(mods.g.named_parameters())
     d_params = dict(mods.d.named_parameters())
     adam = dict(lr=cfg.LR, b1=cfg.B1, b2=cfg.B2)
@@ -196,7 +241,11 @@ def make_train_step(mods: PCAAModules, cfg: Config):
         fv_detached = fv.detach()
 
         # prior sample, detached
-        mus = oh @ state.centroids
+        if mean_learner is not None:
+            with torch.no_grad():  # train-mode BatchNorm: its running statistics move
+                mus = mean_learner(oh)
+        else:
+            mus = oh @ state.centroids
         if inject is None:
             z0 = torch.randn((batch, latent), generator=state.generator, device=pcs.device)
             alphas = torch.rand((batch, 1), generator=state.generator, device=pcs.device)
@@ -208,16 +257,24 @@ def make_train_step(mods: PCAAModules, cfg: Config):
             return discriminator(h, oh)[:, 0]
 
         # --- critic step ------------------------------------------------------
+        fake = fv_detached
+        if disc_head is not None:
+            with torch.no_grad():
+                fake = disc_head(fv_detached)
         real_logits = critic(z)
-        fake_logits = critic(fv_detached)
-        gp = gradient_penalty(critic, z, fv_detached, alphas)
+        fake_logits = critic(fake)
+        gp = gradient_penalty(critic, z, fake, alphas)
         d_loss = torch.mean(fake_logits) - torch.mean(real_logits) + cfg.GP_WEIGHT * gp
-        d_grads = torch.autograd.grad(d_loss, list(d_params.values()))
+        # the DPH gets no gradient (every path into it is detached): zeros,
+        # which Adam steps with, so it stays at its init, as in the JAX package
+        d_grads = torch.autograd.grad(
+            d_loss, list(d_params.values()), allow_unused=True, materialize_grads=True
+        )
         adam_update_(state.opt_d, d_params, dict(zip(d_params, d_grads)), **adam)
 
         # --- generator step: critic with the updated D parameters -----------
-        rec_loss = seq_chamfer(decoder(dec_head(fv)), pcs)
-        adv_loss = -torch.mean(critic(fv)) * cfg.ADV_WEIGHT
+        rec_loss = _rec_loss(mods, fv, pcs)
+        adv_loss = -torch.mean(critic(fv if disc_head is None else disc_head(fv))) * cfg.ADV_WEIGHT
         sup_loss = cross_entropy(logits, labels)
         tot_loss = rec_loss + adv_loss
         if step_idx % cfg.SUPERVISION_FREQUENCY == 0:
@@ -256,8 +313,6 @@ def make_epoch_fns(mods: PCAAModules, cfg: Config):
     a ``(steps, B)`` index matrix picks from device-resident splits."""
     train_step = make_train_step(mods, cfg)
     encoder = mods.g["encoder"]
-    dec_head = mods.g["dec_head"]
-    decoder = mods.g["decoder"]
 
     def train_epoch(state: PCAAState, x_all, y_all, perm, noise=None):
         """``noise`` (optional): ``(z0 (steps, B, latent), alphas (steps, B, 1))``
@@ -281,7 +336,7 @@ def make_epoch_fns(mods: PCAAModules, cfg: Config):
                 pcs, labels = x_all[idx], y_all[idx]
                 logits, fv = encoder(pcs)
                 out.append({
-                    "rec_loss": seq_chamfer(decoder(dec_head(fv)), pcs),
+                    "rec_loss": _rec_loss(mods, fv, pcs),
                     "ce_loss": cross_entropy(logits, labels),
                     "n_correct": torch.sum(torch.argmax(logits, dim=1) == labels).float(),
                 })
@@ -292,19 +347,74 @@ def make_epoch_fns(mods: PCAAModules, cfg: Config):
     return train_epoch, valid_epoch
 
 
-def _ckpt_payload(mods: PCAAModules) -> Dict[str, torch.Tensor]:
+def _ckpt_payload(mods: nn.Module) -> Dict[str, torch.Tensor]:
     """A copy, on the device, of every parameter and running statistic
     (no optimizer moments)."""
     return {k: v.detach().clone() for k, v in mods.state_dict().items()}
 
 
-def _checkpoint(run_dir: str, name: str, payload: Dict[str, torch.Tensor]) -> None:
-    """Write the reference's per-module files: E (with the running
-    statistics), D, G and GPH."""
+def resume_tree(mods: nn.Module, opts: Dict[str, AdamState], generator: torch.Generator,
+                **tensors: torch.Tensor) -> Dict:
+    """The resume file's tree of a trainer: ``modules`` (the state_dict),
+    each Adam state of ``opts`` under its name, the noise ``generator``'s
+    state and the named ``tensors``, all numpy on the host."""
+    tree = {"modules": {k: v.detach().cpu().numpy() for k, v in mods.state_dict().items()},
+            "generator": generator.get_state().numpy()}
+    tree.update({name: adam_state_tree(opt) for name, opt in opts.items()})
+    tree.update({name: t.detach().cpu().numpy() for name, t in tensors.items()})
+    return tree
+
+
+def restore_resume_tree(tree: Dict, mods: nn.Module, opts: Dict[str, AdamState],
+                        generator: torch.Generator, **tensors: torch.Tensor) -> None:
+    """Load a ``resume_tree`` in place into the modules, Adam states,
+    generator and tensors it was taken from."""
+    load_tensors_(mods.state_dict(), tree["modules"], "modules")
+    for name, opt in opts.items():
+        load_adam_state_tree(opt, tree[name])
+    load_tensors_(tensors, {k: tree[k] for k in tensors}, "state")
+    generator.set_state(torch.from_numpy(np.array(tree["generator"])))
+
+
+def _payload_from_arrays(arrays: Dict[str, np.ndarray], mods: nn.Module) -> Dict[str, torch.Tensor]:
+    """A saved best payload as a ``_ckpt_payload`` of ``mods``."""
+    payload = _ckpt_payload(mods)
+    load_tensors_(payload, arrays, "best payload")
+    return payload
+
+
+def learned_means(mods: PCAAModules, payload: Dict[str, torch.Tensor]) -> np.ndarray:
+    """V1's "learned" centroids: the mean learner with the payload's
+    weights and running statistics, in train mode on the identity one-hots,
+    under no grad (reference ``PCAA_ablation.py:369-376``). Train-mode
+    BatchNorm moves the running statistics; the JAX package throws that
+    update away (``mutable=["batch_stats"]``), and so does the port, by
+    running a copy of the module: neither ``mods`` nor ``payload`` moves."""
+    ml = copy.deepcopy(mods.ml["mean_learner"]).train()
+    prefix = "ml.mean_learner."
+    ml.load_state_dict({k[len(prefix):]: v for k, v in payload.items() if k.startswith(prefix)})
+    n = ml.dense[0].in_features
+    with torch.no_grad():
+        return ml(torch.eye(n, device=ml.dense[0].weight.device)).cpu().numpy()
+
+
+# (module key in the payload's module_variables, file tag), in the JAX order
+_MODULE_FILES = (("encoder", "E"), ("discriminator", "D"), ("decoder", "G"), ("dec_head", "GPH"),
+                 ("disc_head", "DPH"), ("mean_learner", "ML"))
+
+
+def _checkpoint(run_dir: str, name: str, mods: PCAAModules,
+                payload: Dict[str, torch.Tensor]) -> None:
+    """Write the reference's per-module files of the variant: E (with the
+    running statistics) and D always, G where there is a decoder, GPH and
+    DPH where there are those heads, and for V1 ML (with its running
+    statistics) and the learned ``discriminator_means.npy``."""
     variables = module_variables(payload)
-    for module, tag in (("encoder", "E"), ("discriminator", "D"), ("decoder", "G"),
-                        ("dec_head", "GPH")):
-        save_params(variables[module], module_path(run_dir, name, tag))
+    for module, tag in _MODULE_FILES:
+        if module in variables:
+            save_params(variables[module], module_path(run_dir, name, tag))
+    if mods.spec.learned_centroids:
+        save_array(learned_means(mods, payload), os.path.join(run_dir, "discriminator_means.npy"))
 
 
 def train_pcaa(
@@ -320,11 +430,15 @@ def train_pcaa(
 ) -> Dict[str, float]:
     """Train one PCAA run end to end; write the run folder the JAX package
     writes (``config.json``, ``metrics.jsonl``, ``discriminator_means.npy``,
-    ``<NAME>_{E,D,G,GPH}.msgpack``, ``run_complete.json``) and return the
-    final metrics, throughput included.
+    the variant's ``<NAME>_<TAG>.msgpack`` files, ``run_complete.json``) and
+    return the final metrics, throughput included.
 
+    :param proj_head_on_discriminator: V4 with the discriminator projection
+        head (ignored for the other variants, as in the JAX package).
     :param datasets: optional ``(x_train, y_train, x_valid, y_valid)``;
         otherwise the splits are read from ``cfg.GEN_DATA_PATH``.
+    :param resume: continue from the run folder's ``train_state.msgpack``
+        if the port wrote one (``ValueError`` if another program did).
     :param device: the CUDA card unless the caller asks for the CPU.
     """
     ieee_f32()
@@ -333,11 +447,10 @@ def train_pcaa(
         spec = dataclasses.replace(spec, use_disc_head=True)
     _check_supported(cfg, spec)
     run_dir = cfg.run_dir()
-    if resume and os.path.exists(os.path.join(run_dir, "train_state.msgpack")):
-        raise NotImplementedError(
-            f"{run_dir} holds a resume state, which the port cannot read yet"
-        )
     device = torch.device(device)
+    # read first: a state the port cannot resume raises before anything is written
+    ckpt_path = os.path.join(run_dir, "train_state.msgpack")
+    restored = load_train_state(ckpt_path) if resume else None
 
     os.makedirs(run_dir, exist_ok=True)
     cfg.save(os.path.join(run_dir, "config.json"))
@@ -355,26 +468,45 @@ def train_pcaa(
     )
 
     mods, state = build_pcaa(cfg, spec, device=device)
-    save_array(state.centroids.cpu().numpy(), os.path.join(run_dir, "discriminator_means.npy"))
+    if not spec.learned_centroids:
+        save_array(state.centroids.cpu().numpy(), os.path.join(run_dir, "discriminator_means.npy"))
 
     train_epoch, valid_epoch = make_epoch_fns(mods, cfg)
     logger = MetricLogger(run_dir, cfg.to_dict(), mode=wandb_mode)
     host_rng = np.random.default_rng(cfg.SEED)
+    opts = {"opt_g": state.opt_g, "opt_d": state.opt_d}
+
+    best_valid_acc = 0.0
+    best_payload = None
+    start_epoch = 0
+    if restored is not None:
+        tree, start_epoch, meta = restored
+        restore_resume_tree(tree, mods, opts, state.generator, centroids=state.centroids)
+        del restored, tree  # the host copy: 2.6 GB at the published widths
+        host_rng.bit_generator.state = meta["host_rng_state"]
+        best_valid_acc = meta.get("best_valid_acc", 0.0)
+        # the best weights so far, so that the run's end writes them even
+        # when no resumed epoch beats the restored best accuracy
+        best = load_best_payload(ckpt_path)
+        if best is not None:
+            best_payload = _payload_from_arrays(best, mods)
+        if verbose:
+            print(f"[{name}] resuming from epoch {start_epoch}")
 
     n_train = x_train.shape[0]
     steps = n_train // cfg.BATCH_SIZE
     valid_steps = x_valid.shape[0] // cfg.BATCH_SIZE
     valid_perm = epoch_batch_indices(x_valid.shape[0], cfg.BATCH_SIZE, shuffle=False)
-    best_valid_acc = 0.0
-    best_payload = None
     out: Dict[str, float] = {}
     t_start = time.time()
-    for epoch in range(cfg.EPOCHS):
+    total_windows = 0
+    for epoch in range(start_epoch, cfg.EPOCHS):
         perm = epoch_batch_indices(n_train, cfg.BATCH_SIZE, shuffle=True, rng=host_rng)
         state, m = train_epoch(state, x_train, y_train, perm)
         vm = valid_epoch(state, x_valid, y_valid, valid_perm)
         m = {k: v.cpu().numpy() for k, v in m.items()}
         vm = {k: v.cpu().numpy() for k, v in vm.items()}
+        total_windows += steps * cfg.BATCH_SIZE
 
         train_acc = float(np.sum(m["n_correct"]) / (steps * cfg.BATCH_SIZE))
         valid_acc = float(np.sum(vm["n_correct"]) / (valid_steps * cfg.BATCH_SIZE))
@@ -401,16 +533,27 @@ def train_pcaa(
             )
         # best-by-valid-accuracy checkpoint every CHECKPOINT_FREQUENCY
         # epochs, epoch 0 included (reference PCAA_ablation.py:1087-1119)
-        if epoch % cfg.CHECKPOINT_FREQUENCY == 0 and valid_acc > best_valid_acc:
-            best_valid_acc = valid_acc
-            best_payload = _ckpt_payload(mods)
+        if epoch % cfg.CHECKPOINT_FREQUENCY == 0:
+            improved = valid_acc > best_valid_acc
+            if improved:
+                best_valid_acc = valid_acc
+                best_payload = _ckpt_payload(mods)
+            if cfg.SAVE_RESUME_STATE:
+                save_train_state(
+                    resume_tree(mods, opts, state.generator, centroids=state.centroids),
+                    epoch, host_rng.bit_generator.state, ckpt_path,
+                    extra={"best_valid_acc": best_valid_acc},
+                )
+                if improved:
+                    save_best_payload(best_payload, ckpt_path)
         out = dict(epoch_metrics)
 
     elapsed = time.time() - t_start
-    out["windows_per_sec"] = cfg.EPOCHS * steps * cfg.BATCH_SIZE / max(elapsed, 1e-9)
+    out["windows_per_sec"] = total_windows / max(elapsed, 1e-9)
     out["best_valid_accuracy"] = best_valid_acc
     logger.finish()
     # the final state if no checkpoint epoch improved the valid accuracy
-    _checkpoint(run_dir, name, best_payload if best_payload is not None else _ckpt_payload(mods))
+    _checkpoint(run_dir, name, mods,
+                best_payload if best_payload is not None else _ckpt_payload(mods))
     mark_run_completed(run_dir, out)
     return out

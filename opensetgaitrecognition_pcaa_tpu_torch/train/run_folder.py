@@ -1,10 +1,10 @@
 """Run-folder I/O: the files the JAX package's training writes.
 
-Port of ``opensetgaitrecognition_pcaa_tpu/train/run_folder.py:36-59`` and
-``:123-131``. A run folder holds ``config.json``, ``<NAME>_<TAG>.msgpack``
-parameter trees, ``discriminator_means.npy`` and, once training ended,
-``run_complete.json``. The full resume state (``train_state.msgpack``) is
-not ported yet. The JAX package writes the trees with
+Port of ``opensetgaitrecognition_pcaa_tpu/train/run_folder.py:36-131``. A
+run folder holds ``config.json``, ``<NAME>_<TAG>.msgpack`` parameter trees,
+``discriminator_means.npy``, with ``SAVE_RESUME_STATE`` the resume state
+``train_state.msgpack`` (+ ``.meta.json``, ``.best``) and, once training
+ended, ``run_complete.json``. The JAX package writes the trees with
 ``flax.serialization.msgpack_serialize``; this module reads and writes the
 same bytes with a small pure-Python codec for the subset of msgpack that
 flax uses, so the port needs neither flax nor the msgpack package:
@@ -14,7 +14,19 @@ flax uses, so the port needs neither flax nor the msgpack package:
   ``(shape, dtype.name, C-order bytes)``; ext type 3 (numpy scalar) is
   decoded the same way.
 
-Arrays above flax's 1 GiB chunking limit are not supported.
+Arrays above flax's 1 GiB chunking limit are not supported. A file is
+written as a list of chunks, each array's data a view of its buffer, and
+read into one buffer that the arrays it holds share: neither direction
+copies an array's bytes in Python.
+
+The resume state is the port's own format, not the JAX package's: JAX
+writes its ``PCAAState`` with ``flax.serialization.to_bytes``, PRNG key
+included, and JAX's PRNG cannot be replayed by torch. The port writes a
+tree of numpy arrays (the trainer's ``state_dict``, its Adam states, its
+noise ``torch.Generator`` state) through the same codec, no pickle, and
+tags the ``.meta.json`` with ``RESUME_FORMAT``. A state file whose meta
+lacks the tag (a JAX-written one) raises ``ValueError``: it is never read
+as the port's state, and the run is never quietly restarted over it.
 """
 
 from __future__ import annotations
@@ -52,22 +64,56 @@ def _pack_len(out: bytearray, n: int, fix: Optional[int], codes: tuple) -> None:
 _FIXEXT = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
 
 
-def _pack(obj: Any, out: bytearray) -> None:
+class _Chunks:
+    """The encoding as a list of chunks: the small parts gathered in a
+    bytearray, each array's data a view of the array (``data``)."""
+
+    def __init__(self):
+        self.chunks = []
+        self.head = bytearray()
+
+    def append(self, byte: int) -> None:
+        self.head.append(byte)
+
+    def __iadd__(self, raw) -> "_Chunks":
+        self.head += raw
+        return self
+
+    def _flush(self) -> None:
+        if self.head:
+            self.chunks.append(bytes(self.head))
+            self.head = bytearray()
+
+    def data(self, view: memoryview) -> None:
+        self._flush()
+        self.chunks.append(view)
+
+    def finish(self) -> list:
+        self._flush()
+        return self.chunks
+
+
+def _pack(obj: Any, out) -> None:
     """msgpack as the ``msgpack`` package writes it (``use_bin_type``),
-    for the types of a flax tree and of its ndarray payloads."""
+    for the types of a flax tree and of its ndarray payloads, into a
+    ``_Chunks`` (or a bytearray, for trees without arrays)."""
     if isinstance(obj, (np.ndarray, np.generic)):
-        arr = np.asarray(obj)
+        arr = np.asarray(obj, order="C")
         if arr.dtype.hasobject or arr.dtype.fields is not None:
             raise TypeError(f"unsupported dtype {arr.dtype}")
-        payload = bytearray()
-        _pack((list(arr.shape), arr.dtype.name, arr.tobytes("C")), payload)
-        n = len(payload)
+        # the payload: the msgpack of (shape, dtype name, C-order bytes)
+        head = bytearray((0x93,))
+        _pack(list(arr.shape), head)
+        _pack(arr.dtype.name, head)
+        _pack_len(head, arr.nbytes, None, (0xC4, 0xC5, 0xC6))
+        n = len(head) + arr.nbytes
         if n in _FIXEXT:
             out.append(_FIXEXT[n])
         else:
             _pack_len(out, n, None, (0xC7, 0xC8, 0xC9))
         out.append(_EXT_NDARRAY if isinstance(obj, np.ndarray) else _EXT_NPSCALAR)
-        out += payload
+        out += head
+        out.data(memoryview(arr.reshape(-1).view(np.uint8)))
     elif isinstance(obj, int) and not isinstance(obj, bool) and obj >= 0:
         # array shapes: the only ints a flax tree holds
         if obj < 0x80:
@@ -102,11 +148,31 @@ def _pack(obj: Any, out: bytearray) -> None:
         raise TypeError(f"cannot msgpack {type(obj)} in a parameter tree")
 
 
+def _chunks(obj: Any) -> list:
+    out = _Chunks()
+    _pack(obj, out)
+    return out.finish()
+
+
 def packb(obj: Any) -> bytes:
     """Encode a tree of dicts (str keys) with ndarray leaves as flax does."""
-    out = bytearray()
-    _pack(obj, out)
-    return bytes(out)
+    return b"".join(_chunks(obj))
+
+
+def _write(obj: Any, path: str) -> None:
+    """``packb(obj)`` into the file ``path``, chunk by chunk."""
+    with open(path, "wb") as f:
+        f.writelines(_chunks(obj))
+
+
+def _read(path: str) -> Any:
+    """``unpackb`` of the file ``path``, read into one writable buffer that
+    the arrays of the tree share."""
+    with open(path, "rb") as f:
+        buf = bytearray(os.fstat(f.fileno()).st_size)
+        if f.readinto(buf) != len(buf):
+            raise ValueError(f"{path}: short read")
+    return unpackb(buf)
 
 
 class _Reader:
@@ -134,8 +200,8 @@ class _Reader:
             return self._array(b & 0x0F)
         if b <= 0xBF:
             return self._str(b & 0x1F)
-        if 0xC4 <= b <= 0xC6:
-            return bytes(self.take(self.uint(1 << (b - 0xC4))))
+        if 0xC4 <= b <= 0xC6:  # bin: a view of the data, not a copy
+            return self.take(self.uint(1 << (b - 0xC4)))
         if 0xC7 <= b <= 0xC9:
             return self._ext(self.uint(1 << (b - 0xC7)))
         if 0xCC <= b <= 0xCF:
@@ -165,7 +231,7 @@ class _Reader:
 
     def _ext(self, n: int):
         code = self.uint(1)
-        payload = bytes(self.take(n))
+        payload = self.take(n)
         if code not in (_EXT_NDARRAY, _EXT_NPSCALAR):
             raise ValueError(f"unsupported msgpack ext type {code}")
         shape, dtype_name, buf = unpackb(payload)
@@ -175,7 +241,9 @@ class _Reader:
         return arr if code == _EXT_NDARRAY else arr[()]
 
 
-def unpackb(data: bytes) -> Any:
+def unpackb(data) -> Any:
+    """Decode ``data`` (bytes-like); the arrays are views of it, writable
+    where ``data`` is."""
     reader = _Reader(data)
     obj = reader.read()
     if reader.pos != len(reader.data):
@@ -194,14 +262,13 @@ def save_params(variables: Dict[str, Any], path: str) -> None:
     "batch_stats": ...}``) byte for byte as the JAX package's
     ``save_params`` does: keys sorted, as a jax tree map leaves them."""
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    with open(path, "wb") as f:
-        f.write(packb(_sorted_tree(variables)))
+    _write(_sorted_tree(variables), path)
 
 
 def load_params(path: str) -> Dict[str, Any]:
-    """Read a ``<NAME>_<TAG>.msgpack`` tree; leaves are read-only ndarrays."""
-    with open(path, "rb") as f:
-        return unpackb(f.read())
+    """Read a ``<NAME>_<TAG>.msgpack`` tree; its ndarray leaves share the
+    file's buffer."""
+    return _read(path)
 
 
 def save_array(arr, path: str) -> None:
@@ -216,6 +283,63 @@ def load_array(path: str) -> np.ndarray:
 def module_path(run_dir: str, model_name: str, tag: str) -> str:
     """``models/<NAME>/<NAME>_<TAG>.msgpack`` (reference file-stem contract)."""
     return os.path.join(run_dir, f"{model_name}_{tag}.msgpack")
+
+
+RESUME_FORMAT = "opensetgaitrecognition_pcaa_tpu_torch/train_state/1"
+
+
+def save_train_state(tree: Dict[str, Any], epoch: int, host_rng_state: dict, path: str,
+                     extra: Optional[dict] = None) -> None:
+    """Write the resume state ``tree`` (dicts with str keys, numpy leaves)
+    to ``path`` and ``path + ".meta.json"``: ``format``, ``epoch`` (the
+    last epoch done), the host shuffle generator's ``host_rng_state`` and
+    ``extra`` (``best_valid_acc``)."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    _write(tree, path)
+    meta = {"format": RESUME_FORMAT, "epoch": epoch, "host_rng_state": host_rng_state}
+    meta.update(extra or {})
+    with open(path + ".meta.json", "w") as f:
+        json.dump(meta, f)
+
+
+def load_train_state(path: str):
+    """→ ``(tree, next_epoch, meta)``, or ``None`` if ``path`` does not
+    exist. ``ValueError`` if it exists but its meta is missing or was not
+    written by the port (a JAX package's ``train_state.msgpack``)."""
+    if not os.path.exists(path):
+        return None
+    meta = None
+    if os.path.exists(path + ".meta.json"):
+        with open(path + ".meta.json") as f:
+            meta = json.load(f)
+    if not isinstance(meta, dict) or meta.get("format") != RESUME_FORMAT:
+        raise ValueError(
+            f"{path} is not a resume state of the PyTorch port (its .meta.json lacks "
+            f"format {RESUME_FORMAT!r}; a JAX package's state cannot be resumed here): "
+            "move it away to train the run afresh"
+        )
+    return _read(path), meta["epoch"] + 1, meta
+
+
+def save_best_payload(payload: Dict[str, Any], path: str) -> None:
+    """Write the best-by-validation weights (a flat dict of arrays or
+    tensors) to ``path + ".best"``, so that a resumed run whose restored
+    best accuracy is never beaten still writes them as its module files."""
+    _write({k: _host(v) for k, v in payload.items()}, path + ".best")
+
+
+def load_best_payload(path: str) -> Optional[Dict[str, np.ndarray]]:
+    """→ the payload ``save_best_payload`` wrote, or ``None`` if none was."""
+    if not os.path.exists(path + ".best"):
+        return None
+    return _read(path + ".best")
+
+
+def _host(value: Any) -> np.ndarray:
+    """A numpy array of ``value``, a torch tensor (on any device) or array."""
+    if hasattr(value, "detach"):
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
 
 
 def run_completed(run_dir: str) -> bool:

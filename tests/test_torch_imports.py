@@ -54,7 +54,7 @@ def _loaded(script: str, min_modules: int) -> set:
 
 
 def test_port_imports_no_jax_stack():
-    loaded = _loaded(_PORT, 40)
+    loaded = _loaded(_PORT, 42)
     assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))
 
 

@@ -316,6 +316,64 @@ def test_adam_raises_instead_of_falling_back():
         adam.adam_update_(g, w, m.cpu(), v, **coeffs)
 
 
+# --- a training step of each PCAA variant ----------------------------------------
+
+# NMAX 64, NSTEPS 12: the decoder's last matrix (1536 x 3072) is the one leaf
+# of at least 2^21 elements, so the Adam kernel launches once a step where
+# there is a decoder and never for V3
+VARIANT_DIMS = dict(NMAX=64, NSTEPS=12, CROP_STEP=4, POINTNET_OUT_DIM=64,
+                    DTC_FILTERS=(8, 8, 8, 8, 8, 16), SUP_LATENT_DIM=16,
+                    TRAIN_CLASSES=(0, 1, 2), BATCH_SIZE=8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant,dph,adam_launches",
+                         [("V1", False, 1), ("V2", False, 1), ("V3", False, 0), ("V4", True, 1)],
+                         ids=["V1", "V2", "V3", "V4_dph"])
+def test_variant_step_kernels_match_plain(variant, dph, adam_launches):
+    """One step of each variant from one seeded state, through the kernels
+    and plain: losses within 1e-3 relative to max(|plain|, 1), the bound
+    of ``chip_smoke.py`` phase 6b, and the kernels' launches counted."""
+    import dataclasses
+
+    from opensetgaitrecognition_pcaa_tpu_torch.config import VARIATION, Config
+    from opensetgaitrecognition_pcaa_tpu_torch.train.pcaa import (
+        VARIANTS,
+        build_pcaa,
+        make_train_step,
+    )
+
+    _needs_card()
+    spec = VARIANTS[VARIATION(variant)]
+    if dph:
+        spec = dataclasses.replace(spec, use_disc_head=True)
+    cfg = Config(**VARIANT_DIMS)
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.normal(size=(8, 12, 64, 4)).astype(np.float32)).cuda()
+    y = torch.from_numpy(np.arange(8, dtype=np.int32) % 3).cuda()
+    noise = (torch.from_numpy(rng.normal(size=(8, 16)).astype(np.float32)).cuda(),
+             torch.from_numpy(rng.uniform(size=(8, 1)).astype(np.float32)).cuda())
+    losses = {}
+    for fused in (False, True):
+        run_cfg = cfg.replace(FUSED_POINTNET=fused, FUSED_ADAM=fused)
+        mods, state = build_pcaa(run_cfg, spec, device="cuda")
+        counts = (pt.fused_layer.launches, pt.fused_pool.launches, adam.adam_update_.launches)
+        _, m = make_train_step(mods, run_cfg)(state, x, y, 0, noise)
+        torch.cuda.synchronize()
+        now = (pt.fused_layer.launches, pt.fused_pool.launches, adam.adam_update_.launches)
+        assert tuple(b - a for a, b in zip(counts, now)) == (
+            (4, 1, adam_launches) if fused else (0, 0, 0))
+        losses[fused] = {k: float(v) for k, v in m.items()}
+        if dph:
+            assert state.opt_d.count == 1
+            assert not any(state.opt_d.mu[k].any() for k in state.opt_d.mu
+                           if k.startswith("disc_head."))
+    for key in ("rec_loss", "d_loss", "sup_loss", "tot_loss"):
+        plain, kernel = losses[False][key], losses[True][key]
+        assert np.isfinite(kernel) and abs(kernel - plain) <= 1e-3 * max(abs(plain), 1.0), key
+    assert (losses[True]["rec_loss"] == 0.0) == (variant == "V3")
+
+
 # --- Chamfer ------------------------------------------------------------------
 
 CHAMFER_TOL = dict(rtol=1e-5, atol=1e-6)  # kernel against plain

@@ -54,7 +54,11 @@ from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import RadarCropDataset
 from opensetgaitrecognition_pcaa_tpu_torch.infer import orced
 from opensetgaitrecognition_pcaa_tpu_torch.ops import losses
 from opensetgaitrecognition_pcaa_tpu_torch.train import orced as port_orced
-from opensetgaitrecognition_pcaa_tpu_torch.train.run_folder import run_completed
+from opensetgaitrecognition_pcaa_tpu_torch.train.run_folder import (
+    RESUME_FORMAT,
+    load_train_state,
+    run_completed,
+)
 
 DIMS = dict(NMAX=64, NSTEPS=12, CROP_STEP=4, POINTNET_OUT_DIM=64,
             DTC_FILTERS=(8, 8, 8, 8, 8, 16), SUP_LATENT_DIM=16, TRAIN_CLASSES=(0, 1, 2),
@@ -330,10 +334,9 @@ def test_port_trained_run_folder_scores_in_jax(trained):
         ({"FACTORED_ADAM_NU": True}, NotImplementedError, "FACTORED_ADAM_NU"),
         ({"BF16_WEIGHT_CACHE": True}, NotImplementedError, "BF16_WEIGHT_CACHE"),
         ({"DP_DEVICES": 2}, NotImplementedError, "parallelism"),
-        ({"SAVE_RESUME_STATE": True}, NotImplementedError, "resume state"),
     ],
     ids=["fused_adam", "deferred", "bf16", "bf16_nu", "factored_nu", "bf16_cache",
-         "data_parallel", "save_resume"],
+         "data_parallel"],
 )
 def test_unported_options_raise(tmp_path, overrides, error, match):
     cfg = Config(MODELS_PATH=str(tmp_path), MODEL_NAME="X_ORCED", EPOCHS=1,
@@ -344,11 +347,27 @@ def test_unported_options_raise(tmp_path, overrides, error, match):
         port_orced.train_orced(cfg, datasets=(x, y, x, y), verbose=False, device="cpu")
 
 
+def test_save_resume_state_writes_the_port_state(tmp_path):
+    """``SAVE_RESUME_STATE``, which raised before the resume state was
+    ported, writes the port's tagged state beside the run folder."""
+    cfg = Config(MODELS_PATH=str(tmp_path), MODEL_NAME="X_ORCED", EPOCHS=1,
+                 SAVE_RESUME_STATE=True, CHECKPOINT_FREQUENCY=1, **DIMS)
+    x = np.zeros((8, cfg.NSTEPS, cfg.NMAX, 4), np.float32)
+    y = np.arange(8, dtype=np.int32) % 3
+    port_orced.train_orced(cfg, datasets=(x, y, x, y), verbose=False, device="cpu")
+    tree, next_epoch, meta = load_train_state(os.path.join(cfg.run_dir(), "train_state.msgpack"))
+    assert next_epoch == 1 and meta["format"] == RESUME_FORMAT
+    assert set(tree) == {"modules", "opt", "generator"}
+    assert int(tree["opt"]["count"]) == 1
+
+
 def test_existing_resume_state_raises(tmp_path):
+    """A ``train_state.msgpack`` that the port did not write (no tagged
+    ``.meta.json``) raises, naming the file, rather than being ignored."""
     cfg = Config(MODELS_PATH=str(tmp_path), MODEL_NAME="X_ORCED", EPOCHS=1, **DIMS)
     os.makedirs(cfg.run_dir())
     open(os.path.join(cfg.run_dir(), "train_state.msgpack"), "wb").close()
     x = np.zeros((8, cfg.NSTEPS, cfg.NMAX, 4), np.float32)
     y = np.zeros(8, np.int32)
-    with pytest.raises(NotImplementedError, match="resume state"):
+    with pytest.raises(ValueError, match="X_ORCED/train_state.msgpack"):
         port_orced.train_orced(cfg, datasets=(x, y, x, y), verbose=False, device="cpu")

@@ -69,3 +69,26 @@ def test_convert_round_trip(enc_vars):
     enc = CGEncoder(3, in_features=4, use_projection_head="MLP_head" in tree["params"], **SMALL)
     enc.load_state_dict(sd)  # strict: every key of the port's module is mapped
     _assert_trees_identical(encoder_variables(enc.state_dict()), tree)
+
+
+def test_large_and_byte_swapped_arrays_write_the_flax_bytes(tmp_path):
+    """Arrays whose payloads take the 16- and 32-bit length forms, a
+    big-endian array and an empty one: the port's chunked write gives the
+    bytes of the JAX package's ``save_params``, and its read gives writable
+    arrays with the values."""
+    rng = np.random.default_rng(3)
+    tree = {"a": {"big": rng.normal(size=(300, 300)).astype(np.float32),
+                  "mid": rng.normal(size=2000).astype(np.float32),
+                  "swapped": np.arange(6, dtype=">i4"),
+                  "empty": np.zeros((0, 3), np.float32)},
+            "b": np.float64(1.5)}
+    path, theirs = str(tmp_path / "T.msgpack"), str(tmp_path / "jax" / "T.msgpack")
+    run_folder.save_params(tree, path)
+    jax_run_folder.save_params(tree, theirs)
+    with open(path, "rb") as a, open(theirs, "rb") as b:
+        data = a.read()
+        assert data == b.read()
+    assert data == run_folder.packb(run_folder._sorted_tree(tree))
+    got = run_folder.load_params(path)
+    _assert_trees_identical(got, jax_run_folder.load_params(theirs))
+    assert got["a"]["big"].flags.writeable

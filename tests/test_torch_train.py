@@ -319,21 +319,14 @@ def test_port_trained_run_folder_scores_in_jax(trained):
 @pytest.mark.parametrize(
     "variation,overrides,kwargs,match",
     [
-        (VARIATION.V1, {}, {}, "not ported"),
-        (VARIATION.V2, {}, {}, "not ported"),
-        (VARIATION.BASE, {}, {}, "not ported"),
-        (VARIATION.V3, {}, {}, "not ported"),
-        (VARIATION.V4, {}, {"proj_head_on_discriminator": True}, "not ported"),
         (VARIATION.V4, {"COMPUTE_DTYPE": "bfloat16"}, {}, "f32"),
         (VARIATION.V4, {"BF16_ADAM_NU": True}, {}, "BF16_ADAM_NU"),
         (VARIATION.V4, {"FACTORED_ADAM_NU": True}, {}, "FACTORED_ADAM_NU"),
         (VARIATION.V4, {"DEFERRED_DECODER_UPDATE": True}, {}, "DEFERRED_DECODER_UPDATE"),
         (VARIATION.V4, {"BF16_WEIGHT_CACHE": True}, {}, "BF16_WEIGHT_CACHE"),
         (VARIATION.V4, {"DP_DEVICES": 2}, {}, "parallelism"),
-        (VARIATION.V4, {"SAVE_RESUME_STATE": True}, {}, "resume state"),
     ],
-    ids=["V1", "V2", "BASE", "V3", "disc_head", "bf16", "bf16_nu", "factored_nu", "deferred",
-         "bf16_cache", "data_parallel", "save_resume"],
+    ids=["bf16", "bf16_nu", "factored_nu", "deferred", "bf16_cache", "data_parallel"],
 )
 def test_unported_options_raise(tmp_path, variation, overrides, kwargs, match):
     cfg = Config(MODELS_PATH=str(tmp_path), MODEL_NAME="X_V4", EPOCHS=1, **{**DIMS, **overrides})
@@ -342,6 +335,37 @@ def test_unported_options_raise(tmp_path, variation, overrides, kwargs, match):
     y = np.zeros(8, np.int32)
     with pytest.raises(NotImplementedError, match=match):
         train_pcaa(cfg, variation, datasets=(x, y, x, y), verbose=False, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize(
+    "variation,overrides,kwargs,tags",
+    [
+        (VARIATION.V1, {}, {}, ("E", "D", "G", "GPH", "ML")),
+        (VARIATION.V2, {}, {}, ("E", "D", "G")),
+        (VARIATION.BASE, {}, {}, ("E", "D", "G")),
+        (VARIATION.V3, {}, {}, ("E", "D")),
+        (VARIATION.V4, {}, {"proj_head_on_discriminator": True}, ("E", "D", "G", "GPH", "DPH")),
+        (VARIATION.V4, {"SAVE_RESUME_STATE": True}, {}, ("E", "D", "G", "GPH")),
+    ],
+    ids=["V1", "V2", "BASE", "V3", "disc_head", "save_resume"],
+)
+def test_formerly_unported_options_train(tmp_path, variation, overrides, kwargs, tags):
+    """The options that raised before the variants and the resume state were
+    ported now train, and write the variant's run folder."""
+    cfg = Config(MODELS_PATH=str(tmp_path), MODEL_NAME=f"X_{variation.value}", EPOCHS=1,
+                 **{**DIMS, **overrides})
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(8, cfg.NSTEPS, cfg.NMAX, 4)).astype(np.float32)
+    y = np.arange(8, dtype=np.int32) % 3
+    out = train_pcaa(cfg, variation, datasets=(x, y, x, y), verbose=False, device="cpu",
+                     **kwargs)
+    assert all(np.isfinite(v) for v in out.values()), out
+    resume = ({"train_state.msgpack", "train_state.msgpack.meta.json"}
+              | ({"train_state.msgpack.best"} if out["best_valid_accuracy"] > 0 else set())
+              if cfg.SAVE_RESUME_STATE else set())
+    assert set(os.listdir(cfg.run_dir())) == {
+        "config.json", "metrics.jsonl", "discriminator_means.npy", "run_complete.json",
+    } | {f"{cfg.MODEL_NAME}_{tag}.msgpack" for tag in tags} | resume
 
 
 def test_wandb_mode_writes_jsonl_without_wandb(tmp_path, monkeypatch):
@@ -362,8 +386,10 @@ def test_wandb_mode_writes_jsonl_without_wandb(tmp_path, monkeypatch):
 
 
 def test_existing_resume_state_raises(tmp_path):
+    """A ``train_state.msgpack`` that the port did not write (no tagged
+    ``.meta.json``) raises, naming the file, rather than being ignored."""
     cfg = Config(MODELS_PATH=str(tmp_path), MODEL_NAME="X_V4", **DIMS)
     os.makedirs(cfg.run_dir())
     open(os.path.join(cfg.run_dir(), "train_state.msgpack"), "wb").close()
-    with pytest.raises(NotImplementedError, match="resume state"):
+    with pytest.raises(ValueError, match="X_V4/train_state.msgpack"):
         train_pcaa(cfg, VARIATION.V4, verbose=False, device="cpu")
