@@ -2,8 +2,9 @@
 """Smoke test of the PyTorch port on one CUDA card: ``python3 chip_smoke.py``.
 
 Drives the port's main paths, V4 open-set inference and in-process serving,
-V4 training, OR-CED open-set inference, serving and training, and the PCAA
-ablation (every variant, the driver, the resume), at the full width
+V4 training, OR-CED open-set inference, serving and training, the PCAA
+ablation (every variant, its CLI, the resume), the serving artifacts
+and the remaining sequential drivers, at the full width
 of the published models (NMAX=150, NSTEPS=30, C=4, PointNet width 1024,
 TCN filters 16..512, latent 32; decoder S = 18000, 215.2M parameters),
 with seeded random weights and seeded crop files. Phases:
@@ -83,15 +84,40 @@ with seeded random weights and seeded crop files. Phases:
       crops), each 2 epochs straight against 1 epoch with the resume
       state and a second call resuming: per-epoch metrics and module files
       reported bitwise equal or with their gaps; one ORCED step repeated
-      from the same state names the gradients that do not repeat.
+      from the same state names the gradients that do not repeat;
+10. the serving artifacts and the remaining drivers, at the same width:
+   a. ``python -m ...scripts.export_serving --ks 6`` exports phase 3's
+      folder (seconds, MB); a fresh process (``--serve-artifacts``, only
+      the port imported) loads it on the card and answers phase 4's 3
+      requests, the PointNet kernel launched once each, with the decisions
+      and counts of ``make_pcaa_decision_fn`` at the calibrated threshold
+      except knife-edge windows; loaded on the CPU it answers the first
+      request with the same decisions; ms per request beside phase 4's and
+      a warm median of 15 more calls beside the in-process one's;
+   b. ``export_orced_decision`` exports phase 7b's folder (seconds, MB),
+      its class statistics equal ``orced_inference(dump_calibration=True)``'s
+      at seed 0 (rtol 1e-6); the fresh process answers 3 requests of 16
+      test crops with pinned eps, launching the PointNet and Chamfer
+      kernels once each, with ``make_orced_forward_fn`` +
+      ``orced_decide_host``'s decisions except knife-edge crops;
+   c. ``run_orced`` trains one ORCED run (6 classes, 1 epoch) on phase
+      8's raw tracks; a second call trains nothing and writes no split;
+   d. ``run_pointsubsampling`` (the training kernels on) trains and
+      scores V4 at 50 and 150 points, ks 1 and 6; with one log deleted it
+      re-scores that run without training; a third call skips both;
+   e. ``run_inference_scenarios`` scores phase 9b's four folders per
+      scenario at ks 6 and 1 (the JAX driver's file names, finite F1);
+      ``collect_results`` lists every folder.
 
 It exits non-zero, with no result line, when there is no CUDA card or a
 phase fails. The line before the last is the per-kernel JSON record (its
 ``launches`` counts each kernel's launches on the main paths, each path
-driven with the counts at 0: phases 3, 4, 6c, 7c, 7d, 8c and 9b for the
-PointNet inference kernel, 6b's kernel steps, 6c, 9a's first kernel steps,
-9b's training and 9c's PCAA runs for the training kernels, 7c, 7d and 8c
-for the Chamfer kernel; the Chamfer kernel's ``ms`` is its device
+driven with the counts at 0: phases 3, 4, 6c, 7c, 7d, 8c, 9b and 10 (the
+ORCED export's calibration, the orced_inference it is held against, the
+fresh process's requests, the sequential scripts' scoring) for the PointNet
+inference kernel, 6b's kernel steps, 6c, 9a's first kernel steps, 9b's
+training, 9c's PCAA runs and 10d's training for the training kernels, 7c,
+7d, 8c and 10b for the Chamfer kernel; the Chamfer kernel's ``ms`` is its device
 time per launch at (64, 30, 150, 4) from the CUDA graph, every other
 ``ms`` CUDA events around calls of the wrapper; ``bound_ms`` is the
 larger of the operations over 67 TFLOP/s and the bytes over 3.35 TB/s, the H100 SXM's
@@ -103,6 +129,7 @@ the layer kernel's times and bound are per launch, the mean of a step's
 four layers), the last ``{"ok": true, "device": {...}}``.
 Files go to ``build/chip_smoke/``.
 
+``--serve-artifacts DIR`` is phase 10's fresh process.
 ``python3 chip_smoke.py --chamfer-timing`` builds only the Chamfer kernel
 and runs phase 7a's timing, for comparing trees of the port in one call;
 ``--codec-timing`` times the run-folder codec alone the same way.
@@ -142,6 +169,7 @@ LOSS_RTOL = 1e-3
 ORCED_NAME = "SMOKE_ORCED"
 ORCED_B = 64  # orced_inference's batch
 SERVE_CROPS = 16  # crops per ORCED serving request
+SERVE_WARM_CALLS = 15  # phase 10: calls after the 3 requests, for a warm median
 # Chamfer kernel vs plain: the kernel rounds each distance as the plain
 # pairwise_sq_dists does, so only the order of the sums differs; measured
 # gap 2.8e-7 relative (see PERF.md), held at 35 times that. The f64 oracle
@@ -1612,6 +1640,425 @@ def ablation_phase(card: str, gen: str) -> dict:
     return out
 
 
+def infer_counts() -> tuple:
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import chamfer_kernel as ck
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import pointnet_infer as pn
+
+    return pn.pointnet_pool_infer.launches, ck.seq_chamfer_kernel.launches
+
+
+def reset_infer_counts() -> None:
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import chamfer_kernel as ck
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import pointnet_infer as pn
+
+    pn.pointnet_pool_infer.launches = ck.seq_chamfer_kernel.launches = 0
+
+
+def serve_ms_of(request, n_requests: int) -> list:
+    """Host ms of ``SERVE_WARM_CALLS`` more calls of ``request(r)``, cycling
+    over the requests; each call's answer reaches the host."""
+    ms = []
+    for i in range(SERVE_WARM_CALLS):
+        t0 = time.perf_counter()
+        request(i % n_requests)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return ms
+
+
+def serve_artifacts(serve_dir: str) -> int:
+    """``--serve-artifacts DIR``, phase 10's fresh process: with only the
+    port imported, load ``DIR/pcaa.osgr`` and ``DIR/orced.osgr`` on the
+    card, answer 3 requests of each (``windows.npy``; ``crops.npy`` with
+    ``eps.npy``), then load the PCAA artifact on the CPU and answer the
+    first request again; write ``DIR/served.json``."""
+    import torch
+
+    from opensetgaitrecognition_pcaa_tpu_torch.infer.serving import load_serving_artifact
+
+    assert not {"jax", "opensetgaitrecognition_pcaa_tpu"} & set(sys.modules)
+    windows = np.load(os.path.join(serve_dir, "windows.npy"))
+    crops = np.load(os.path.join(serve_dir, "crops.npy"))
+    eps = np.load(os.path.join(serve_dir, "eps.npy"))
+    torch.zeros(1, device="cuda")  # the CUDA context, apart from the loads' times
+    torch.cuda.synchronize()
+    out = {}
+    for kind, requests in (("pcaa", windows), ("orced", crops)):
+        t0 = time.perf_counter()
+        art = load_serving_artifact(os.path.join(serve_dir, f"{kind}.osgr"), device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+
+        def answer(r: int):
+            return art.decide(requests[r]) if kind == "pcaa" else art.decide(requests[r],
+                                                                             eps=eps[r])
+
+        reset_infer_counts()
+        answers, ms = [], []
+        for r in range(len(requests)):
+            t0 = time.perf_counter()
+            answers.append([a.tolist() for a in answer(r)])
+            ms.append(1e3 * (time.perf_counter() - t0))
+        launches = infer_counts()
+        warm = sorted(serve_ms_of(lambda r: answer(r), len(requests)))
+        out[kind] = dict(load_s=load_s, ms=ms, answers=answers, launches=launches,
+                         warm_ms=warm[len(warm) // 2])
+        log(f"phase 10 (fresh process): {kind} artifact loaded on the card in {load_s:.2f} s; "
+            f"answers {[a[:2] for a in answers]}; launches (PointNet, Chamfer) {launches}; "
+            f"ms per request {[round(t, 2) for t in ms]}, then the median of "
+            f"{SERVE_WARM_CALLS} more {out[kind]['warm_ms']:.2f}")
+        del art
+    # the first load in a process pays for the deserializer's set-up; a
+    # second load of the same file shows the load alone
+    t0 = time.perf_counter()
+    load_serving_artifact(os.path.join(serve_dir, "pcaa.osgr"), device="cuda")
+    torch.cuda.synchronize()
+    out["pcaa"]["reload_s"] = time.perf_counter() - t0
+    reset_infer_counts()
+    t0 = time.perf_counter()
+    art = load_serving_artifact(os.path.join(serve_dir, "pcaa.osgr"), device="cpu")
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = art.decide(windows[0])
+    out["pcaa_cpu"] = dict(load_s=load_s, ms=1e3 * (time.perf_counter() - t0),
+                           answer=[a.tolist() for a in got], launches=infer_counts())
+    with open(os.path.join(serve_dir, "served.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def artifact_phase(card: str, serve_ms: list) -> dict:
+    """Phase 10a-b: the PCAA artifact of phase 3's folder through the
+    ``export_serving`` command and the ORCED artifact of phase 7b's
+    folder, exported, then served by a fresh process against the
+    in-process decisions → launches of the PointNet and Chamfer kernels."""
+    import torch
+
+    from opensetgaitrecognition_pcaa_tpu_torch.config import SPLIT, VARIATION
+    from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import RadarCropDataset
+    from opensetgaitrecognition_pcaa_tpu_torch.infer.orced import (
+        orced_inference,
+        orced_inference_setup,
+    )
+    from opensetgaitrecognition_pcaa_tpu_torch.infer import serving
+    from opensetgaitrecognition_pcaa_tpu_torch.infer.pcaa import pcaa_inference_setup
+    from opensetgaitrecognition_pcaa_tpu_torch.infer.serving import (
+        export_orced_decision,
+        load_serving_artifact,
+        make_orced_forward_fn,
+        make_pcaa_decision_fn,
+        orced_decide_host,
+    )
+
+    gen = os.path.join(WORK, "gen")
+    serve_dir = os.path.join(WORK, "serve")
+    os.makedirs(serve_dir)
+    k = 6
+
+    # --- 10a. PCAA: export through the command line, in a process of its own ---
+    models = os.path.join(WORK, "models_kernel")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "opensetgaitrecognition_pcaa_tpu_torch.scripts.export_serving",
+         "--model-names", NAME, "--models-path", models, "--ks", str(k),
+         "--no-generate-dataset"], cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    cli_s = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    path = os.path.join(models, NAME, f"serving_decision_k{k}.osgr")
+    shutil.copy(path, os.path.join(serve_dir, "pcaa.osgr"))
+    pcaa_meta = load_serving_artifact(path, device="cpu").meta
+    cal = dict(np.load(os.path.join(models, NAME, "calibration.npz")))
+    thr = pcaa_meta["log_threshold"]
+    log(f"phase 10a: export_serving --ks {k}: {proc.stdout.strip()}; {cli_s:.2f} s with the "
+        f"process's start; {os.path.getsize(path) / 1e6:.2f} MB; threshold {thr!r} (phase 3: "
+        f"{float(cal['log_threshold'])!r}) [{card}]")
+
+    x_test, labels = RadarCropDataset(SPLIT.TEST, gen, sequential=True).load_all()
+    starts = window_starts(labels, k)
+    requests = [starts[4 * r:4 * r + 4] for r in range(3)]  # phase 4's windows
+    windows = np.stack([np.stack([x_test[s:s + k] for s in req]) for req in requests])
+    np.save(os.path.join(serve_dir, "windows.npy"), windows)
+
+    # --- 10b. ORCED: export in process, statistics against orced_inference -------
+    orced_src = os.path.join(WORK, "models_orced_src")
+    steps = {}
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            steps[name] = time.perf_counter() - t0
+            return out
+        return call
+
+    # the trace (and the weights' move to the host) and the write, timed apart
+    real = serving._export, serving._write_artifact
+    serving._export, serving._write_artifact = timed("trace", real[0]), timed("write", real[1])
+    reset_infer_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        path, orced_meta = export_orced_decision(ORCED_NAME, models_path=orced_src,
+                                                 generate_dataset=False, device="cuda")
+    finally:
+        serving._export, serving._write_artifact = real
+    export_s = time.perf_counter() - t0
+    export_launches = infer_counts()
+    shutil.copy(path, os.path.join(serve_dir, "orced.osgr"))
+    log(f"phase 10b: export_orced_decision {export_s:.2f} s: the trace and the weights' move to "
+        f"the host {steps['trace']:.2f} s, the write {steps['write']:.2f} s, the rest (set-up, "
+        f"the train pass at batch {ORCED_B}, launches (PointNet, Chamfer) {export_launches}) "
+        f"{export_s - steps['trace'] - steps['write']:.2f} s; "
+        f"{os.path.getsize(path) / 1e6:.1f} MB; ops {orced_meta['ops']} [{card}]")
+    stats_models = os.path.join(WORK, "models_orced_stats")
+    shutil.copytree(os.path.join(orced_src, ORCED_NAME), os.path.join(stats_models, ORCED_NAME))
+    reset_infer_counts()
+    orced_inference([ORCED_NAME], device="cuda", models_path=stats_models,
+                    figures_path=os.path.join(WORK, "fig_orced_stats"), generate_dataset=False,
+                    batch_size=ORCED_B, dump_calibration=True, confusion_png=False)
+    stats_launches = infer_counts()
+    ocal = dict(np.load(os.path.join(stats_models, ORCED_NAME, "orced_calibration.npz")))
+    gap = 0.0
+    for key in ("means_z", "stds_z", "thresholds_re"):
+        np.testing.assert_allclose(np.asarray(orced_meta[key]), ocal[key], rtol=1e-6, atol=0)
+        gap = max(gap, float(np.max(np.abs(np.asarray(orced_meta[key]) - ocal[key])
+                                    / np.maximum(np.abs(ocal[key]), 1e-300))))
+    log(f"phase 10b: the artifact's class statistics equal orced_inference(dump_calibration="
+        f"True)'s at seed 0 within {gap:.3e} relative (rtol 1e-6)")
+    x_crops, _ = RadarCropDataset(SPLIT.TEST, gen).load_all()
+    crops = x_crops[:3 * SERVE_CROPS].reshape((3, SERVE_CROPS) + x_crops.shape[1:])
+    eps = np.random.default_rng(SEED + 11).standard_normal(
+        (3, SERVE_CROPS, orced_meta["latent_dim"])).astype(np.float32)
+    np.save(os.path.join(serve_dir, "crops.npy"), crops)
+    np.save(os.path.join(serve_dir, "eps.npy"), eps)
+
+    # --- the fresh process ---------------------------------------------------------
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py"),
+                           "--serve-artifacts", serve_dir], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    fresh_s = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(line)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    with open(os.path.join(serve_dir, "served.json")) as f:
+        served = json.load(f)
+    log(f"phase 10: the fresh process took {fresh_s:.2f} s with its start")
+
+    # PCAA: the in-process decisions on the same windows at the artifact's threshold
+    _, encoder, means = pcaa_inference_setup(NAME, VARIATION.V4, device="cuda",
+                                             models_path=models, generate_dataset=False)
+    decide = make_pcaa_decision_fn(encoder, pcaa_meta["n_labels"], k)
+    in_process = sorted(serve_ms_of(
+        lambda r: [t.cpu() for t in decide(means, thr, torch.from_numpy(windows[r]).cuda())], 3))
+    exempt = 0
+    for r, req in enumerate(requests):
+        want = [t.cpu().numpy() for t in decide(means, thr, torch.from_numpy(windows[r]).cuda())]
+        edge = np.array([(np.abs(cal["test_ll"][s:s + k] - thr) < KNIFE_EDGE).any()
+                         for s in req])
+        got = [np.asarray(a) for a in served["pcaa"]["answers"][r]]
+        for g, w in zip(got, want):
+            assert ((g == w) | edge).all(), (r, g, w)
+        exempt += int(edge.sum())
+    cpu = [np.asarray(a) for a in served["pcaa_cpu"]["answer"]]
+    edge = np.array([(np.abs(cal["test_ll"][s:s + k] - thr) < KNIFE_EDGE).any()
+                     for s in requests[0]])
+    for g, w in zip(cpu, served["pcaa"]["answers"][0]):
+        assert ((g == np.asarray(w)) | edge).all(), (g, w)
+    pcaa_launches = served["pcaa"]["launches"]
+    assert pcaa_launches == [3, 0], pcaa_launches
+    assert served["pcaa_cpu"]["launches"] == [0, 0]
+    log(f"phase 10a: the artifact's decisions and counts equal make_pcaa_decision_fn's "
+        f"({exempt} knife-edge windows exempt); loaded on the CPU in "
+        f"{served['pcaa_cpu']['load_s']:.2f} s, the first request again in "
+        f"{served['pcaa_cpu']['ms']:.1f} ms, the same decisions; card ms per request "
+        f"{[round(t, 2) for t in served['pcaa']['ms']]} through the artifact (fresh process) "
+        f"against {[round(t, 2) for t in serve_ms]} in process (phase 4); warm, the median "
+        f"of {SERVE_WARM_CALLS} calls: {served['pcaa']['warm_ms']:.2f} ms through the "
+        f"artifact, {in_process[len(in_process) // 2]:.2f} ms in process; load "
+        f"{served['pcaa']['load_s']:.2f} s, again after the ORCED artifact's "
+        f"{served['pcaa']['reload_s']:.2f} s [{card}]")
+
+    # ORCED: make_orced_forward_fn + orced_decide_host with the artifact's statistics
+    _, e, d = orced_inference_setup(ORCED_NAME, device="cuda", models_path=orced_src,
+                                    generate_dataset=False)
+    forward = make_orced_forward_fn(e, d)
+    stat_args = (orced_meta["means_z"], orced_meta["stds_z"], orced_meta["thresholds_re"],
+                 orced_meta["n_labels"])
+    in_process = sorted(serve_ms_of(lambda r: orced_decide_host(
+        *forward(torch.from_numpy(crops[r]).cuda(), torch.from_numpy(eps[r]).cuda()),
+        *stat_args), 3))
+    exempt = 0
+    for r in range(3):
+        preds, z, re = forward(torch.from_numpy(crops[r]).cuda(), torch.from_numpy(eps[r]).cuda())
+        want, _, _ = orced_decide_host(preds, z, re, *stat_args)
+        cal_like = dict(means_z=np.asarray(orced_meta["means_z"]),
+                        stds_z=np.asarray(orced_meta["stds_z"]),
+                        thresholds_re=np.asarray(orced_meta["thresholds_re"]),
+                        n_labels=orced_meta["n_labels"], test_preds=preds.cpu().numpy(),
+                        test_z=z.cpu().numpy(), test_re=re.cpu().numpy())
+        edge = orced_knife_edge(cal_like, "test")
+        got = np.asarray(served["orced"]["answers"][r][0])
+        assert got.shape == (SERVE_CROPS,) and ((got == want) | edge).all(), (r, got, want)
+        exempt += int(edge.sum())
+    orced_launches = served["orced"]["launches"]
+    assert orced_launches == [3, 3], orced_launches
+    log(f"phase 10b: the artifact's decisions equal make_orced_forward_fn + orced_decide_host's "
+        f"({exempt} knife-edge crops exempt); launches (PointNet, Chamfer) {orced_launches}; "
+        f"ms per request {[round(t, 2) for t in served['orced']['ms']]} through the artifact "
+        f"(fresh process; phase 7d's in-process figure above); warm, the median of "
+        f"{SERVE_WARM_CALLS} calls: {served['orced']['warm_ms']:.2f} ms through the artifact, "
+        f"{in_process[len(in_process) // 2]:.2f} ms in process; load "
+        f"{served['orced']['load_s']:.2f} s [{card}]")
+    del encoder, e, d, forward
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(
+        pointnet=(export_launches[0] + stats_launches[0] + pcaa_launches[0]
+                  + orced_launches[0]),
+        chamfer=export_launches[1] + stats_launches[1] + orced_launches[1],
+    )
+
+
+def driver_phase(card: str) -> dict:
+    """Phase 10c-e: ``run_orced``, ``run_pointsubsampling`` (the training
+    kernels on) and ``run_inference_scenarios`` on phase 8's raw tracks and
+    phase 9b's folders, each called again to skip what is done, then
+    ``collect_results`` → launches of each kernel."""
+    import io
+
+    import torch
+
+    from opensetgaitrecognition_pcaa_tpu_torch import config as port_config
+    from opensetgaitrecognition_pcaa_tpu_torch.config import SCENARIO
+    from opensetgaitrecognition_pcaa_tpu_torch.scripts import collect_results
+    from opensetgaitrecognition_pcaa_tpu_torch.scripts import run_inference_scenarios
+    from opensetgaitrecognition_pcaa_tpu_torch.scripts import run_orced
+    from opensetgaitrecognition_pcaa_tpu_torch.scripts import run_pointsubsampling as rps
+    from opensetgaitrecognition_pcaa_tpu_torch.train.run_folder import module_path
+
+    raw = os.path.join(WORK, "raw")
+    models = os.path.join(WORK, "models_drivers")
+
+    def call(main, argv, module=None) -> dict:
+        """One driver call → its seconds, output, split writes and launches."""
+        writes = []
+        real = module.generate_splits if module else None
+        if module:
+            module.generate_splits = lambda **kw: writes.append(kw["nmax_points"]) or real(**kw)
+        reset_infer_counts()
+        reset_train_counts()
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                main(argv)
+        finally:
+            if module:
+                module.generate_splits = real
+        torch.cuda.synchronize()
+        return dict(s=time.perf_counter() - t0, text=buf.getvalue(), writes=writes,
+                    infer=infer_counts(), train=train_counts())
+
+    # --- 10c. run_orced ------------------------------------------------------------------
+    argv = ["--data-path", raw, "--gen-data-path", os.path.join(WORK, "gen_drivers"),
+            "--models-path", models, "--n-training-classes", str(N_SEEN), "--n-tests", "1",
+            "--epochs", "1"]
+    name = f"ORCED_.{N_SEEN}.1"
+    fresh, again = call(run_orced.main, argv, run_orced), call(run_orced.main, argv, run_orced)
+    assert f"=== training {name} ===" in fresh["text"], fresh["text"]
+    assert os.path.exists(os.path.join(models, name, "run_complete.json"))
+    assert f"=== skipping completed {name} ===" in again["text"]
+    assert fresh["writes"] == [150] and again["writes"] == []
+    assert "=== training" not in again["text"] and again["train"] == (0, 0, 0)
+    acc = [line for line in fresh["text"].splitlines() if "best_valid_acc=" in line]
+    log(f"phase 10c: run_orced trained {name} (1 epoch) in {fresh['s']:.2f} s with the splits' "
+        f"write and the run folder; {acc}; the second call skipped it, wrote no splits and "
+        f"took {again['s']:.3f} s [{card}]")
+
+    # --- 10d. run_pointsubsampling, the training kernels on ----------------------------
+    argv = ["--data-path", raw, "--gen-data-path", os.path.join(WORK, "gen_points"),
+            "--models-path", models, "--figures-path", os.path.join(WORK, "fig_points"),
+            "--n-training-classes", str(N_SEEN), "--n-tests", "1", "--n-points-subs", "50",
+            "150", "--epochs", "1", "--ks", "1", "6"]
+    names = [f"PCAA_npts_V4_{n}.{N_SEEN}.1" for n in (50, 150)]
+    rps.default_config = lambda **kw: port_config.default_config(
+        FUSED_POINTNET=True, FUSED_ADAM=True, **kw)
+    try:
+        fresh = call(rps.main, argv, rps)
+        assert fresh["writes"] == [50, 150], fresh["writes"]
+        assert all(f"=== training {n} ===" in fresh["text"] for n in names), fresh["text"]
+        for n in names:
+            for k in (1, 6):
+                with open(os.path.join(models, n, f"naive_seq_log_{k}.json")) as f:
+                    assert np.isfinite(json.load(f)["f1_micro"]), (n, k)
+        assert all(c > 0 for c in fresh["train"]) and fresh["infer"][0] > 0, fresh
+        e_file = module_path(os.path.join(models, names[0]), names[0], "E")
+        mtime = os.stat(e_file).st_mtime_ns
+        os.remove(os.path.join(models, names[0], "naive_seq_log_6.json"))
+        rescore = call(rps.main, argv, rps)
+        assert f"=== re-running inference for {names[0]} ===" in rescore["text"]
+        assert f"=== skipping completed {names[1]} ===" in rescore["text"]
+        assert "=== training" not in rescore["text"] and rescore["train"] == (0, 0, 0)
+        assert rescore["writes"] == [50] and rescore["infer"][0] > 0
+        assert os.stat(e_file).st_mtime_ns == mtime
+        assert os.path.exists(os.path.join(models, names[0], "naive_seq_log_6.json"))
+        skip = call(rps.main, argv, rps)
+        assert all(f"=== skipping completed {n} ===" in skip["text"] for n in names)
+        assert skip["writes"] == [] and skip["infer"] == (0, 0) and skip["train"] == (0, 0, 0)
+    finally:
+        rps.default_config = port_config.default_config
+    f1 = {n: [round(json.load(open(os.path.join(models, n, f"naive_seq_log_{k}.json")))
+                    ["f1_micro"], 4) for k in (1, 6)] for n in names}
+    log(f"phase 10d: run_pointsubsampling (kernels on) trained and scored {names} in "
+        f"{fresh['s']:.2f} s: launches (layer, pool, adam) {fresh['train']}, (PointNet, "
+        f"Chamfer) {fresh['infer']}, f1_micro at ks 1, 6 {f1}; with one log deleted it "
+        f"re-scored {names[0]} without training in {rescore['s']:.2f} s ({rescore['infer'][0]} "
+        f"launches, its E file untouched); a third call skipped both in {skip['s']:.3f} s "
+        f"[{card}]")
+
+    # --- 10e. run_inference_scenarios over phase 9b's folders, then collect_results ------
+    abl_models = os.path.join(WORK, "models_ablation_kernel")
+    abl_names = sorted(os.listdir(abl_models))
+    argv = ["--data-path", raw, "--models-path", abl_models, "--figures-path",
+            os.path.join(WORK, "fig_scenarios"), "--model-names", *abl_names, "--ks", "6", "1"]
+    scen = call(run_inference_scenarios.main, argv)
+    assert scen["infer"][0] > 0, scen
+    f1 = {}
+    for n in abl_names:
+        files = set(os.listdir(os.path.join(abl_models, n)))
+        for s in SCENARIO:
+            for k in (6, 1):
+                suffix = f"{k}_scenarios{s.value}"
+                want = {f"naive_seq_log_{suffix}.json", f"final_preds_{suffix}.npy",
+                        f"final_labels_{suffix}.npy"}
+                assert want <= files, (n, want - files)
+                with open(os.path.join(abl_models, n, f"naive_seq_log_{suffix}.json")) as f:
+                    log_ = json.load(f)
+                assert all(np.isfinite(log_[m]) for m in ("f1_micro", "f1_macro")), (n, suffix)
+                f1.setdefault(n.split(".")[0][-2:], []).append(round(log_["f1_micro"], 3))
+    rows = collect_results.collect(abl_models)
+    assert {r["run"] for r in rows} == set(abl_names), rows
+    table = collect_results.to_markdown(rows)
+    log(f"phase 10e: run_inference_scenarios over {len(abl_names)} folders x 3 scenarios, ks "
+        f"6 1, in {scen['s']:.2f} s (splits written on the first pass; {scen['infer'][0]} "
+        f"PointNet launches); f1_micro per scenario and k {f1}; collect_results: "
+        f"{len(rows)} rows, {table.count(chr(10))} lines [{card}]")
+    return dict(layer=fresh["train"][0], pool=fresh["train"][1], adam=fresh["train"][2],
+                infer=fresh["infer"][0] + rescore["infer"][0] + scen["infer"][0])
+
+
+def serving_driver_phase(card: str, serve_ms: list) -> dict:
+    """Phase 10 → launches of each kernel on its paths."""
+    t0 = time.perf_counter()
+    art = artifact_phase(card, serve_ms)
+    drv = driver_phase(card)
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s [{card}]")
+    return dict(infer=art["pointnet"] + drv["infer"], chamfer=art["chamfer"],
+                layer=drv["layer"], pool=drv["pool"], adam=drv["adam"])
+
+
 def card_name() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -1675,6 +2122,7 @@ def codec_timing() -> int:
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1683,6 +2131,8 @@ def main() -> int:
         return chamfer_timing_only()
     if sys.argv[1:] == ["--codec-timing"]:
         return codec_timing()
+    if sys.argv[1:2] == ["--serve-artifacts"]:
+        return serve_artifacts(sys.argv[2])
     from opensetgaitrecognition_pcaa_tpu_torch.config import SPLIT, VARIATION, Config
     from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import RadarCropDataset
     from opensetgaitrecognition_pcaa_tpu_torch.infer.common import ieee_f32
@@ -1904,6 +2354,13 @@ def main() -> int:
     for k in ("layer", "pool", "adam"):
         train_launches[k] += ablation_launches[k]
 
+    # --- 10. the serving artifacts, the remaining drivers ------------------------------
+    serving_launches = serving_driver_phase(card, serve_ms)
+    main_launches += serving_launches["infer"]
+    orced_launches["chamfer"] += serving_launches["chamfer"]
+    for k in ("layer", "pool", "adam"):
+        train_launches[k] += serving_launches[k]
+
     checks["infer"] = dict(err=max_err, ms=pn_ms["kernel"], plain_ms=pn_ms["plain"],
                            library_ms=None, **pn_bound)
     src = "opensetgaitrecognition_pcaa_tpu_torch/csrc/"
@@ -1929,6 +2386,7 @@ def main() -> int:
          "bound_route": c["bound_route"]}
         for name, source, replaces, launches, c in kernels
     ]}
+    log(f"chip_smoke: phases 1-10 in {time.perf_counter() - t_start:.1f} s [{card}]")
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -13,11 +13,16 @@ Port of ``opensetgaitrecognition_pcaa_tpu/infer/fast_encoder.py:31-167``:
 The TCN stays ``F.conv1d`` and the heads stay ``torch.matmul``, as the JAX
 package leaves both to XLA. ``use_kernel=False`` takes the plain PointNet
 version on the card too, for comparison.
+
+``encoder_eval`` and ``orced_encoder_eval`` are the forwards without an
+autograd mode of their own, with the PointNet stage a parameter:
+``torch.export`` traces them with the custom op
+(``ops/pointnet_infer.py::pointnet_pool_op``) into a serving artifact.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Callable, Dict, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -32,12 +37,19 @@ from opensetgaitrecognition_pcaa_tpu_torch.ops.pointnet_infer import (
 )
 
 
+# the PointNet stage: (B, T, N, C) and the folded stack -> (B, T, D)
+Pool = Callable[[torch.Tensor, Dict[str, torch.Tensor]], torch.Tensor]
+
+
+def _pool(use_kernel: bool) -> Pool:
+    return pointnet_pool_infer if use_kernel else pointnet_pool_ref
+
+
 def _backbone_eval(encoder: Union[CGEncoder, ORCEDEncoder], x: torch.Tensor,
-                   use_kernel: bool) -> torch.Tensor:
+                   pool: Pool) -> torch.Tensor:
     """``(B, T, N, C) -> (B, filters[-1])`` with BatchNorm folded."""
     backbone = encoder.backbone
     folded = folded_pointnet_params(backbone.pointnet)
-    pool = pointnet_pool_infer if use_kernel else pointnet_pool_ref
     h = pool(x.float().contiguous(), folded)  # (B, T, D)
 
     h = h.transpose(1, 2)  # (B, D, T) for conv1d
@@ -58,7 +70,12 @@ def _backbone_eval(encoder: Union[CGEncoder, ORCEDEncoder], x: torch.Tensor,
 @torch.inference_mode()
 def fused_encoder_apply(encoder: CGEncoder, x: torch.Tensor, *, use_kernel: bool = True):
     """Eval-mode ``CGEncoder`` forward → ``(logits, sup_fv)``."""
-    feats = _backbone_eval(encoder, x, use_kernel)
+    return encoder_eval(encoder, x, _pool(use_kernel))
+
+
+def encoder_eval(encoder: CGEncoder, x: torch.Tensor, pool: Pool):
+    """``fused_encoder_apply`` with the PointNet stage ``pool``."""
+    feats = _backbone_eval(encoder, x, pool)
 
     def dense_elu(layer, h):
         return F.elu(torch.matmul(h, layer.weight.t()) + layer.bias)
@@ -80,7 +97,14 @@ def fused_orced_encoder_apply(encoder: ORCEDEncoder, x: torch.Tensor, *,
     The reparametrization samples in eval too: ``eps`` ``(B, latent)`` is
     used as given, else drawn from ``generator`` on ``x``'s device.
     """
-    feats = _backbone_eval(encoder, x, use_kernel)
+    return orced_encoder_eval(encoder, x, _pool(use_kernel), eps=eps, generator=generator)
+
+
+def orced_encoder_eval(encoder: ORCEDEncoder, x: torch.Tensor, pool: Pool, *,
+                       eps: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None):
+    """``fused_orced_encoder_apply`` with the PointNet stage ``pool``."""
+    feats = _backbone_eval(encoder, x, pool)
 
     def dense(layer, h):
         return torch.matmul(h, layer.weight.t()) + layer.bias

@@ -29,6 +29,11 @@ argmins are recomputed (``torch.argmin`` takes the first index on ties, as
 ``jnp.argmin`` does) and each nearest pair contributes ``2(y − x)``
 through ``scatter_add_``. Without a gradient to record, the forward skips
 the Function.
+
+``seq_chamfer_op`` is ``seq_chamfer_kernel(..., avg_out=False)`` as the
+custom op ``osgr_torch::seq_chamfer``, which ``torch.export`` records as one
+node of a serving artifact's graph: it dispatches by device as the wrapper
+does, and has no gradient.
 """
 
 from __future__ import annotations
@@ -244,3 +249,16 @@ def seq_chamfer_kernel(preds: torch.Tensor, gts: torch.Tensor, avg_out: bool = T
 
 # Kernel launches since the last reset; the plain path does not count.
 seq_chamfer_kernel.launches = 0
+
+
+@torch.library.custom_op("osgr_torch::seq_chamfer", mutates_args=())
+def seq_chamfer_op(preds: torch.Tensor, gts: torch.Tensor) -> torch.Tensor:
+    """Per-sample Chamfer ``(B,)``: ``seq_chamfer_kernel(preds, gts,
+    avg_out=False)`` as a custom op. A CUDA tensor launches the kernel
+    (counted) or raises; a CPU tensor takes the plain version."""
+    return seq_chamfer_kernel(preds.contiguous(), gts.contiguous(), avg_out=False)
+
+
+@seq_chamfer_op.register_fake
+def _(preds: torch.Tensor, gts: torch.Tensor) -> torch.Tensor:
+    return preds.new_empty((preds.shape[0],))

@@ -7,6 +7,11 @@ folds into one ``W', b'`` and the stack becomes 4 x (matmul -> + b' -> ELU)
 followed by the mean over the points of each frame:
 ``(B, T, N, C) -> (B, T, D)``.
 
+``pointnet_pool_infer_op`` is the same function as the custom op
+``osgr_torch::pointnet_pool_infer``, which ``torch.export`` records as one
+node of a serving artifact's graph (a ctypes call cannot be traced): it
+dispatches as the wrapper does, by the device of its tensors.
+
 ``pointnet_pool_infer`` launches ``csrc/pointnet_infer.cu`` for a CUDA
 tensor and raises on anything the kernel does not take; for a CPU tensor it
 computes ``pointnet_pool_ref``, the plain version that the tests and
@@ -27,7 +32,7 @@ kernel walks the batch, and slices the output back to D.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +47,8 @@ _GROUP = 16  # points per partial row of the pool: the kernel's m16 row tile
 _PASS_ROWS = 1_310_720
 _PASS_FLOATS = _PASS_ROWS * 1024
 _WIDTHS = ("w1", "w2", "w3", "w4")
+# the folded stack in the order the custom op takes it as a list
+FOLDED_KEYS = ("w1", "b1", "w2", "b2", "w3", "b3", "w4", "b4")
 
 
 def fold_batchnorm(
@@ -191,3 +198,23 @@ def pointnet_pool_infer(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> tor
 
 # Kernel launches since the last reset; the plain path does not count.
 pointnet_pool_infer.launches = 0
+
+
+@torch.library.custom_op("osgr_torch::pointnet_pool_infer", mutates_args=())
+def pointnet_pool_infer_op(x: torch.Tensor, weights: List[torch.Tensor]) -> torch.Tensor:
+    """``pointnet_pool_infer`` as a custom op: ``weights`` is the folded
+    stack as a list in ``FOLDED_KEYS`` order (a schema takes no dict). A
+    CUDA tensor launches the kernel (counted) or raises; a CPU tensor takes
+    the plain version."""
+    folded = {k: w.contiguous() for k, w in zip(FOLDED_KEYS, weights)}
+    return pointnet_pool_infer(x.contiguous(), folded)
+
+
+@pointnet_pool_infer_op.register_fake
+def _(x: torch.Tensor, weights: List[torch.Tensor]) -> torch.Tensor:
+    return x.new_empty((x.shape[0], x.shape[1], weights[-2].shape[1]))
+
+
+def pointnet_pool_op(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """``pointnet_pool_infer`` through the custom op, for a traced forward."""
+    return pointnet_pool_infer_op(x, [folded[k] for k in FOLDED_KEYS])

@@ -75,8 +75,9 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
-    args = _parser().parse_args(argv)
+def check_ported(args: argparse.Namespace) -> None:
+    """Raise ``NotImplementedError`` for a JAX driver option that the port
+    does not have: ``--grid`` and the bf16 options."""
     if args.grid:
         raise NotImplementedError(
             "--grid (lockstep multi-split training) is not ported: ROADMAP.md Queue 1 item 11"
@@ -85,6 +86,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         raise NotImplementedError(
             "the bf16 options are not ported: ROADMAP.md Queue 1 item 10"
         )
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    args = _parser().parse_args(argv)
+    check_ported(args)
     variations = [VARIATION(v) for v in args.variants]
 
     base_cfg = default_config(

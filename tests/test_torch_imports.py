@@ -1,7 +1,9 @@
 """The port runs where JAX, flax, msgpack, sklearn and matplotlib are not
-installed, and it stands apart from the JAX package: importing every one
-of its modules, or every module that ``chip_smoke.py`` imports (at its top
-or inside its functions), loads none of them."""
+installed, and it stands apart from the JAX package and the repository's
+root ``scripts/``: importing every one of its modules (the serving
+artifact's loader and the command-line drivers among them), or every
+module that ``chip_smoke.py`` imports (at its top or inside its
+functions), loads none of them."""
 
 import subprocess
 import sys
@@ -10,7 +12,7 @@ from pathlib import Path
 # top-level names; the port's own name starts with the JAX package's, so
 # names are compared whole, never as prefixes
 FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "sklearn", "matplotlib",
-             "opensetgaitrecognition_pcaa_tpu")
+             "opensetgaitrecognition_pcaa_tpu", "scripts")
 
 _PORT = """
 import importlib, pkgutil
@@ -33,28 +35,40 @@ _REPORT = """
 import sys
 for name in names:
     importlib.import_module(name)
-print(len(names))
+print(",".join(names))
 print(",".join(sorted({m.split(".")[0] for m in sys.modules})))
 """
+# the serving artifact's loader and the command-line drivers, each imported
+# by the walk over the port
+_ENTRY_MODULES = tuple(
+    "opensetgaitrecognition_pcaa_tpu_torch." + m for m in (
+        "infer.serving", "scripts.run_pcaa_ablation", "scripts.run_orced",
+        "scripts.run_pointsubsampling", "scripts.run_inference_scenarios",
+        "scripts.export_serving", "scripts.collect_results",
+    )
+)
 
 
-def _loaded(script: str, min_modules: int) -> set:
+def _loaded(script: str, min_modules: int, required=()) -> set:
     """Run ``script`` in a fresh interpreter → the top-level names in
-    ``sys.modules`` after it imported its ``names``."""
+    ``sys.modules`` after it imported its ``names``, which include
+    ``required``."""
     root = Path(__file__).resolve().parents[1]
     proc = subprocess.run(
         [sys.executable, "-c", script + _REPORT], cwd=root, capture_output=True, text=True,
         check=True,
     )
-    n_modules, loaded = proc.stdout.strip().splitlines()
-    assert int(n_modules) >= min_modules
+    names, loaded = proc.stdout.strip().splitlines()
+    names = names.split(",")
+    assert len(names) >= min_modules
+    assert not set(required) - set(names), sorted(set(required) - set(names))
     loaded = set(loaded.split(","))
     assert "torch" in loaded and "opensetgaitrecognition_pcaa_tpu_torch" in loaded
     return loaded
 
 
 def test_port_imports_no_jax_stack():
-    loaded = _loaded(_PORT, 42)
+    loaded = _loaded(_PORT, 47, _ENTRY_MODULES)
     assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))
 
 

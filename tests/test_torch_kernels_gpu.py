@@ -517,3 +517,130 @@ def test_chamfer_raises_instead_of_falling_back():
         ck.seq_chamfer_kernel(preds.transpose(1, 2), gts.transpose(1, 2))
     with pytest.raises(ValueError, match="is on cpu"):
         ck.seq_chamfer_kernel(preds, gts.cpu())
+
+
+# --- the custom ops and the serving artifact ------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["pointnet", "chamfer"])
+def test_op_equals_its_wrapper_on_the_card(which):
+    """Each custom op launches its kernel once through the wrapper, with
+    the wrapper's bits."""
+    _needs_card()
+    rng = np.random.default_rng(20)
+    if which == "pointnet":
+        x = torch.from_numpy(rng.normal(size=(3, 5, 37, 4)).astype(np.float32)).cuda()
+        folded = _folded(rng, 4, 64, "cuda")
+        want = pn.pointnet_pool_infer(x, folded)
+        before = pn.pointnet_pool_infer.launches
+        got = torch.ops.osgr_torch.pointnet_pool_infer(x, [folded[k] for k in pn.FOLDED_KEYS])
+        launches = pn.pointnet_pool_infer.launches - before
+    else:
+        preds, gts = _clouds(rng, 3, 5, 37, 41)
+        want = ck.seq_chamfer_kernel(preds, gts, avg_out=False)
+        before = ck.seq_chamfer_kernel.launches
+        got = torch.ops.osgr_torch.seq_chamfer(preds, gts)
+        launches = ck.seq_chamfer_kernel.launches - before
+    torch.cuda.synchronize()
+    assert launches == 1 and got.is_cuda and torch.equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def tiny_runs(tmp_path_factory):
+    """A V4 and an ORCED run folder from seeded port inits over the splits
+    of a 5-subject synthetic raw set (NMAX 24, NSTEPS 8) → (models, gen)."""
+    from opensetgaitrecognition_pcaa_tpu_torch.config import Config
+    from opensetgaitrecognition_pcaa_tpu_torch.convert import decoder_variables, encoder_variables
+    from opensetgaitrecognition_pcaa_tpu_torch.data.splits import generate_splits
+    from opensetgaitrecognition_pcaa_tpu_torch.data.synthetic import (
+        generate_synthetic_raw_dataset,
+    )
+    from opensetgaitrecognition_pcaa_tpu_torch.models.orced import ORCEDDecoder, ORCEDEncoder
+    from opensetgaitrecognition_pcaa_tpu_torch.models.pcaa import CGEncoder
+    from opensetgaitrecognition_pcaa_tpu_torch.train.run_folder import module_path, save_params
+
+    _needs_card()
+    root = tmp_path_factory.mktemp("gpu_serving")
+    raw, gen, models = str(root / "raw"), str(root / "gen"), str(root / "models")
+    generate_synthetic_raw_dataset(raw, n_subjects=5, tracks_per_scenario=10,
+                                   frames_per_track=(40, 56), seed=7)
+    generate_splits(data_path=raw, gen_data_path=gen, train_classes=[0, 1, 2], seed=0,
+                    nmax_points=24, nsteps=8, crop_step=4, n_subjects=5, verbose=False)
+    dims = dict(POINTNET_OUT_DIM=32, DTC_FILTERS=(8, 8, 8, 8, 8, 16), SUP_LATENT_DIM=8)
+    cfg = Config(GEN_DATA_PATH=gen, MODELS_PATH=models, TRAIN_CLASSES=(0, 1, 2), NMAX=24,
+                 NSTEPS=8, CROP_STEP=4, **dims)
+    enc_dims = dict(in_features=4, sup_latent_dim=8, pointnet_out_dim=32,
+                    dtc_filters=dims["DTC_FILTERS"])
+    gen_torch = torch.Generator().manual_seed(3)
+    for name, encoder in (
+        ("GPU_V4.3.1", CGEncoder(3, use_projection_head=True, generator=gen_torch, **enc_dims)),
+        ("ORCED_GPU.3.1", ORCEDEncoder(3, generator=gen_torch, **enc_dims)),
+    ):
+        run_dir = f"{models}/{name}"
+        cfg.replace(MODEL_NAME=name).save(f"{run_dir}/config.json")
+        save_params(encoder_variables(encoder.state_dict()), module_path(run_dir, name, "E"))
+    means = np.random.default_rng(3).normal(0, 0.3, (3, 8)).astype(np.float32)
+    np.save(f"{models}/GPU_V4.3.1/discriminator_means.npy", means)
+    decoder = ORCEDDecoder(8, 8, 24, 4, generator=gen_torch)
+    save_params(decoder_variables(decoder.state_dict()),
+                module_path(f"{models}/ORCED_GPU.3.1", "ORCED_GPU.3.1", "G"))
+    return models, gen
+
+
+@pytest.mark.gpu
+def test_pcaa_artifact_exported_on_the_card(tiny_runs):
+    """Exported on the card, the artifact decides as the in-process
+    function does there, one kernel launch a request; loaded on the CPU it
+    decides as the in-process function does on the CPU."""
+    from opensetgaitrecognition_pcaa_tpu_torch.config import SPLIT, VARIATION
+    from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import RadarCropDataset
+    from opensetgaitrecognition_pcaa_tpu_torch.infer import serving
+    from opensetgaitrecognition_pcaa_tpu_torch.infer.pcaa import pcaa_inference_setup
+
+    models, gen = tiny_runs
+    path, meta = serving.export_pcaa_decision("GPU_V4.3.1", 2, models_path=models,
+                                              generate_dataset=False, device="cuda")
+    x, _ = RadarCropDataset(SPLIT.TEST, gen, sequential=True).load_all()
+    windows = x[:10].reshape((5, 2) + x.shape[1:])
+    for device in ("cuda", "cpu"):
+        art = serving.load_serving_artifact(path, device=device)
+        _, encoder, means = pcaa_inference_setup("GPU_V4.3.1", VARIATION.V4, device=device,
+                                                 models_path=models, generate_dataset=False)
+        decide = serving.make_pcaa_decision_fn(encoder, meta["n_labels"], 2)
+        want = [t.cpu().numpy() for t in decide(means, meta["log_threshold"],
+                                                torch.from_numpy(windows).to(device))]
+        before = pn.pointnet_pool_infer.launches
+        got = art.decide(windows)
+        assert pn.pointnet_pool_infer.launches - before == (device == "cuda")
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.gpu
+def test_orced_artifact_exported_on_the_card(tiny_runs):
+    """The ORCED artifact launches the PointNet and Chamfer kernels once a
+    call on the card, with the in-process forward's bits."""
+    from opensetgaitrecognition_pcaa_tpu_torch.config import SPLIT
+    from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import RadarCropDataset
+    from opensetgaitrecognition_pcaa_tpu_torch.infer import serving
+    from opensetgaitrecognition_pcaa_tpu_torch.infer.orced import orced_inference_setup
+
+    models, gen = tiny_runs
+    path, _ = serving.export_orced_decision("ORCED_GPU.3.1", models_path=models,
+                                            generate_dataset=False, batch_size=16,
+                                            device="cuda")
+    art = serving.load_serving_artifact(path, device="cuda")
+    _, encoder, decoder = orced_inference_setup("ORCED_GPU.3.1", device="cuda",
+                                                models_path=models, generate_dataset=False)
+    x = RadarCropDataset(SPLIT.TEST, gen).load_all()[0][:6]
+    eps = np.random.default_rng(4).standard_normal((6, 8)).astype(np.float32)
+    want = serving.make_orced_forward_fn(encoder, decoder)(
+        torch.from_numpy(x).cuda(), torch.from_numpy(eps).cuda())
+    before = (pn.pointnet_pool_infer.launches, ck.seq_chamfer_kernel.launches)
+    got = art.call(x, eps)
+    torch.cuda.synchronize()
+    assert (pn.pointnet_pool_infer.launches - before[0],
+            ck.seq_chamfer_kernel.launches - before[1]) == (1, 1)
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g, w)
