@@ -107,7 +107,23 @@ with seeded random weights and seeded crop files. Phases:
       re-scores that run without training; a third call skips both;
    e. ``run_inference_scenarios`` scores phase 9b's four folders per
       scenario at ks 6 and 1 (the JAX driver's file names, finite F1);
-      ``collect_results`` lists every folder.
+      ``collect_results`` lists every folder;
+11. bf16 training (``COMPUTE_DTYPE="bfloat16"``, ``BF16_ADAM_NU``):
+   a. the bf16 layer kernel (+ its statistics), the bf16-input pool
+      kernel and the Adam kernel with m bf16 and with m and v bf16 against
+      their plain versions at the training shapes and at ragged and
+      padded ones (y within one bf16 rounding step, Adam bitwise), timed
+      plain, kernel, kernel, plain; the bf16 PointNet autograd Function
+      on the card against the same Function on the CPU at the published
+      widths (rtol 1e-2);
+   b. the full-width V4 step at B = 16 from one seeded state, f32, bf16
+      and bf16 + nu16 through the kernels and bf16 + nu16 plain: ms per
+      step, windows/s, device time by kind (torch.profiler, 3 warm
+      steps), the bf16 + nu16 losses through the kernels within 1e-2
+      relative of plain; the ORCED step at f32 and bf16 + nu16;
+   c. ``run_pcaa_ablation --compute-dtype bfloat16 --bf16-adam-nu``
+      (kernels on) trains V4 for one epoch on phase 8's raw tracks, and
+      ``pcaa_inference`` scores the folder through the inference kernel.
 
 It exits non-zero, with no result line, when there is no CUDA card or a
 phase fails. The line before the last is the per-kernel JSON record (its
@@ -115,24 +131,31 @@ phase fails. The line before the last is the per-kernel JSON record (its
 driven with the counts at 0: phases 3, 4, 6c, 7c, 7d, 8c, 9b and 10 (the
 ORCED export's calibration, the orced_inference it is held against, the
 fresh process's requests, the sequential scripts' scoring) for the PointNet
-inference kernel, 6b's kernel steps, 6c, 9a's first kernel steps, 9b's
-training, 9c's PCAA runs and 10d's training for the training kernels, 7c,
-7d, 8c and 10b for the Chamfer kernel; the Chamfer kernel's ``ms`` is its device
+inference kernel (and 11c), 6b's kernel steps, 6c, 9a's first kernel
+steps, 9b's training, 9c's PCAA runs and 10d's training for the f32
+training kernels, 11b's kernel steps and 11c's training for their bf16
+variants, 7c, 7d, 8c and 10b for the Chamfer kernel; the Chamfer kernel's ``ms`` is its device
 time per launch at (64, 30, 150, 4) from the CUDA graph, every other
 ``ms`` CUDA events around calls of the wrapper; ``bound_ms`` is the
 larger of the operations over 67 TFLOP/s and the bytes over 3.35 TB/s, the H100 SXM's
 published f32 and HBM3 peaks, except for the two PointNet layer kernels,
 which run three TF32 tensor-core passes per operation: for them both that
 f32 bound and the 3xTF32 bound (3 x operations over 495 TFLOP/s) are
-printed and the lower goes into ``bound_ms``, ``bound_route`` naming it;
-the layer kernel's times and bound are per launch, the mean of a step's
-four layers), the last ``{"ok": true, "device": {...}}``.
+printed and the lower goes into ``bound_ms``, ``bound_route`` naming it,
+and the bf16 layer kernel, whose operations are counted at the dense bf16
+peak, 989 TFLOP/s; the layer kernels' times and bounds are per launch,
+the mean of a step's four layers), the last ``{"ok": true, "device":
+{...}}``.
 Files go to ``build/chip_smoke/``.
 
 ``--serve-artifacts DIR`` is phase 10's fresh process.
 ``python3 chip_smoke.py --chamfer-timing`` builds only the Chamfer kernel
 and runs phase 7a's timing, for comparing trees of the port in one call;
 ``--codec-timing`` times the run-folder codec alone the same way.
+``--precision-gate`` runs the bf16 tiers' quality gate alone: V4 on a
+synthetic split, 3 seeds x 4 epochs each under f32, bf16 and bf16 + nu16
+(the kernels on), best valid accuracy and windows/s per seed and the
+paired deltas against f32 (``tools/gate_optimizer_quality.py``'s method).
 """
 
 import contextlib
@@ -204,7 +227,24 @@ P_EDGE = 1e-6  # latent score within this distance of 0.95
 # the bandwidth
 F32_FLOPS = 67e12
 TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12  # dense, on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
+# phase 11 (bf16 training): a bf16 kernel against its plain version rounds
+# at the same places and sums f32 in another order, so a stored bf16 value
+# may sit one rounding step (8 significant bits) away, and a y near zero
+# keeps the sum order's f32 error (atol 1e-4, the f32 kernel's bound);
+# bf16 kernel steps against bf16 plain steps: such flips move what
+# follows, through BatchNorm and the decoder (held at 10 times the f32
+# steps' LOSS_RTOL)
+BF16_STEP = dict(rtol=2.0**-7, atol=1e-4)
+BF16_LOSS_RTOL = 1e-2
+BF16_TIMED_STEPS = 4  # the first pays set-up; then 3 under torch.profiler
+BF16_NAME_BASE = "SMOKE_BF16_"
+# --precision-gate: V4 on a synthetic split, paired seeds (tools/
+# gate_optimizer_quality.py's method), f32 against the two bf16 tiers
+GATE_SEEDS, GATE_EPOCHS = 3, 4
+GATE_CONFIGS = {"f32": {}, "bf16": {"COMPUTE_DTYPE": "bfloat16"},
+                "bf16+nu16": {"COMPUTE_DTYPE": "bfloat16", "BF16_ADAM_NU": True}}
 
 
 def log(msg: str) -> None:
@@ -1229,7 +1269,7 @@ def _busy_ms(prof, steps: int) -> tuple:
             continue
         ms = e.device_time_total / 1e3 / steps
         low = e.key.lower()
-        group = ("layer_kernel" if "tf32x3" in low
+        group = ("layer_kernel" if "tf32x3" in low or "bf16mma" in low
                  else "pool_kernel" if "pool_kernel" in low or "stats_kernel" in low
                  else "adam_kernel" if "adam_kernel" in low
                  else "conv" if any(w in low for w in ("conv", "cudnn", "fprop", "dgrad", "wgrad"))
@@ -2059,6 +2099,469 @@ def serving_driver_phase(card: str, serve_ms: list) -> dict:
                 layer=drv["layer"], pool=drv["pool"], adam=drv["adam"])
 
 
+def bf16_counts() -> tuple:
+    """Launches of the bf16 variants: layer, pool, Adam (m bf16), Adam (m
+    and v bf16)."""
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import adam
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import pointnet_train as pt
+
+    return (pt.fused_layer.launches_bf16, pt.fused_pool.launches_bf16,
+            adam.adam_update_.launches_m16, adam.adam_update_.launches_mv16)
+
+
+def reset_bf16_counts() -> None:
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import adam
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import pointnet_train as pt
+
+    pt.fused_layer.launches_bf16 = pt.fused_pool.launches_bf16 = 0
+    adam.adam_update_.launches_m16 = adam.adam_update_.launches_mv16 = 0
+
+
+def check_bf16_kernels(card: str) -> dict:
+    """Phase 11a: the bf16 variants against their plain versions at the
+    training path's shapes and at ragged and padded ones, times in the
+    order plain, kernel, kernel, plain; the bf16 autograd Function on the
+    card against the same Function on the CPU. → per kernel dict(err, ms,
+    plain_ms, bound_ms, bound_by, library_ms)."""
+    import torch
+
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import adam
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import pointnet_train as pt
+
+    bf16 = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, device="cuda", generator=g) * scale + shift
+
+    def affine(c):
+        return torch.stack([randn(c, scale=0.3, shift=0.5), randn(c, scale=0.1, shift=0.5),
+                            randn(c, scale=0.3)]).contiguous()
+
+    rows = TRAIN_B * 30 * 150
+    out = {}
+    err, ms = 0.0, {"kernel": 0.0, "plain": 0.0}
+    flops = moved = 0
+    # the training widths, ragged rows, N = 1, then the widths the wrapper
+    # pads to multiples of 8: NFEATURES = 5 and POINTNET_OUT_DIM = 30
+    for n, c_in, c_out, timed in ((rows, 4, 512, True), (rows, 512, 512, True),
+                                  (rows, 512, 1024, True), (rows, 1024, 1024, True),
+                                  (2 * 3 * 37, 4, 512, False), (2 * 3 * 37, 512, 1024, False),
+                                  (2 * 3 * 1, 4, 512, False), (2 * 3 * 1, 512, 1024, False),
+                                  (rows, 5, 512, False), (2 * 3 * 37, 5, 15, False),
+                                  (2 * 3 * 37, 15, 15, False), (2 * 3 * 37, 15, 30, False),
+                                  (2 * 3 * 37, 30, 30, False)):
+        h = randn(n, c_in, scale=2.0, shift=0.5).to(bf16)
+        a = None if c_in in (4, 5) else affine(c_in)
+        w = randn(c_in, c_out, scale=c_in ** -0.5)
+        b = randn(c_out, scale=0.1)
+        before = pt.fused_layer.launches_bf16
+        got = pt.fused_layer(h, a, w, b)
+        torch.cuda.synchronize()
+        assert pt.fused_layer.launches_bf16 == before + 1, (n, c_in, c_out)
+        assert got[0].dtype == bf16 and tuple(got[0].shape) == (n, c_out)
+        want = pt.fused_layer_ref(h, a, w, b)
+        torch.testing.assert_close(got[0].float(), want[0].float(), **BF16_STEP)
+        for u, v in zip(got[1:], want[1:]):
+            torch.testing.assert_close(u, v, rtol=1e-4, atol=1e-4)
+        e = max(float((u.float() - v.float()).abs().max()) for u, v in zip(got, want))
+        err = max(err, e)
+        line = (f"phase 11a: bf16 layer kernel vs plain at ({n}, {c_in}->{c_out}): max |diff| "
+                f"{e:.3e}")
+        if timed:
+            t = alternate({"kernel": lambda: pt.fused_layer(h, a, w, b),
+                           "plain": lambda: pt.fused_layer_ref(h, a, w, b)},
+                          ("plain", "kernel", "kernel", "plain"), reps=5)
+            for k in ms:
+                ms[k] += t[k]
+            flops += 2 * n * c_in * c_out
+            moved += nbytes(h, w, b, *got) + (0 if a is None else nbytes(a))
+            line += f"; kernel {t['kernel']:.3f} ms, plain {t['plain']:.3f} ms [{card}]"
+        log(line)
+        del h, got, want
+    bms, by = bound(flops, moved, BF16_FLOPS)
+    # the record is per launch: the mean of the step's 4 layers
+    out["layer"] = dict(err=err, ms=ms["kernel"] / 4, plain_ms=ms["plain"] / 4, library_ms=None,
+                        bound_ms=bms / 4, bound_by=by, bound_route="bf16")
+    log(f"phase 11a: the 4 bf16 layers of a step: kernel {ms['kernel']:.3f} ms, plain "
+        f"{ms['plain']:.3f} ms (y within one bf16 step, mean and var rtol 1e-4, atol 1e-4); "
+        f"bound {bms:.3f} ms by {by} ({flops / 1e9:.1f} GFLOP at 989 TFLOP/s, "
+        f"{moved / 1e6:.1f} MB), {100 * bms / ms['kernel']:.1f}% of the kernel's time; per "
+        f"launch: kernel {ms['kernel'] / 4:.4f} ms, plain {ms['plain'] / 4:.4f} ms [{card}]")
+
+    err = 0.0
+    for frames, n in ((TRAIN_B * 30, 150), (2 * 3, 37)):
+        y = randn(frames, n, 1024, scale=2.0, shift=0.5).to(bf16)
+        a = affine(1024)
+        before = pt.fused_pool.launches_bf16
+        got = pt.fused_pool(y, a)
+        torch.cuda.synchronize()
+        assert pt.fused_pool.launches_bf16 == before + 1 and got.dtype == torch.float32
+        want = pt.fused_pool_ref(y, a)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        e = float((got - want).abs().max())
+        err = max(err, e)
+        log(f"phase 11a: bf16 pool kernel vs plain at ({frames}, {n}, 1024): max |diff| {e:.3e}")
+    y = randn(TRAIN_B * 30, 150, 1024, scale=2.0, shift=0.5).to(bf16)
+    t = alternate({"kernel": lambda: pt.fused_pool(y, a), "plain": lambda: pt.fused_pool_ref(y, a)},
+                  ("plain", "kernel", "kernel", "plain"), reps=5)
+    # per element: normalize (2 fma), ELU, sum, in f32 on the CUDA cores
+    bms, by = bound(6 * y.numel(), nbytes(y, a) + TRAIN_B * 30 * 1024 * 4)
+    out["pool"] = dict(err=err, ms=t["kernel"], plain_ms=t["plain"], bound_ms=bms, bound_by=by,
+                       bound_route="f32", library_ms=None)
+    log(f"phase 11a: bf16 pool at ({TRAIN_B * 30}, 150, 1024): kernel {t['kernel']:.3f} ms, "
+        f"plain {t['plain']:.3f} ms (rtol 1e-5, atol 1e-5); bound {bms:.4f} ms by {by} [{card}]")
+    del y
+
+    s1, s2 = adam.adam_scalars(3, 1e-4, 0.9, 0.99)
+    coeffs = dict(s1=s1, s2=s2, b1=0.9, b2=0.99, eps=1e-8)
+    for variant in ("m16", "mv16"):
+        counter = "launches_" + variant
+        for shape in ((2047, 1025), (9000, 18000)):  # 2,098,175 elements: n % 4 == 3
+            leaf = [randn(*shape, scale=1e-2), randn(*shape), randn(*shape, scale=1e-3).to(bf16),
+                    torch.rand(shape, device="cuda", generator=g) * 1e-4]
+            if variant == "mv16":
+                leaf[3] = leaf[3].to(bf16)
+            ref = [t.clone() for t in leaf]
+            before = getattr(adam.adam_update_, counter)
+            adam.adam_update_(*leaf, **coeffs)
+            torch.cuda.synchronize()
+            assert getattr(adam.adam_update_, counter) == before + 1
+            adam.adam_update_ref_(*ref, **coeffs)
+            for u, v in zip(leaf[1:], ref[1:]):
+                assert u.dtype == v.dtype and torch.equal(u, v), (variant, shape)
+            log(f"phase 11a: Adam ({variant}) kernel vs plain on a {shape} leaf: bitwise equal")
+        t = alternate({"kernel": lambda: adam.adam_update_(*leaf, **coeffs),
+                       "plain": lambda: adam.adam_update_ref_(*ref, **coeffs)},
+                      ("plain", "kernel", "kernel", "plain"), reps=5)
+        # per element 13 operations; reads g, w, m, v and writes w, m, v
+        moved = nbytes(*leaf) + nbytes(*leaf[1:])
+        bms, by = bound(13 * leaf[0].numel(), moved)
+        out["adam_" + variant] = dict(err=0.0, ms=t["kernel"], plain_ms=t["plain"], bound_ms=bms,
+                                      bound_by=by, bound_route="f32", library_ms=None)
+        log(f"phase 11a: Adam ({variant}) on the 9000 x 18000 leaf: kernel {t['kernel']:.3f} ms, "
+            f"plain {t['plain']:.3f} ms (bitwise); bound {bms:.3f} ms by {by} "
+            f"({moved / 1e9:.2f} GB) [{card}]")
+        del leaf, ref
+    torch.cuda.empty_cache()
+
+    # the bf16 autograd Function at the published widths on 2 x 30 frames:
+    # forward through the kernels and backward through cuBLAS's bf16 GEMMs
+    # on the card, against the same Function on the CPU (plain versions,
+    # f32 GEMMs of the bf16 values): rtol 1e-2, atol 1e-2 of each output's
+    # scale (a bias's: its layer's W gradient's), bf16 values one rounding
+    # step apart moving what follows
+    rng = np.random.default_rng(SEED + 11)
+    widths = ((4, 512), (512, 512), (512, 1024), (1024, 1024))
+    x = rng.normal(size=(2, 30, 150, 4)).astype(np.float32)
+    layers = [((rng.uniform(-1, 1, (a, c)) / np.sqrt(a)).astype(np.float32),
+               rng.uniform(-0.1, 0.1, c).astype(np.float32),
+               (1 + 0.2 * rng.normal(size=c)).astype(np.float32),
+               (0.1 * rng.normal(size=c)).astype(np.float32)) for a, c in widths]
+    cot = rng.normal(size=(2, 30, 1024)).astype(np.float32)
+    results = []
+    for device in ("cuda", "cpu"):
+        params = [[torch.tensor(a, device=device, requires_grad=True) for a in layer]
+                  for layer in layers]
+        xt = torch.tensor(x, device=device, requires_grad=True)
+        pooled, means, variances = pt.pointnet_pool_train(xt, params, bf16)
+        torch.sum(pooled * torch.from_numpy(cot).to(device)).backward()
+        results.append([t.detach().cpu() for t in [pooled, *means, *variances, xt.grad]
+                        + [p.grad for layer in params for p in layer]])
+    worst = 0.0
+    for i, (got, want) in enumerate(zip(*results)):
+        scale = float(want.abs().max())
+        if i >= 10 and (i - 10) % 4 == 1:
+            # a dense bias ahead of a train-mode BatchNorm: a zero gradient
+            # up to the rounding of a sum over the rows, held against the
+            # scale of its layer's W gradient
+            scale = float(results[1][i - 1].abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2 * scale + 1e-6, msg=str(i))
+        worst = max(worst, float((got - want).abs().max()) / max(scale, 1e-30))
+    log(f"phase 11a: the bf16 PointNet Function at (2, 30, 150, 4), widths 4-512-512-1024-1024: "
+        f"card (kernels, bf16 cuBLAS backward) vs CPU (plain): pooled, statistics and the 17 "
+        f"gradients within {worst:.3e} of their scale (bound rtol 1e-2, atol 1e-2 of the scale)")
+    return out
+
+
+def _timed_and_profiled(step_fn, n_timed: int) -> dict:
+    """``n_timed`` steps on the host clock (the first pays set-up), then 3
+    under torch.profiler → ms per step, losses, launch counts (f32 layer,
+    pool, Adam; bf16 layer, pool, Adam m16, Adam mv16) per step, device ms
+    a step and by kind, peak memory."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    r = dict(ms=[], losses=[], counts=[])
+
+    def run(i):
+        reset_train_counts()
+        reset_bf16_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step_fn(i)
+        torch.cuda.synchronize()
+        r["ms"].append(1e3 * (time.perf_counter() - t0))
+        r["counts"].append(train_counts() + bf16_counts())
+        r["losses"].append({k: float(v) for k, v in m.items()})
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(n_timed):
+        run(i)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(n_timed, n_timed + 3):
+            run(i)
+    r["busy"] = _busy_ms(prof, 3)
+    r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    r["warm_ms"] = sum(r["ms"][1:n_timed]) / (n_timed - 1)
+    return r
+
+
+def bf16_steps(card: str, gen: str) -> list:
+    """Phase 11b: the full-width V4 step at B = 16 from one seeded state on
+    phase 6's crops with injected noise: f32, bf16 and bf16 + nu16 through
+    the kernels, and bf16 + nu16 plain; then the ORCED step (no kernel) at
+    f32 and at bf16 + nu16 on the same crops with injected eps → the bf16
+    variants' launches in the kernel runs (layer, pool, Adam m16, Adam
+    mv16)."""
+    import torch
+
+    from opensetgaitrecognition_pcaa_tpu_torch.config import SPLIT, VARIATION
+    from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import (
+        RadarCropDataset,
+        epoch_batch_indices,
+    )
+    from opensetgaitrecognition_pcaa_tpu_torch.train.orced import (
+        build_orced,
+        make_orced_train_step,
+    )
+    from opensetgaitrecognition_pcaa_tpu_torch.train.pcaa import (
+        VARIANTS,
+        build_pcaa,
+        make_train_step,
+    )
+
+    x_np, y_np = RadarCropDataset(SPLIT.TRAIN, gen).load_all()
+    x, y = torch.from_numpy(x_np).cuda(), torch.from_numpy(y_np).cuda()
+    perm = torch.from_numpy(
+        epoch_batch_indices(len(x_np), TRAIN_B, shuffle=True, rng=np.random.default_rng(SEED))
+    ).long().cuda()
+    n = BF16_TIMED_STEPS + 3
+    assert len(perm) >= n, len(perm)
+    rng = np.random.default_rng(SEED + 12)
+    noise = (torch.from_numpy(rng.normal(size=(n, TRAIN_B, 32)).astype(np.float32)).cuda(),
+             torch.from_numpy(rng.uniform(size=(n, TRAIN_B, 1)).astype(np.float32)).cuda())
+    eps = torch.from_numpy(rng.normal(size=(n, TRAIN_B, 32)).astype(np.float32)).cuda()
+    bf16 = dict(COMPUTE_DTYPE="bfloat16")
+    nu16 = dict(COMPUTE_DTYPE="bfloat16", BF16_ADAM_NU=True)
+    # (f32 layer, pool, Adam; bf16 layer, pool, Adam m16, Adam mv16) per step
+    want = {"f32": (4, 1, 4, 0, 0, 0, 0), "bf16": (0, 0, 0, 4, 1, 4, 0),
+            "bf16+nu16": (0, 0, 0, 4, 1, 0, 4), "bf16+nu16 plain": (0,) * 7}
+    runs = {}
+    for name, flags, fused in (("f32", {}, True), ("bf16", bf16, True), ("bf16+nu16", nu16, True),
+                               ("bf16+nu16 plain", nu16, False)):
+        cfg = full_width(FUSED_POINTNET=fused, FUSED_ADAM=fused, **flags)
+        mods, state = build_pcaa(cfg, VARIANTS[VARIATION.V4], device="cuda")
+        step = make_train_step(mods, cfg)
+        n_params = sum(p.numel() for p in mods.parameters())
+
+        def step_fn(i, step=step, state=state):
+            return step(state, x[perm[i]], y[perm[i]], i, (noise[0][i], noise[1][i]))[1]
+
+        r = runs[name] = _timed_and_profiled(step_fn, BF16_TIMED_STEPS)
+        assert all(c == want[name] for c in r["counts"]), (name, r["counts"])
+        for m in r["losses"]:
+            assert all(np.isfinite(v) for v in m.values()), (name, m)
+        busy, groups = r["busy"]
+        log(f"phase 11b: V4 step {name} ({n_params / 1e6:.1f}M parameters, B = {TRAIN_B}): ms "
+            f"per step {[round(t, 2) for t in r['ms'][:BF16_TIMED_STEPS]]}, warm mean "
+            f"{r['warm_ms']:.2f} ms, {TRAIN_B / (r['warm_ms'] / 1e3):.1f} train windows/s, peak "
+            f"memory {r['peak_gb']:.2f} GB; device time {busy:.2f} ms a step (torch.profiler, 3 "
+            f"warm steps), by kind "
+            + ", ".join(f"{k} {v:.2f}" for k, v in sorted(groups.items(), key=lambda g: -g[1]))
+            + f"; launches per step {want[name]} [{card}]")
+        del mods, state, step, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    worst = 0.0
+    for i, (k, p) in enumerate(zip(runs["bf16+nu16"]["losses"], runs["bf16+nu16 plain"]["losses"])):
+        for key in ("rec_loss", "d_loss", "sup_loss", "tot_loss"):
+            gap = abs(k[key] - p[key]) / max(abs(p[key]), 1.0)
+            worst = max(worst, gap)
+            assert gap <= BF16_LOSS_RTOL, (i, key, k[key], p[key])
+    log(f"phase 11b: bf16 + nu16 losses kernel vs plain agree within {worst:.3e} (relative to "
+        f"max(|plain|, 1); bound {BF16_LOSS_RTOL}); first step rec_loss f32 "
+        f"{runs['f32']['losses'][0]['rec_loss']:.6f}, bf16 {runs['bf16']['losses'][0]['rec_loss']:.6f}, "
+        f"bf16 + nu16 {runs['bf16+nu16']['losses'][0]['rec_loss']:.6f}")
+    launches = [0, 0, 0, 0]
+    for name in ("bf16", "bf16+nu16"):
+        for c in runs[name]["counts"]:
+            launches = [a + b for a, b in zip(launches, c[3:])]
+
+    for name, flags in (("ORCED f32", {}), ("ORCED bf16+nu16", nu16)):
+        cfg = full_width(**flags)
+        mods, state = build_orced(cfg, device="cuda")
+        step = make_orced_train_step(mods, cfg)
+
+        def step_fn(i, step=step, state=state):
+            return step(state, x[perm[i]], y[perm[i]], 0.5, eps[i])[1]
+
+        r = runs[name] = _timed_and_profiled(step_fn, BF16_TIMED_STEPS)
+        assert all(c == (0,) * 7 for c in r["counts"]), (name, r["counts"])
+        for m in r["losses"]:
+            assert all(np.isfinite(v) for v in m.values()), (name, m)
+        busy, groups = r["busy"]
+        log(f"phase 11b: {name} step (B = {TRAIN_B}): ms per step "
+            f"{[round(t, 2) for t in r['ms'][:BF16_TIMED_STEPS]]}, warm mean {r['warm_ms']:.2f} "
+            f"ms, {TRAIN_B / (r['warm_ms'] / 1e3):.1f} train windows/s, peak memory "
+            f"{r['peak_gb']:.2f} GB; device time {busy:.2f} ms a step, by kind "
+            + ", ".join(f"{k} {v:.2f}" for k, v in sorted(groups.items(), key=lambda g: -g[1]))
+            + f" [{card}]")
+        del mods, state, step, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    del x, y, perm, noise, eps
+    return launches
+
+
+def bf16_driver(card: str) -> dict:
+    """Phase 11c: ``run_pcaa_ablation --compute-dtype bfloat16
+    --bf16-adam-nu`` with the kernels on, V4 for one epoch on a 6-class
+    subset of phase 8's raw tracks; then ``pcaa_inference`` scores the
+    folder through the (f32) inference kernel → launches of the bf16
+    variants and of the inference kernel."""
+    import io
+
+    import torch
+
+    from opensetgaitrecognition_pcaa_tpu_torch import config as port_config
+    from opensetgaitrecognition_pcaa_tpu_torch.config import SPLIT, Config
+    from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import RadarCropDataset
+    from opensetgaitrecognition_pcaa_tpu_torch.infer.pcaa import pcaa_inference
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import pointnet_infer as pn
+    from opensetgaitrecognition_pcaa_tpu_torch.scripts import run_pcaa_ablation as rpa
+    from opensetgaitrecognition_pcaa_tpu_torch.train.run_folder import load_params
+
+    raw = os.path.join(WORK, "raw")
+    gen = os.path.join(WORK, "gen_bf16")
+    models = os.path.join(WORK, "models_bf16")
+    name = f"{BF16_NAME_BASE}V4.{N_SEEN}.1"
+    rpa.default_config = lambda **kw: port_config.default_config(
+        FUSED_POINTNET=True, FUSED_ADAM=True, **kw)
+    try:
+        reset_train_counts()
+        reset_bf16_counts()
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rpa.main(["--data-path", raw, "--gen-data-path", gen, "--models-path", models,
+                      "--model-name-base", BF16_NAME_BASE, "--n-training-classes", str(N_SEEN),
+                      "--n-tests", "1", "--variants", "V4", "--epochs", "1",
+                      "--compute-dtype", "bfloat16", "--bf16-adam-nu"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = bf16_counts()
+        f32_counts = train_counts()
+    finally:
+        rpa.default_config = port_config.default_config
+    steps = len(RadarCropDataset(SPLIT.TRAIN, gen)) // TRAIN_B
+    assert counts == (4 * steps, steps, 0, 4 * steps), (counts, steps)
+    assert f32_counts == (0, 0, 0), f32_counts
+    run_dir = os.path.join(models, name)
+    cfg = Config.load(os.path.join(run_dir, "config.json"))
+    assert cfg.COMPUTE_DTYPE == "bfloat16" and cfg.BF16_ADAM_NU
+    enc = load_params(os.path.join(run_dir, f"{name}_E.msgpack"))
+    kernel = enc["params"]["GaitBackbone_0"]["PointNetBlock_0"]["TorchDense_0"]["kernel"]
+    assert kernel.dtype == np.float32 and np.isfinite(kernel).all()
+    acc = [line.split(": ", 1)[1] for line in buf.getvalue().splitlines()
+           if "best_valid_acc=" in line]
+    log(f"phase 11c: run_pcaa_ablation --compute-dtype bfloat16 --bf16-adam-nu (kernels on) "
+        f"trained {name}: 1 epoch of {steps} steps in {seconds:.2f} s with the splits' write; "
+        f"bf16 launches (layer, pool, adam m16, adam mv16) {counts}, f32 launches {f32_counts}; "
+        f"{acc} [{card}]")
+    pn.pointnet_pool_infer.launches = 0
+    t0 = time.perf_counter()
+    logs = pcaa_inference([name], ks=KS, models_path=models,
+                          figures_path=os.path.join(WORK, "fig_bf16"), generate_dataset=False,
+                          dump_calibration=True, device="cuda", use_kernel=True)
+    torch.cuda.synchronize()
+    infer = pn.pointnet_pool_infer.launches
+    assert infer > 0
+    cal = dict(np.load(os.path.join(run_dir, "calibration.npz")))
+    for key in ("log_threshold", "test_ll", "unseen_ll"):
+        assert np.isfinite(cal[key]).all(), key
+    log(f"phase 11c: pcaa_inference scored the bf16-trained folder through the inference kernel "
+        f"in {time.perf_counter() - t0:.2f} s ({infer} launches): f1_micro "
+        f"{[round(logs[name][k]['f1_micro'], 4) for k in KS]} [{card}]")
+    return dict(layer=counts[0], pool=counts[1], adam_mv16=counts[3], infer=infer)
+
+
+def bf16_phase(card: str, gen: str) -> tuple:
+    """Phase 11 → (the bf16 variants' checks, their launches on the main
+    paths of 11b and 11c, the inference kernel's launches in 11c)."""
+    t0 = time.perf_counter()
+    checks = check_bf16_kernels(card)
+    step_launches = bf16_steps(card, gen)
+    drv = bf16_driver(card)
+    launches = dict(layer=step_launches[0] + drv["layer"], pool=step_launches[1] + drv["pool"],
+                    adam_m16=step_launches[2], adam_mv16=step_launches[3] + drv["adam_mv16"])
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s [{card}]")
+    return checks, launches, drv["infer"]
+
+
+def precision_gate() -> int:
+    """``--precision-gate``: the quality gate of the bf16 tiers on the card,
+    by the paired-seed method of ``tools/gate_optimizer_quality.py``: V4 on
+    a synthetic split (10 subjects x 10 tracks, 8 train classes) for
+    GATE_EPOCHS epochs at the published widths, the kernels on, for each
+    of GATE_SEEDS seeds under f32, bf16 and bf16 + nu16; best valid
+    accuracy and windows/s per seed, the paired deltas against f32; one
+    JSON line at the end."""
+    import torch
+
+    from opensetgaitrecognition_pcaa_tpu_torch.config import VARIATION, Config
+    from opensetgaitrecognition_pcaa_tpu_torch.data.splits import generate_splits
+    from opensetgaitrecognition_pcaa_tpu_torch.data.synthetic import (
+        generate_synthetic_raw_dataset,
+    )
+    from opensetgaitrecognition_pcaa_tpu_torch.infer.common import ieee_f32
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import _build
+    from opensetgaitrecognition_pcaa_tpu_torch.train.pcaa import train_pcaa
+
+    card = card_name()
+    log(card)
+    ieee_f32()
+    _build.load_libraries(("pointnet_train", "adam"))
+    work = os.path.join(WORK, "gate")
+    shutil.rmtree(work, ignore_errors=True)
+    raw, gen = os.path.join(work, "raw"), os.path.join(work, "gen")
+    generate_synthetic_raw_dataset(raw, n_subjects=10, tracks_per_scenario=10)
+    generate_splits(train_classes=list(range(8)), data_path=raw, gen_data_path=gen,
+                    verbose=False)
+    out = {name: {"accs": [], "wps": []} for name in GATE_CONFIGS}
+    for seed in range(GATE_SEEDS):
+        for name, flags in GATE_CONFIGS.items():
+            cfg = Config(TRAIN_CLASSES=tuple(range(8)), MODEL_NAME=f"gate_{seed}_V4",
+                         GEN_DATA_PATH=gen, MODELS_PATH=os.path.join(work, name),
+                         EPOCHS=GATE_EPOCHS, CHECKPOINT_FREQUENCY=1, SEED=seed,
+                         FUSED_POINTNET=True, FUSED_ADAM=True, **flags)
+            r = train_pcaa(cfg, VARIATION.V4, verbose=False, resume=False, device="cuda")
+            torch.cuda.empty_cache()
+            out[name]["accs"].append(float(r["best_valid_accuracy"]))
+            out[name]["wps"].append(float(r["windows_per_sec"]))
+        log(f"gate seed {seed}: " + ", ".join(
+            f"{n} acc {out[n]['accs'][-1]:.4f} {out[n]['wps'][-1]:.1f} w/s" for n in out)
+            + f" [{card}]")
+    base = np.array(out["f32"]["accs"])
+    for name, r in out.items():
+        r["paired_delta_vs_f32"] = [round(float(v), 4) for v in np.array(r["accs"]) - base]
+        r["mean_paired_delta_vs_f32"] = round(float((np.array(r["accs"]) - base).mean()), 4)
+    log(json.dumps({"precision_gate": out, "epochs": GATE_EPOCHS, "card": card}))
+    return 0
+
+
 def card_name() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -2131,6 +2634,8 @@ def main() -> int:
         return chamfer_timing_only()
     if sys.argv[1:] == ["--codec-timing"]:
         return codec_timing()
+    if sys.argv[1:] == ["--precision-gate"]:
+        return precision_gate()
     if sys.argv[1:2] == ["--serve-artifacts"]:
         return serve_artifacts(sys.argv[2])
     from opensetgaitrecognition_pcaa_tpu_torch.config import SPLIT, VARIATION, Config
@@ -2361,6 +2866,10 @@ def main() -> int:
     for k in ("layer", "pool", "adam"):
         train_launches[k] += serving_launches[k]
 
+    # --- 11. bf16 training: the bf16 kernels, the steps, the driver ------------------
+    bf16_checks, bf16_launches, bf16_infer = bf16_phase(card, gen)
+    main_launches += bf16_infer
+
     checks["infer"] = dict(err=max_err, ms=pn_ms["kernel"], plain_ms=pn_ms["plain"],
                            library_ms=None, **pn_bound)
     src = "opensetgaitrecognition_pcaa_tpu_torch/csrc/"
@@ -2376,6 +2885,14 @@ def main() -> int:
          train_launches["adam"], checks["adam"]),
         ("seq_chamfer_pallas/_chamfer_frame_kernel", "chamfer.cu", "chamfer_kernel.py:35",
          orced_launches["chamfer"], checks["chamfer"]),
+        ("pointnet_pool_train/_layer_kernel (bf16)", "pointnet_train.cu", "pointnet_train.py:61",
+         bf16_launches["layer"], bf16_checks["layer"]),
+        ("pointnet_pool_train/_pool_kernel (bf16 input)", "pointnet_train.cu",
+         "pointnet_train.py:154", bf16_launches["pool"], bf16_checks["pool"]),
+        ("fused_adam_tree_update/_adam_block_kernel (m bf16)", "adam.cu", "adam_kernel.py:60",
+         bf16_launches["adam_m16"], bf16_checks["adam_m16"]),
+        ("fused_adam_tree_update/_adam_block_kernel (m, v bf16)", "adam.cu", "adam_kernel.py:60",
+         bf16_launches["adam_mv16"], bf16_checks["adam_mv16"]),
     ]
     for name, _, _, launches, _ in kernels:
         assert launches > 0, f"the main path never launched {name}"
@@ -2386,7 +2903,7 @@ def main() -> int:
          "bound_route": c["bound_route"]}
         for name, source, replaces, launches, c in kernels
     ]}
-    log(f"chip_smoke: phases 1-10 in {time.perf_counter() - t_start:.1f} s [{card}]")
+    log(f"chip_smoke: phases 1-11 in {time.perf_counter() - t_start:.1f} s [{card}]")
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

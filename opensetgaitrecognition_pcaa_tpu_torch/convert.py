@@ -16,7 +16,12 @@ decoder, critic, heads and V1's mean learner (``E``, ``G``, ``D``,
   across as they are.
 
 Adam moments have their parameter's shape, so they map as the parameter
-does. Both directions are exact: values are copied, never recomputed.
+does. Both directions are exact: values are copied, never recomputed. A
+bf16 leaf (the moments of a bf16 run; numpy holds it as
+``ml_dtypes.bfloat16``, whose dtype name is "bfloat16") becomes a
+``torch.bfloat16`` tensor of the same bits; going back, a bf16 tensor
+becomes an f32 array of the same values, since the port does not import
+ml_dtypes.
 A collection missing from the tree (``batch_stats`` of a moment tree) is
 skipped, and so is a key missing from the ``state_dict``.
 """
@@ -113,8 +118,11 @@ def _to_state_dict(variables: Dict, entries) -> Dict[str, torch.Tensor]:
         leaf = variables
         for p in path:
             leaf = leaf[p]
-        a = _relayout(np.asarray(leaf), layout)
-        out[key] = torch.from_numpy(np.array(a, order="C"))  # writable copy
+        a = np.array(_relayout(np.asarray(leaf), layout), order="C")  # writable copy
+        if a.dtype.name == "bfloat16":
+            out[key] = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+        else:
+            out[key] = torch.from_numpy(a)
     return out
 
 
@@ -123,11 +131,12 @@ def _to_variables(state_dict: Dict[str, torch.Tensor], entries) -> Dict:
     for path, key, layout in entries:
         if key not in state_dict:
             continue
-        a = _relayout(state_dict[key].detach().cpu().numpy(), layout)
+        t = state_dict[key].detach().cpu()
+        a = _relayout((t.float() if t.dtype == torch.bfloat16 else t).numpy(), layout)
         node = tree
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = np.ascontiguousarray(a)
+        node[path[-1]] = np.array(a, order="C")  # a copy: never a view of the tensor
     return tree
 
 

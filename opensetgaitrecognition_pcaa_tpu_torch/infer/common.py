@@ -22,10 +22,13 @@ def ieee_f32() -> None:
     torch runs f32 convolutions through cuDNN in TF32 by default, and TF32
     keeps about three decimal digits: the H100 counterpart of the TPU's
     DEFAULT precision, which flipped open-set decisions
-    (``DECISION_PARITY.md``). The JAX package infers at "highest".
+    (``DECISION_PARITY.md``). The JAX package infers at "highest". A bf16
+    GEMM with an f32 output (bf16 training's PointNet backward) keeps its
+    f32 sums too: no reduced-precision split-K reduction.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def chunk_rows(x: np.ndarray, batch_size: int) -> np.ndarray:

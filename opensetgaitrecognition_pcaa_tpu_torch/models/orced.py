@@ -9,6 +9,9 @@ quirks:
   ``eps`` in eval mode too, so a caller passes ``eps`` or a
   ``torch.Generator`` to draw it from;
 - the decoder is ``CGDecoder``'s 5-layer shape fed by the latent directly.
+
+``compute_dtype`` is taken by the encoder's backbone and by the decoder,
+as JAX ``build_orced`` passes it; the heads compute in f32.
 """
 
 from __future__ import annotations
@@ -39,10 +42,12 @@ class ORCEDEncoder(nn.Module):
     def __init__(self, n_out_labels: int, in_features: int = 4, sup_latent_dim: int = 32,
                  pointnet_out_dim: int = 1024,
                  dtc_filters: Sequence[int] = (16, 32, 64, 128, 256, 512),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         gen = generator or torch.Generator().manual_seed(0)
-        self.backbone = GaitBackbone(in_features, pointnet_out_dim, dtc_filters, gen)
+        self.backbone = GaitBackbone(in_features, pointnet_out_dim, dtc_filters, gen,
+                                     compute_dtype)
         self.MLP_mu = TorchDense(dtc_filters[-1], sup_latent_dim, gen)
         self.MLP_logvar = TorchDense(dtc_filters[-1], sup_latent_dim, gen)
         self.MLP_classification = TorchDense(sup_latent_dim, n_out_labels, gen)

@@ -14,6 +14,12 @@ quirks:
   V4 is latent → 2·latent; the discriminator head latent → latent, as
   the JAX package builds it where the reference declares 2·latent →
   latent but feeds it the latent).
+
+``compute_dtype`` (the JAX modules' ``dtype``, ``models/layers.py``) is
+taken by the encoder's backbone and by the decoder, as JAX ``build_pcaa``
+passes it: the encoder's heads, the critic and the projection heads
+compute in f32 always, and the decoder's reconstruction leaves it in f32
+(rounded to bf16 by its last layer at bf16), so the Chamfer loss sees f32.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from opensetgaitrecognition_pcaa_tpu_torch.models.layers import GaitBackbone, TorchDense
+from opensetgaitrecognition_pcaa_tpu_torch.models.layers import GaitBackbone, TorchDense, elu
 
 
 class CGEncoder(nn.Module):
@@ -35,11 +41,13 @@ class CGEncoder(nn.Module):
                  sup_latent_dim: int = 32, pointnet_out_dim: int = 1024,
                  dtc_filters: Sequence[int] = (16, 32, 64, 128, 256, 512),
                  use_projection_head: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         gen = generator or torch.Generator().manual_seed(0)
         self.use_projection_head = use_projection_head
-        self.backbone = GaitBackbone(in_features, pointnet_out_dim, dtc_filters, gen)
+        self.backbone = GaitBackbone(in_features, pointnet_out_dim, dtc_filters, gen,
+                                     compute_dtype)
         self.MLP_sup1 = TorchDense(dtc_filters[-1], sup_latent_dim, gen)
         head_out = sup_latent_dim
         if use_projection_head:
@@ -63,19 +71,21 @@ class CGDecoder(nn.Module):
     """Latent ``(B, in_features)`` → reconstruction ``(B, T, N, C)``."""
 
     def __init__(self, in_features: int, nsteps: int = 30, nmax_points: int = 150,
-                 nfeatures: int = 4, generator: Optional[torch.Generator] = None):
+                 nfeatures: int = 4, generator: Optional[torch.Generator] = None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         gen = generator or torch.Generator().manual_seed(0)
         self.shape = (nsteps, nmax_points, nfeatures)
         size = nsteps * nfeatures * nmax_points
         widths = (size // 16, size // 8, size // 4, size // 2, size)
         ins = (in_features,) + widths[:-1]
-        self.dense = nn.ModuleList(TorchDense(i, o, gen) for i, o in zip(ins, widths))
+        self.dense = nn.ModuleList(TorchDense(i, o, gen, compute_dtype)
+                                   for i, o in zip(ins, widths))
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         for layer in self.dense[:-1]:
-            z = F.elu(layer(z))
-        z = self.dense[-1](z)
+            z = elu(layer(z))
+        z = self.dense[-1](z).float()
         return z.reshape((z.shape[0],) + self.shape)
 
 

@@ -9,6 +9,12 @@ Port of ``opensetgaitrecognition_pcaa_tpu/ops/pallas/adam_kernel.py``
     v' = b2·v + (1 − b2)·g²
     w' = w − (s1·m') / (√(v'·s2) + eps)
 
+g and w are f32; m and v are each f32 or bf16 (``adam_lowmem``'s storage,
+as the JAX function keeps it leaf by leaf): the arithmetic is f32, a bf16
+moment is upcast when read, and m' and v' are rounded to bf16 (nearest
+even) only when stored. The kernel has three variants: f32 moments, m
+bf16, m and v bf16.
+
 2-D leaves of at least ``min_kernel_elems`` elements (2²¹, the JAX
 package's own rule: the four big decoder matrices at the published widths)
 go through ``adam_update_``, which launches ``csrc/adam.cu`` for a CUDA
@@ -29,6 +35,11 @@ from opensetgaitrecognition_pcaa_tpu_torch.ops._build import load_library
 
 _KERNEL = "adam"
 MIN_KERNEL_ELEMS = 1 << 21
+_F32, _BF16 = torch.float32, torch.bfloat16
+# (m dtype, v dtype) -> the kernel's entry point and its launch counter
+_VARIANTS = {(_F32, _F32): ("adam_update_f32", "launches"),
+             (_BF16, _F32): ("adam_update_m16", "launches_m16"),
+             (_BF16, _BF16): ("adam_update_mv16", "launches_mv16")}
 
 
 def adam_scalars(count: int, lr: float, b1: float, b2: float) -> Tuple[float, float]:
@@ -43,9 +54,10 @@ def adam_scalars(count: int, lr: float, b1: float, b2: float) -> Tuple[float, fl
 @torch.no_grad()
 def adam_update_ref_(g: torch.Tensor, w: torch.Tensor, m: torch.Tensor, v: torch.Tensor, *,
                      s1: float, s2: float, b1: float, b2: float, eps: float) -> None:
-    """Plain version of one leaf's update, in place."""
-    m2 = b1 * m + (1.0 - b1) * g
-    v2 = b2 * v + (1.0 - b2) * (g * g)
+    """Plain version of one leaf's update, in place; bf16 moments are upcast
+    and rounded back when stored."""
+    m2 = b1 * m.float() + (1.0 - b1) * g
+    v2 = b2 * v.float() + (1.0 - b2) * (g * g)
     w.copy_(w - (s1 * m2) / (torch.sqrt(v2 * s2) + eps))
     m.copy_(m2)
     v.copy_(v2)
@@ -53,25 +65,28 @@ def adam_update_ref_(g: torch.Tensor, w: torch.Tensor, m: torch.Tensor, v: torch
 
 def _library() -> ctypes.CDLL:
     lib = load_library(_KERNEL)
-    fn = lib.adam_update_f32
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_float] * 7
-                   + [ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    for entry, _ in _VARIANTS.values():
+        fn = getattr(lib, entry)
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_float] * 7
+                       + [ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     return lib
 
 
 def _check_cuda_args(g, w, m, v) -> None:
+    if (m.dtype, v.dtype) not in _VARIANTS:
+        raise ValueError(f"no kernel for moments m {m.dtype}, v {v.dtype}")
     for name, t in (("g", g), ("w", w), ("m", m), ("v", v)):
         if t.device != w.device:
             raise ValueError(f"{name} is on {t.device}, w on {w.device}")
-        if t.dtype != torch.float32:
+        if name in ("g", "w") and t.dtype != _F32:
             raise ValueError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.shape != w.shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, w {tuple(w.shape)}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+        if t.data_ptr() % (4 * t.element_size()):
+            raise ValueError(f"{name} must be aligned to 4 of its elements")
     if w.numel() < 1:
         raise ValueError("w is empty")
 
@@ -80,14 +95,16 @@ def _check_cuda_args(g, w, m, v) -> None:
 def adam_update_(g: torch.Tensor, w: torch.Tensor, m: torch.Tensor, v: torch.Tensor, *,
                  s1: float, s2: float, b1: float, b2: float, eps: float) -> None:
     """One leaf's update, in place: a CPU tensor takes ``adam_update_ref_``;
-    a CUDA tensor launches the kernel, or raises."""
+    a CUDA tensor launches the kernel variant of the moments' dtypes, or
+    raises."""
     if w.device.type == "cpu":
         adam_update_ref_(g, w, m, v, s1=s1, s2=s2, b1=b1, b2=b2, eps=eps)
         return
     if w.device.type != "cuda":
         raise ValueError(f"no kernel for device {w.device}")
     _check_cuda_args(g, w, m, v)
-    fn = _library().adam_update_f32
+    entry, counter = _VARIANTS[(m.dtype, v.dtype)]
+    fn = getattr(_library(), entry)
     sms = torch.cuda.get_device_properties(w.device).multi_processor_count
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream(w.device).cuda_stream
@@ -95,11 +112,14 @@ def adam_update_(g: torch.Tensor, w: torch.Tensor, m: torch.Tensor, v: torch.Ten
                  b1, 1.0 - b1, b2, 1.0 - b2, s1, s2, eps, sms, stream)
     if err != 0:
         raise RuntimeError(f"adam kernel launch failed: cudaError {err}")
-    adam_update_.launches += 1
+    setattr(adam_update_, counter, getattr(adam_update_, counter) + 1)
 
 
-# Kernel launches since the last reset; the plain version does not count.
+# Kernel launches since the last reset, per variant (f32 moments; m bf16;
+# m and v bf16); the plain version does not count.
 adam_update_.launches = 0
+adam_update_.launches_m16 = 0
+adam_update_.launches_mv16 = 0
 
 
 def fused_adam_tree_update(

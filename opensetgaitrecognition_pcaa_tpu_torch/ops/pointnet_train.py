@@ -32,6 +32,24 @@ autograd Function sees only real widths, so no gradient reaches a padded
 column.
 ``pointnet_pool_train_ref`` is the whole forward in plain PyTorch, which
 autograd differentiates on its own.
+
+``store_dtype=torch.bfloat16`` is the JAX package's bf16 training path
+(``store_dtype`` of ``pointnet_pool_train``, ``pointnet_train.py:61-105,
+207-236, 270-333``):
+
+- forward: x is rounded to bf16 at entry; each layer upcasts the stored
+  bf16 input, applies the previous BatchNorm + ELU in f32, rounds the
+  result h to bf16, and multiplies it by W rounded to bf16 with f32
+  accumulation; the f32 bias is added; Σy and Σy² are taken from the
+  unrounded f32 y, which is then stored as bf16. The pool reads bf16 y
+  and computes and writes f32. On the card these are the bf16 variants
+  of the two kernels (``mma.sync`` bf16 with f32 accumulation), which
+  take widths that are multiples of 8 (``pad_layer(..., multiple=8)``);
+- backward: the stored ys are upcast, the BatchNorm and ELU backward runs
+  in f32, and the wgrad and dgrad take bf16 operands with f32
+  accumulation and an f32 result (``mm_bf16``: an f32 GEMM of the bf16
+  values on the CPU, which is exact in its products; cuBLAS's bf16 GEMM
+  with an f32 output on the card).
 """
 
 from __future__ import annotations
@@ -46,6 +64,7 @@ from opensetgaitrecognition_pcaa_tpu_torch.ops._build import load_library
 
 _KERNEL = "pointnet_train"
 _EPS = 1e-5
+BF16 = torch.bfloat16
 
 Layer = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -63,19 +82,33 @@ def _activate(h: torch.Tensor, affine: Optional[torch.Tensor]) -> torch.Tensor:
     return F.elu((h - affine[0]) * affine[1] + affine[2])
 
 
+def mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of bf16 operands with f32 accumulation and an f32 result.
+    On the CPU an f32 GEMM of the bf16 values (each product is exact in
+    f32); on the card cuBLAS's bf16 GEMM with an f32 output."""
+    a, b = a.to(BF16), b.to(BF16)
+    if a.device.type == "cpu":
+        return torch.matmul(a.float(), b.float())
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
 def fused_layer_ref(h: torch.Tensor, affine: Optional[torch.Tensor], w: torch.Tensor,
                     b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of one layer: ``(R, C_in) → (y (R, C_out), mean, var)``."""
-    y = torch.matmul(_activate(h.float(), affine), w) + b
+    """Plain version of one layer: ``(R, C_in) → (y (R, C_out), mean, var)``;
+    y has h's dtype, f32 or bf16 (the module docstring)."""
+    a = _activate(h.float(), affine)
+    if h.dtype == BF16:
+        a, w = a.to(BF16).float(), w.to(BF16).float()
+    y = torch.matmul(a, w) + b
     n = y.shape[0]
     mean = torch.sum(y, dim=0) / n
     var = torch.clamp(torch.sum(y * y, dim=0) / n - mean * mean, min=0.0)
-    return y, mean, var
+    return y.to(h.dtype), mean, var
 
 
 def fused_pool_ref(y: torch.Tensor, affine: torch.Tensor) -> torch.Tensor:
-    """Plain version of the pool: ``(F, N, D) → (F, D)``."""
-    return torch.mean(_activate(y, affine), dim=1)
+    """Plain version of the pool: ``(F, N, D) → (F, D)`` in f32, y f32 or bf16."""
+    return torch.mean(_activate(y.float(), affine), dim=1)
 
 
 def _library() -> ctypes.CDLL:
@@ -83,19 +116,24 @@ def _library() -> ctypes.CDLL:
     layer = lib.pointnet_train_layer_f32
     layer.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     layer.restype = ctypes.c_int
+    lib.pointnet_train_layer_bf16.argtypes = layer.argtypes
+    lib.pointnet_train_layer_bf16.restype = ctypes.c_int
     pool = lib.pointnet_train_pool_f32
     pool.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     pool.restype = ctypes.c_int
+    lib.pointnet_train_pool_bf16.argtypes = pool.argtypes
+    lib.pointnet_train_pool_bf16.restype = ctypes.c_int
     lib.pointnet_train_row_tile.argtypes = []
     lib.pointnet_train_row_tile.restype = ctypes.c_int
     return lib
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
+def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device,
+           dtype: torch.dtype = torch.float32) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, the input on {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if tuple(t.shape) != shape:
@@ -113,7 +151,9 @@ def _check_layer_args(h, affine, w, b) -> Tuple[int, int, int]:
         raise ValueError("h has no rows")
     if c_in < 1 or c_out < 1:
         raise ValueError(f"the kernel takes widths of at least 1, got {c_in} -> {c_out}")
-    _check("h", h, (rows, c_in), h.device)
+    if h.dtype not in (torch.float32, BF16):
+        raise ValueError(f"h must be float32 or bfloat16, got {h.dtype}")
+    _check("h", h, (rows, c_in), h.device, h.dtype)
     _check("w", w, (c_in, c_out), h.device)
     _check("b", b, (c_out,), h.device)
     if affine is not None:
@@ -122,14 +162,15 @@ def _check_layer_args(h, affine, w, b) -> Tuple[int, int, int]:
 
 
 def pad_layer(h: torch.Tensor, affine: Optional[torch.Tensor], w: torch.Tensor,
-              b: torch.Tensor):
-    """Zero-pad C_in and C_out to multiples of 4, as the layer kernel
-    takes them → ``(h, affine, w, b)``; the inputs where nothing needs
-    padding. Every padded term of a sum is an exact 0, and a padded output
-    column and its statistics are 0; the first C_out columns are the
-    function of the inputs."""
+              b: torch.Tensor, multiple: int = 4):
+    """Zero-pad C_in and C_out to multiples of ``multiple`` (4 for the f32
+    layer kernel, 8 for the bf16 one) → ``(h, affine, w, b)``; the inputs
+    where nothing needs padding. Every padded term of a sum is an exact 0,
+    and a padded output column and its statistics are 0; the first C_out
+    columns are the function of the inputs."""
     c_in, c_out = w.shape
-    pi, po = -(-c_in // 4) * 4 - c_in, -(-c_out // 4) * 4 - c_out
+    pi = -(-c_in // multiple) * multiple - c_in
+    po = -(-c_out // multiple) * multiple - c_out
     if pi:
         h = F.pad(h, (0, pi))
         if affine is not None:
@@ -144,46 +185,55 @@ def fused_layer(h: torch.Tensor, affine: Optional[torch.Tensor], w: torch.Tensor
                 b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One train-mode layer: the previous BatchNorm + ELU applied on read
     (``affine`` from ``bn_affine``; None for layer 0), ``y = h @ W + b``,
-    and y's batch mean and biased variance → ``(y, mean, var)``.
+    and y's batch mean and biased variance → ``(y, mean, var)``. h and y
+    are f32, or both bf16 (W rounded to bf16, f32 accumulation, the
+    statistics from the unrounded y); W, b, affine and the statistics f32.
 
     A CPU tensor takes ``fused_layer_ref``; a CUDA tensor launches the
-    layer kernel and its fixed-order reduction, or raises. Widths that are
-    not multiples of 4 are padded (``pad_layer``) and sliced back.
+    layer kernel of its dtype and the fixed-order reduction, or raises.
+    Widths that are not multiples of 4 (f32) or 8 (bf16) are padded
+    (``pad_layer``) and sliced back.
     """
     if h.device.type == "cpu":
         return fused_layer_ref(h, affine, w, b)
     if h.device.type != "cuda":
         raise ValueError(f"no kernel for device {h.device}")
     rows, _, c_real = _check_layer_args(h, affine, w, b)
-    h, affine, w, b = pad_layer(h, affine, w, b)
+    bf16 = h.dtype == BF16
+    h, affine, w, b = pad_layer(h, affine, w, b, multiple=8 if bf16 else 4)
     c_in, c_out = w.shape
     lib = _library()
     row_tile = lib.pointnet_train_row_tile()  # rows per block of the layer kernel
-    y = torch.empty((rows, c_out), dtype=torch.float32, device=h.device)
+    y = torch.empty((rows, c_out), dtype=h.dtype, device=h.device)
     partials = torch.empty((-(-rows // row_tile), 2, c_out), dtype=torch.float32,
                            device=h.device)
     mean = torch.empty(c_out, dtype=torch.float32, device=h.device)
     var = torch.empty(c_out, dtype=torch.float32, device=h.device)
-    fn = lib.pointnet_train_layer_f32
+    fn = lib.pointnet_train_layer_bf16 if bf16 else lib.pointnet_train_layer_f32
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        wt = w.t().contiguous()  # the kernel reads W K-major: (C_out, C_in)
+        # the kernel reads W K-major: (C_out, C_in), in h's dtype
+        wt = w.t().to(h.dtype).contiguous()
         err = fn(h.data_ptr(), None if affine is None else affine.data_ptr(), wt.data_ptr(),
                  b.data_ptr(), y.data_ptr(), partials.data_ptr(), mean.data_ptr(),
                  var.data_ptr(), rows, c_in, c_out, stream)
     if err != 0:
         raise RuntimeError(f"pointnet_train layer kernel launch failed: cudaError {err}")
-    fused_layer.launches += 1
+    if bf16:
+        fused_layer.launches_bf16 += 1
+    else:
+        fused_layer.launches += 1
     if c_out != c_real:
         y, mean, var = y[:, :c_real].contiguous(), mean[:c_real], var[:c_real]
     return y, mean, var
 
 
 def fused_pool(y: torch.Tensor, affine: torch.Tensor) -> torch.Tensor:
-    """Last BatchNorm + ELU, then the mean over points: ``(F, N, D) → (F, D)``.
+    """Last BatchNorm + ELU, then the mean over points: ``(F, N, D) → (F, D)``
+    f32, y f32 or bf16.
 
     A CPU tensor takes ``fused_pool_ref``; a CUDA tensor launches the pool
-    kernel, or raises.
+    kernel of y's dtype, or raises.
     """
     if y.device.type == "cpu":
         return fused_pool_ref(y, affine)
@@ -192,28 +242,37 @@ def fused_pool(y: torch.Tensor, affine: torch.Tensor) -> torch.Tensor:
     if y.dim() != 3 or min(y.shape) < 1:
         raise ValueError(f"y must be (F, N, D) with no empty axis, got {tuple(y.shape)}")
     frames, n, d = y.shape
-    _check("y", y, (frames, n, d), y.device)
+    bf16 = y.dtype == BF16
+    _check("y", y, (frames, n, d), y.device, BF16 if bf16 else torch.float32)
     _check("affine", affine, (3, d), y.device)
     out = torch.empty((frames, d), dtype=torch.float32, device=y.device)
-    fn = _library().pointnet_train_pool_f32
+    lib = _library()
+    fn = lib.pointnet_train_pool_bf16 if bf16 else lib.pointnet_train_pool_f32
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
         err = fn(y.data_ptr(), affine.data_ptr(), out.data_ptr(), frames, n, d, stream)
     if err != 0:
         raise RuntimeError(f"pointnet_train pool kernel launch failed: cudaError {err}")
-    fused_pool.launches += 1
+    if bf16:
+        fused_pool.launches_bf16 += 1
+    else:
+        fused_pool.launches += 1
     return out
 
 
-# Kernel launches since the last reset; the plain versions do not count.
+# Kernel launches since the last reset, per variant (f32, bf16); the plain
+# versions do not count.
 fused_layer.launches = 0
+fused_layer.launches_bf16 = 0
 fused_pool.launches = 0
+fused_pool.launches_bf16 = 0
 
 
-def _forward(x: torch.Tensor, params: Sequence[Layer], layer_fn, pool_fn):
-    """→ (pooled (B, T, D), raw outputs ys, means, vars)."""
+def _forward(x: torch.Tensor, params: Sequence[Layer], layer_fn, pool_fn,
+             store_dtype: torch.dtype = torch.float32):
+    """→ (pooled (B, T, D), raw outputs ys in ``store_dtype``, means, vars)."""
     b, t, n, c = x.shape
-    h = x.reshape(b * t * n, c)
+    h = x.reshape(b * t * n, c).to(store_dtype)
     affine = None
     ys, means, variances = [], [], []
     for w, bias, gamma, beta in params:
@@ -227,20 +286,25 @@ def _forward(x: torch.Tensor, params: Sequence[Layer], layer_fn, pool_fn):
     return pooled.reshape(b, t, -1), ys, means, variances
 
 
-def pointnet_pool_train_ref(x: torch.Tensor, params: Sequence[Layer]):
-    """Plain version of ``pointnet_pool_train``, differentiable by autograd."""
-    pooled, _, means, variances = _forward(x.float(), params, fused_layer_ref, fused_pool_ref)
+def pointnet_pool_train_ref(x: torch.Tensor, params: Sequence[Layer],
+                            store_dtype: torch.dtype = torch.float32):
+    """Plain version of ``pointnet_pool_train``, differentiable by autograd
+    (at bf16 autograd's backward rounds elsewhere than ``_bwd``'s)."""
+    pooled, _, means, variances = _forward(x.float(), params, fused_layer_ref, fused_pool_ref,
+                                           store_dtype)
     return pooled, tuple(means), tuple(variances)
 
 
 class _PointNetPoolTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, *flat):
+    def forward(ctx, x, store_dtype, *flat):
         params = [tuple(p.contiguous() for p in flat[i:i + 4]) for i in range(0, len(flat), 4)]
-        pooled, ys, means, variances = _forward(x.contiguous(), params, fused_layer, fused_pool)
+        pooled, ys, means, variances = _forward(x.contiguous(), params, fused_layer, fused_pool,
+                                                store_dtype)
         ctx.save_for_backward(x, *(p for layer in params for p in layer), *ys, *means,
                               *variances)
         ctx.n_layers = len(params)
+        ctx.bf16 = store_dtype == BF16
         ctx.mark_non_differentiable(*means, *variances)
         return (pooled, *means, *variances)
 
@@ -263,10 +327,12 @@ class _PointNetPoolTrain(torch.autograd.Function):
         g_h = (g_pooled / n)[:, :, None, :].expand(b, t, n, d).reshape(rows, d)
         grads = [None] * (4 * k)
         g_x = None
+        # wgrad and dgrad: f32, or bf16 operands with f32 accumulation
+        mm = mm_bf16 if ctx.bf16 else torch.matmul
         for li in range(k - 1, -1, -1):
             w, _, gamma, beta = params[li]
             inv = torch.rsqrt(variances[li] + _EPS)
-            x_hat = (ys[li] - means[li]) * inv
+            x_hat = (ys[li].float() - means[li]) * inv
             bn_out = x_hat * gamma + beta
             g_bn = g_h * torch.where(bn_out > 0, 1.0, torch.exp(torch.clamp(bn_out, max=0.0)))
             g_gamma = torch.sum(g_bn * x_hat, dim=0)
@@ -277,27 +343,33 @@ class _PointNetPoolTrain(torch.autograd.Function):
                 h_prev = x.reshape(rows, c)
             else:
                 w_p, _, gamma_p, beta_p = params[li - 1]
-                h_prev = _activate(ys[li - 1],
+                h_prev = _activate(ys[li - 1].float(),
                                    bn_affine(means[li - 1], variances[li - 1], gamma_p, beta_p))
-            grads[4 * li:4 * li + 4] = [torch.matmul(h_prev.t(), g_y), torch.sum(g_y, dim=0),
+            grads[4 * li:4 * li + 4] = [mm(h_prev.t(), g_y), torch.sum(g_y, dim=0),
                                         g_gamma, g_beta]
             if li > 0:
-                g_h = torch.matmul(g_y, w.t())
+                g_h = mm(g_y, w.t())
             elif ctx.needs_input_grad[0]:
-                g_x = torch.matmul(g_y, w.t()).reshape(x.shape)
-        return (g_x, *grads)
+                g_x = mm(g_y, w.t()).reshape(x.shape)
+        return (g_x, None, *grads)
 
 
-def pointnet_pool_train(x: torch.Tensor, params: Sequence[Layer]):
+def pointnet_pool_train(x: torch.Tensor, params: Sequence[Layer],
+                        store_dtype: torch.dtype = torch.float32):
     """Train-mode PointNet stack + mean pool: ``(B, T, N, C) → (B, T, D)``.
 
     :param params: 4 layers ``(W (C_in, C_out), b, γ, β)``, W in the JAX
         package's ``(in, out)`` layout.
+    :param store_dtype: f32, or bf16 for the JAX package's bf16 training
+        (the module docstring): the stored activations and the matmul
+        operands in bf16, everything else f32.
     :returns: ``(pooled, means, vars)``: the batch means and biased
         variances of each layer's raw output, for the caller to fold into
         the running statistics. Differentiable with respect to x and params.
     """
     flat = [p for layer in params for p in layer]
-    out = _PointNetPoolTrain.apply(x.float(), *flat)
+    if store_dtype not in (torch.float32, BF16):
+        raise ValueError(f"store_dtype must be float32 or bfloat16, got {store_dtype}")
+    out = _PointNetPoolTrain.apply(x.float(), store_dtype, *flat)
     k = len(params)
     return out[0], tuple(out[1:1 + k]), tuple(out[1 + k:])

@@ -13,9 +13,10 @@ skipped before its splits are written.
         --data-path RAW_TRACKS [--n-training-classes 2 4 6 8] [--device cuda]
 
 The flags are the JAX driver's, plus ``--device`` (default ``cuda``).
-``--grid`` and the bf16 options are not ported and raise
-``NotImplementedError``. OR-CED trains through plain PyTorch, as the JAX
-trainer reaches no kernel.
+``--compute-dtype bfloat16`` and ``--bf16-adam-nu`` train as the JAX
+driver's do (bf16 compute, bf16 Adam moments); ``--grid`` and
+``--bf16-weight-cache`` are not ported and raise ``NotImplementedError``.
+OR-CED trains through plain PyTorch, as the JAX trainer reaches no kernel.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from opensetgaitrecognition_pcaa_tpu_torch.config import N_SUBJECTS, default_con
 from opensetgaitrecognition_pcaa_tpu_torch.data.splits import generate_splits
 from opensetgaitrecognition_pcaa_tpu_torch.ops.openset import openness
 from opensetgaitrecognition_pcaa_tpu_torch.scripts.run_pcaa_ablation import (
+    apply_precision_flags,
     check_ported,
     unique_class_subsets,
 )
@@ -53,9 +55,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--grid-runs-per-device", type=int, default=2,
                    help="lockstep runs per device in --grid mode (not ported)")
     p.add_argument("--compute-dtype", default=None, choices=["float32", "bfloat16"],
-                   help="override Config.COMPUTE_DTYPE (bfloat16 is not ported)")
+                   help="override Config.COMPUTE_DTYPE")
     p.add_argument("--bf16-adam-nu", action="store_true",
-                   help="store Adam second moments in bf16 (not ported)")
+                   help="store Adam second moments in bf16")
     p.add_argument("--bf16-weight-cache", action="store_true",
                    help="bf16 copies of the decoder kernels (not ported)")
     p.add_argument("--device", default="cuda", help="torch device to train on")
@@ -77,8 +79,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     )
     if args.epochs:
         base_cfg = base_cfg.replace(EPOCHS=args.epochs)
-    if args.compute_dtype:
-        base_cfg = base_cfg.replace(COMPUTE_DTYPE=args.compute_dtype)
+    base_cfg = apply_precision_flags(base_cfg, args)
 
     rng = np.random.default_rng(0)
     for n_tr in args.n_training_classes:

@@ -16,11 +16,13 @@ configuration saves one (``SAVE_RESUME_STATE``).
         --data-path RAW_TRACKS [--variants V1 V2 V3 V4] [--device cuda]
 
 The flags are the JAX driver's, plus ``--device`` (default ``cuda``).
-``--grid`` and the bf16 options are not ported and raise
-``NotImplementedError``. The CUDA training kernels are switched by the
-base configuration's ``FUSED_POINTNET``/``FUSED_ADAM``, whose defaults are
-off as in the JAX package: a caller replaces this module's
-``default_config`` to turn them on.
+``--compute-dtype bfloat16`` and ``--bf16-adam-nu`` train as the JAX
+driver's do (bf16 compute, bf16 Adam moments); ``--grid`` and
+``--bf16-weight-cache`` are not ported and raise ``NotImplementedError``.
+The CUDA training kernels are switched by the base configuration's
+``FUSED_POINTNET``/``FUSED_ADAM``, whose defaults are off as in the JAX
+package: a caller replaces this module's ``default_config`` to turn them
+on.
 """
 
 from __future__ import annotations
@@ -64,9 +66,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--grid-runs-per-device", type=int, default=2,
                    help="lockstep runs per device in --grid mode (not ported)")
     p.add_argument("--compute-dtype", default=None, choices=["float32", "bfloat16"],
-                   help="override Config.COMPUTE_DTYPE (bfloat16 is not ported)")
+                   help="override Config.COMPUTE_DTYPE")
     p.add_argument("--bf16-adam-nu", action="store_true",
-                   help="store Adam second moments in bf16 (not ported)")
+                   help="store Adam second moments in bf16")
     p.add_argument("--bf16-weight-cache", action="store_true",
                    help="bf16 copies of the decoder kernels (not ported)")
     p.add_argument("--grid", action="store_true",
@@ -77,15 +79,26 @@ def _parser() -> argparse.ArgumentParser:
 
 def check_ported(args: argparse.Namespace) -> None:
     """Raise ``NotImplementedError`` for a JAX driver option that the port
-    does not have: ``--grid`` and the bf16 options."""
+    does not have: ``--grid`` and ``--bf16-weight-cache``."""
     if args.grid:
         raise NotImplementedError(
             "--grid (lockstep multi-split training) is not ported: ROADMAP.md Queue 1 item 11"
         )
-    if args.compute_dtype == "bfloat16" or args.bf16_adam_nu or args.bf16_weight_cache:
+    if args.bf16_weight_cache:
         raise NotImplementedError(
-            "the bf16 options are not ported: ROADMAP.md Queue 1 item 10"
+            "--bf16-weight-cache is not ported: ROADMAP.md Queue 1 item 14 (bit-identical "
+            "to --compute-dtype bfloat16 without it)"
         )
+
+
+def apply_precision_flags(cfg, args: argparse.Namespace):
+    """``cfg`` with ``--compute-dtype`` and ``--bf16-adam-nu`` applied, as
+    the JAX drivers apply them."""
+    if args.compute_dtype:
+        cfg = cfg.replace(COMPUTE_DTYPE=args.compute_dtype)
+    if args.bf16_adam_nu:
+        cfg = cfg.replace(BF16_ADAM_NU=True)
+    return cfg
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -100,6 +113,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     )
     if args.epochs:
         base_cfg = base_cfg.replace(EPOCHS=args.epochs)
+    base_cfg = apply_precision_flags(base_cfg, args)
 
     rng = np.random.default_rng(0)  # splits_seed = 0 (PCAA_ablation.py:1132)
     for n_tr in args.n_training_classes:

@@ -9,7 +9,9 @@ CUDA kernels on the card). Then, as in the JAX package:
   towards the batch mean and the unbiased batch variance, n = B·T·N rows;
 - the causal dilated TCN runs in train mode (``F.conv1d``; TF32 is off
   once ``infer/common.py::ieee_f32`` has run) and updates its own running
-  statistics, n = B·T;
+  statistics, n = B·T. It runs in f32 whatever the encoder's
+  ``compute_dtype``: the JAX function calls ``conv_general_dilated`` on
+  the f32 pooled tensor with the f32 parameters, no cast;
 - the mean over time and the heads.
 
 The running statistics are updated in place on the encoder's buffers.
@@ -25,16 +27,19 @@ from opensetgaitrecognition_pcaa_tpu_torch.models.pcaa import CGEncoder
 from opensetgaitrecognition_pcaa_tpu_torch.ops.pointnet_train import pointnet_pool_train
 
 
-def fused_train_encoder_apply(encoder: CGEncoder, x: torch.Tensor
+def fused_train_encoder_apply(encoder: CGEncoder, x: torch.Tensor,
+                              store_dtype: torch.dtype = torch.float32
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Train-mode forward ``(B, T, N, C) → (logits, sup_fv)``."""
+    """Train-mode forward ``(B, T, N, C) → (logits, sup_fv)``; the PointNet
+    stores its activations in ``store_dtype`` (bf16 under bf16 compute,
+    ``ops/pointnet_train.py``)."""
     b, t, n, _ = x.shape
     pointnet = encoder.backbone.pointnet
     params = tuple(
         (dense.weight.t(), dense.bias, norm.scale, norm.bias)
         for dense, norm in zip(pointnet.dense, pointnet.norm)
     )
-    pooled, means, variances = pointnet_pool_train(x, params)
+    pooled, means, variances = pointnet_pool_train(x, params, store_dtype)
 
     rows = b * t * n
     with torch.no_grad():
@@ -44,5 +49,6 @@ def fused_train_encoder_apply(encoder: CGEncoder, x: torch.Tensor
             norm.mean.copy_((1.0 - m) * norm.mean + m * mean)
             norm.var.copy_((1.0 - m) * norm.var + m * unbiased)
 
-    h = encoder.backbone.tcn(pooled)  # (B, T, filters[-1]); the encoder is in train mode
+    # (B, T, filters[-1]) in f32; the encoder is in train mode
+    h = encoder.backbone.tcn(pooled, compute_dtype=torch.float32)
     return encoder.heads(h.float().mean(dim=1))

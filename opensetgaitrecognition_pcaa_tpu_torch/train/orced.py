@@ -34,11 +34,17 @@ semantics of the JAX trainer:
   is written at each checkpoint epoch, and a later call resumes from it;
   the KL weight of a resumed epoch is that epoch's.
 
+- ``COMPUTE_DTYPE="bfloat16"`` computes the encoder's backbone and the
+  decoder in bf16 (``models/layers.py``) and stores Adam's first moments
+  in bf16, ``BF16_ADAM_NU`` the second moments too, with JAX
+  ``build_orced``'s optimizer: ``optax.adam(mu_dtype)`` without
+  ``BF16_ADAM_NU``, ``adam_lowmem`` with it, both with ``b2 = B1``.
+
 Modules, parameters, running statistics and Adam moments are updated in
 place. ``FUSED_ADAM`` and ``DEFERRED_DECODER_UPDATE`` are PCAA-only and
-raise ``ValueError`` as in the JAX package; bf16 compute, the TPU-only
-options and data/tensor parallelism are not ported yet and raise
-``NotImplementedError``.
+raise ``ValueError`` as in the JAX package; ``FACTORED_ADAM_NU``,
+``BF16_WEIGHT_CACHE`` and data/tensor parallelism are not ported yet and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -74,7 +80,9 @@ from opensetgaitrecognition_pcaa_tpu_torch.train.pcaa import (
     _ckpt_payload,
     _payload_from_arrays,
     _stack,
+    adam_dtypes,
     check_unported,
+    compute_dtype,
     restore_resume_tree,
     resume_tree,
 )
@@ -105,12 +113,14 @@ class ORCEDModules(nn.Module):
     def __init__(self, cfg: Config, generator: torch.Generator):
         super().__init__()
         n, latent = cfg.n_classes, cfg.SUP_LATENT_DIM
+        dtype = compute_dtype(cfg)  # the encoder and the decoder only, as in JAX
         self.encoder = ORCEDEncoder(
             n, in_features=cfg.NFEATURES, sup_latent_dim=latent,
             pointnet_out_dim=cfg.POINTNET_OUT_DIM, dtc_filters=tuple(cfg.DTC_FILTERS),
-            generator=generator,
+            generator=generator, compute_dtype=dtype,
         )
-        self.decoder = ORCEDDecoder(latent, cfg.NSTEPS, cfg.NMAX, cfg.NFEATURES, generator)
+        self.decoder = ORCEDDecoder(latent, cfg.NSTEPS, cfg.NMAX, cfg.NFEATURES, generator,
+                                    compute_dtype=dtype)
         self.mean_learner = GaussianMeanLearner(n, latent, generator)
 
 
@@ -126,7 +136,8 @@ def build_orced(cfg: Config, *, device: Device = "cuda") -> Tuple[ORCEDModules, 
     _check_supported(cfg)
     mods = ORCEDModules(cfg, torch.Generator().manual_seed(cfg.SEED)).to(device)
     noise = torch.Generator(device=device).manual_seed(cfg.SEED + 1)
-    return mods, ORCEDState(opt=adam_init(mods.named_parameters()), generator=noise)
+    opt = adam_init(mods.named_parameters(), **adam_dtypes(cfg))
+    return mods, ORCEDState(opt=opt, generator=noise)
 
 
 def make_orced_train_step(mods: ORCEDModules, cfg: Config):

@@ -36,10 +36,20 @@ loop runs an eager step. Kept semantics of the JAX step:
   weights so far) is written at each such epoch, and a later call resumes
   from it (``train/run_folder.py``).
 
+- ``COMPUTE_DTYPE="bfloat16"`` computes the encoder's backbone and the
+  decoder in bf16 with the JAX package's casts (``models/layers.py``;
+  the fused PointNet stores bf16 activations and its TCN stays f32,
+  ``train/fused_encoder.py``) and stores Adam's first moments in bf16;
+  ``BF16_ADAM_NU`` stores the second moments in bf16 too. The optimizer
+  is JAX ``build_pcaa``'s: ``optax.adam(mu_dtype)`` without
+  ``BF16_ADAM_NU`` or ``FUSED_ADAM``, ``adam_lowmem`` with either
+  (``train/optim.py``).
+
 Modules, parameters, running statistics and Adam moments are updated in
 place. Not ported yet, and raising ``NotImplementedError``: data/tensor
-parallelism, bf16 compute and the TPU-only options (``BF16_ADAM_NU``,
-``FACTORED_ADAM_NU``, ``DEFERRED_DECODER_UPDATE``, ``BF16_WEIGHT_CACHE``).
+parallelism and three TPU-only options (``FACTORED_ADAM_NU``,
+``DEFERRED_DECODER_UPDATE``, ``BF16_WEIGHT_CACHE``; ROADMAP.md Queue 1
+item 14).
 """
 
 from __future__ import annotations
@@ -121,22 +131,39 @@ VARIANTS: Dict[VARIATION, VariantSpec] = {
 
 def check_unported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` on the options that neither trainer of
-    the port has yet: bf16 compute, the TPU-only optimizer and weight
-    options, and data/tensor parallelism."""
-    if cfg.COMPUTE_DTYPE != "float32":
-        raise NotImplementedError(f"COMPUTE_DTYPE={cfg.COMPUTE_DTYPE!r}: the port trains in f32")
-    for flag in ("BF16_ADAM_NU", "FACTORED_ADAM_NU", "BF16_WEIGHT_CACHE"):
+    the port has yet: two TPU-only optimizer and weight options and
+    data/tensor parallelism."""
+    for flag in ("FACTORED_ADAM_NU", "BF16_WEIGHT_CACHE"):
         if getattr(cfg, flag):
-            raise NotImplementedError(f"{flag} is not ported")
+            raise NotImplementedError(f"{flag} is not ported (ROADMAP.md Queue 1 item 14)")
     if cfg.DP_DEVICES * cfg.MP_DEVICES > 1:
-        raise NotImplementedError("data and tensor parallelism are not ported yet")
+        raise NotImplementedError(
+            "data and tensor parallelism are not ported yet (ROADMAP.md Queue 1 item 11)")
+
+
+def compute_dtype(cfg: Config) -> torch.dtype:
+    """bf16 where ``COMPUTE_DTYPE`` is "bfloat16", else f32, as the JAX
+    package reads it."""
+    return torch.bfloat16 if cfg.COMPUTE_DTYPE == "bfloat16" else torch.float32
+
+
+def adam_dtypes(cfg: Config) -> Dict:
+    """``adam_init``'s storage options for both trainers, as JAX
+    ``build_pcaa``/``build_orced`` choose them: mu bf16 under bf16 compute,
+    nu bf16 with ``BF16_ADAM_NU``, and ``optax.adam``'s b1 rounding where
+    the JAX package takes ``optax.adam`` (neither ``BF16_ADAM_NU`` nor
+    ``FUSED_ADAM``)."""
+    return dict(mu_dtype=compute_dtype(cfg),
+                nu_dtype=torch.bfloat16 if cfg.BF16_ADAM_NU else torch.float32,
+                optax_mu=not (cfg.BF16_ADAM_NU or cfg.FUSED_ADAM))
 
 
 def _check_supported(cfg: Config, spec: VariantSpec) -> None:
     if spec.use_disc_head and spec.name != "V4":
         raise ValueError(f"variant {spec.name}: the discriminator projection head is V4-only")
     if cfg.DEFERRED_DECODER_UPDATE:
-        raise NotImplementedError("DEFERRED_DECODER_UPDATE is not ported")
+        raise NotImplementedError(
+            "DEFERRED_DECODER_UPDATE is not ported (ROADMAP.md Queue 1 item 14)")
     check_unported(cfg)
 
 
@@ -152,16 +179,19 @@ class PCAAModules(nn.Module):
     def __init__(self, cfg: Config, spec: VariantSpec, generator: torch.Generator):
         super().__init__()
         n, latent = cfg.n_classes, cfg.SUP_LATENT_DIM
+        dtype = compute_dtype(cfg)  # the encoder and the decoder only, as in JAX
         g = {"encoder": CGEncoder(
             n, in_features=cfg.NFEATURES, sup_latent_dim=latent,
             pointnet_out_dim=cfg.POINTNET_OUT_DIM, dtc_filters=tuple(cfg.DTC_FILTERS),
             use_projection_head=spec.use_enc_head, generator=generator,
+            compute_dtype=dtype,
         )}
         if spec.use_dec_head:
             g["dec_head"] = ProjectionHead(latent, 2 * latent, generator)
         if spec.use_decoder:
             dec_in = 2 * latent if spec.use_dec_head else latent
-            g["decoder"] = CGDecoder(dec_in, cfg.NSTEPS, cfg.NMAX, cfg.NFEATURES, generator)
+            g["decoder"] = CGDecoder(dec_in, cfg.NSTEPS, cfg.NMAX, cfg.NFEATURES, generator,
+                                     compute_dtype=dtype)
         self.g = nn.ModuleDict(g)
         d = {"discriminator": CGDiscriminator(latent, n, generator)}
         if spec.use_disc_head:
@@ -196,8 +226,8 @@ def build_pcaa(cfg: Config, spec: VariantSpec, *,
     )
     noise = torch.Generator(device=device).manual_seed(cfg.SEED + 1)
     state = PCAAState(
-        opt_g=adam_init(mods.g.named_parameters()),
-        opt_d=adam_init(mods.d.named_parameters()),
+        opt_g=adam_init(mods.g.named_parameters(), **adam_dtypes(cfg)),
+        opt_d=adam_init(mods.d.named_parameters(), **adam_dtypes(cfg)),
         centroids=torch.from_numpy(centroids).to(device),
         generator=noise,
     )
@@ -226,6 +256,7 @@ def make_train_step(mods: PCAAModules, cfg: Config):
     g_params = dict(mods.g.named_parameters())
     d_params = dict(mods.d.named_parameters())
     adam = dict(lr=cfg.LR, b1=cfg.B1, b2=cfg.B2)
+    store_dtype = compute_dtype(cfg)
 
     def step(state: PCAAState, pcs: torch.Tensor, labels: torch.Tensor, step_idx: int,
              inject: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
@@ -235,7 +266,7 @@ def make_train_step(mods: PCAAModules, cfg: Config):
 
         # --- ONE train-mode encoder forward for the whole step -------------
         if cfg.FUSED_POINTNET:
-            logits, fv = fused_train_encoder_apply(encoder, pcs)
+            logits, fv = fused_train_encoder_apply(encoder, pcs, store_dtype)
         else:
             logits, fv = encoder(pcs)
         fv_detached = fv.detach()

@@ -12,7 +12,11 @@ flax uses, so the port needs neither flax nor the msgpack package:
 - maps with str keys, nested;
 - ext type 1 (ndarray) whose payload is the msgpack of
   ``(shape, dtype.name, C-order bytes)``; ext type 3 (numpy scalar) is
-  decoded the same way.
+  decoded the same way. numpy has no bfloat16, so a ``"bfloat16"`` array
+  (flax writes the bits of ``ml_dtypes.bfloat16``) is read as uint16 bits
+  viewed as a ``torch.bfloat16`` tensor, and a bf16 tensor is written in
+  that layout: a bf16 run's resume state round-trips, and a flax-written
+  bf16 tree reads with the same bits.
 
 Arrays above flax's 1 GiB chunking limit are not supported. A file is
 written as a list of chunks, each array's data a view of its buffer, and
@@ -37,9 +41,17 @@ import struct
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
+
+
+class _Bf16Bits(np.ndarray):
+    """The int16 bits of a bf16 array, written with dtype name "bfloat16"."""
+
+    def __new__(cls, bits: np.ndarray) -> "_Bf16Bits":
+        return np.asarray(bits, order="C").view(cls)
 
 
 def _pack_len(out: bytearray, n: int, fix: Optional[int], codes: tuple) -> None:
@@ -97,14 +109,18 @@ def _pack(obj: Any, out) -> None:
     """msgpack as the ``msgpack`` package writes it (``use_bin_type``),
     for the types of a flax tree and of its ndarray payloads, into a
     ``_Chunks`` (or a bytearray, for trees without arrays)."""
-    if isinstance(obj, (np.ndarray, np.generic)):
+    if isinstance(obj, torch.Tensor):
+        if obj.dtype != torch.bfloat16:
+            raise TypeError(f"only bf16 tensors are written as such, got {obj.dtype}")
+        _pack(_Bf16Bits(obj.detach().cpu().contiguous().view(torch.int16).numpy()), out)
+    elif isinstance(obj, (np.ndarray, np.generic)):
         arr = np.asarray(obj, order="C")
         if arr.dtype.hasobject or arr.dtype.fields is not None:
             raise TypeError(f"unsupported dtype {arr.dtype}")
         # the payload: the msgpack of (shape, dtype name, C-order bytes)
         head = bytearray((0x93,))
         _pack(list(arr.shape), head)
-        _pack(arr.dtype.name, head)
+        _pack("bfloat16" if isinstance(obj, _Bf16Bits) else arr.dtype.name, head)
         _pack_len(head, arr.nbytes, None, (0xC4, 0xC5, 0xC6))
         n = len(head) + arr.nbytes
         if n in _FIXEXT:
@@ -236,8 +252,10 @@ class _Reader:
             raise ValueError(f"unsupported msgpack ext type {code}")
         shape, dtype_name, buf = unpackb(payload)
         if dtype_name == "bfloat16":
-            raise ValueError("bfloat16 arrays are not supported")
-        arr = np.frombuffer(buf, dtype=np.dtype(dtype_name)).reshape(shape)
+            bits = np.frombuffer(buf, dtype=np.int16).reshape(shape)
+            arr = torch.from_numpy(bits).view(torch.bfloat16)
+        else:
+            arr = np.frombuffer(buf, dtype=np.dtype(dtype_name)).reshape(shape)
         return arr if code == _EXT_NDARRAY else arr[()]
 
 
@@ -254,7 +272,7 @@ def unpackb(data) -> Any:
 def _sorted_tree(tree: Any) -> Any:
     if isinstance(tree, dict):
         return {k: _sorted_tree(tree[k]) for k in sorted(tree)}
-    return np.asarray(tree)
+    return tree if isinstance(tree, torch.Tensor) else np.asarray(tree)
 
 
 def save_params(variables: Dict[str, Any], path: str) -> None:

@@ -1,0 +1,86 @@
+"""The drivers' bf16 flags: ``run_pcaa_ablation`` and ``run_orced`` with
+``--compute-dtype bfloat16`` (and ``--bf16-adam-nu``) make the JAX
+drivers' calls with the same flags, configurations included; a bf16
+ablation trains end to end at tiny dims on the CPU and writes f32 module
+files that the port's inference reads; ``--bf16-weight-cache`` and
+``--grid`` still raise ``NotImplementedError`` (ROADMAP.md Queue 1 items 14
+and 11) for both drivers, before any split is written.
+"""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+
+import scripts.run_orced as jax_orced
+import scripts.run_pcaa_ablation as jax_rpa
+
+from opensetgaitrecognition_pcaa_tpu_torch.config import Config
+from opensetgaitrecognition_pcaa_tpu_torch.scripts import run_orced, run_pcaa_ablation
+from opensetgaitrecognition_pcaa_tpu_torch.train.run_folder import load_params
+from tests.test_scripts import TINY
+from tests.test_torch_drivers import _record, one_torch_thread, raw10  # noqa: F401
+
+DRIVERS = {  # driver → (JAX module, port module, the functions it calls)
+    "run_pcaa_ablation": (jax_rpa, run_pcaa_ablation, ("generate_splits", "train_pcaa")),
+    "run_orced": (jax_orced, run_orced, ("generate_splits", "train_orced")),
+}
+
+
+@pytest.mark.parametrize("flags", [["--compute-dtype", "bfloat16"],
+                                   ["--compute-dtype", "bfloat16", "--bf16-adam-nu"],
+                                   ["--bf16-adam-nu"]],
+                         ids=["bf16", "bf16_adam_nu", "f32_adam_nu"])
+@pytest.mark.parametrize("driver", list(DRIVERS))
+def test_bf16_flags_make_the_jax_driver_s_calls(driver, flags, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    jax_module, port_module, names = DRIVERS[driver]
+    argv = ["--data-path", "raw", "--n-training-classes", "3", "--n-tests", "2", *flags]
+    want = _record(jax_module, names, monkeypatch)
+    monkeypatch.setattr(sys, "argv", [driver, *argv])
+    jax_module.main()
+    got = _record(port_module, names, monkeypatch)
+    port_module.main(argv + ["--device", "cpu"])
+    trains = [kw for name, _, kw in got if name.startswith("train_")]
+    for kwargs in trains:
+        assert kwargs.pop("device") == "cpu"
+    assert len(trains) > 0 and got == want
+    configs = [args[0] for name, args, _ in got if name.startswith("train_")]
+    dtype = "bfloat16" if "bfloat16" in flags else "float32"
+    assert all(f'"COMPUTE_DTYPE": "{dtype}"' in c for c in configs)
+    assert all(f'"BF16_ADAM_NU": {str("--bf16-adam-nu" in flags).lower()}' in c
+               for c in configs)
+
+
+@pytest.mark.parametrize("extra,match", [(["--grid"], "item 11"),
+                                         (["--bf16-weight-cache"], "item 14"),
+                                         (["--compute-dtype", "bfloat16", "--bf16-weight-cache"],
+                                          "item 14")],
+                         ids=["grid", "bf16_weight_cache", "bf16_with_cache"])
+@pytest.mark.parametrize("driver", list(DRIVERS))
+def test_unported_modes_still_raise(driver, extra, match, tmp_path):
+    module = DRIVERS[driver][1]
+    with pytest.raises(NotImplementedError, match=match):
+        module.main(["--data-path", str(tmp_path / "raw"), "--gen-data-path",
+                     str(tmp_path / "gen"), "--models-path", str(tmp_path / "m"), *extra])
+    assert not os.path.exists(tmp_path / "gen")
+
+
+def test_bf16_ablation_trains_and_writes_f32_files(raw10, tmp_path, monkeypatch):  # noqa: F811
+    """One bf16 + nu16 V4 run through the driver, 1 epoch at tiny dims: the
+    run's config says bf16, its module files hold f32 weights."""
+    monkeypatch.setattr(run_pcaa_ablation, "default_config",
+                        lambda **kw: Config(TRAIN_CLASSES=(0, 1), **{**TINY, **kw}))
+    models = str(tmp_path / "models")
+    run_pcaa_ablation.main(["--data-path", raw10, "--gen-data-path", str(tmp_path / "gen"),
+                            "--models-path", models, "--n-training-classes", "2",
+                            "--n-tests", "1", "--variants", "V4", "--epochs", "1",
+                            "--compute-dtype", "bfloat16", "--bf16-adam-nu", "--device", "cpu"])
+    name = "PCAA_Abl2_V4.2.1"
+    cfg = Config.load(os.path.join(models, name, "config.json"))
+    assert cfg.COMPUTE_DTYPE == "bfloat16" and cfg.BF16_ADAM_NU
+    enc = load_params(os.path.join(models, name, f"{name}_E.msgpack"))
+    kernel = enc["params"]["GaitBackbone_0"]["PointNetBlock_0"]["TorchDense_0"]["kernel"]
+    assert isinstance(kernel, np.ndarray) and kernel.dtype == np.float32
+    assert np.isfinite(kernel).all()

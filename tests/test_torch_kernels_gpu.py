@@ -260,6 +260,115 @@ def test_pointnet_train_raises_instead_of_falling_back():
         pt.fused_layer(h, affine, w.cpu(), b)
 
 
+# --- the bf16 variants of the train-mode PointNet kernels ------------------
+
+BF16 = torch.bfloat16
+# one bf16 rounding step (8 significant bits) apart, at most, and near
+# zero the f32 sum order's error, as the f32 layer kernel's test allows
+BF16_STEP = dict(rtol=2.0**-7, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "rows,c_in,c_out,with_affine",
+    [(222, 4, 16, False), (222, 16, 24, True), (5000, 512, 512, True), (3001, 1024, 1024, True),
+     (6, 4, 512, False), (6, 512, 1024, True), (300, 36, 132, True), (72000, 4, 512, False),
+     (222, 5, 512, False), (222, 5, 15, False), (222, 15, 15, True), (222, 15, 30, True),
+     (222, 30, 30, True)],
+    ids=["ragged_2x3x37_k4", "ragged_cols", "w512", "w1024", "n1_k4", "n1_w1024",
+         "ragged_k36_n132", "train_rows_k4", "nfeatures5", "nfeatures5_out15", "w15",
+         "w15_30", "w30"],
+)
+def test_layer_kernel_bf16_matches_plain(rows, c_in, c_out, with_affine):
+    """The bf16 layer kernel against its plain version: both round h to bf16
+    with the same operations, so y differs only by the order of its f32
+    sums: one bf16 rounding step at most where the sum sits on a boundary;
+    the statistics are f32 sums of the unrounded y, as at f32."""
+    _needs_card()
+    h, affine, w, b = _layer_case(np.random.default_rng(3), rows, c_in, c_out, with_affine)
+    h = h.to(BF16)
+    before = pt.fused_layer.launches_bf16
+    got = pt.fused_layer(h, affine, w, b)
+    torch.cuda.synchronize()
+    assert pt.fused_layer.launches_bf16 == before + 1
+    want = pt.fused_layer_ref(h, affine, w, b)
+    assert got[0].dtype == want[0].dtype == BF16 and got[0].shape == (rows, c_out)
+    torch.testing.assert_close(got[0].float(), want[0].float(), **BF16_STEP)
+    for g, wt in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, wt, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_layer_kernel_bf16_is_deterministic():
+    _needs_card()
+    h, affine, w, b = _layer_case(np.random.default_rng(15), 5000, 512, 1024, True)
+    first = pt.fused_layer(h.to(BF16), affine, w, b)
+    second = pt.fused_layer(h.to(BF16), affine, w, b)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(6, 37, 16), (97, 150, 1024)], ids=["ragged", "n150_d1024"])
+def test_pool_kernel_bf16_matches_plain(shape):
+    _needs_card()
+    rng = np.random.default_rng(4)
+    y = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda().to(BF16)
+    d = shape[-1]
+    affine = torch.from_numpy(np.stack([
+        rng.normal(0, 0.5, d), rng.uniform(0.5, 2.0, d), rng.normal(0, 0.3, d),
+    ]).astype(np.float32)).cuda()
+    before = pt.fused_pool.launches_bf16
+    got = pt.fused_pool(y, affine)
+    torch.cuda.synchronize()
+    assert pt.fused_pool.launches_bf16 == before + 1 and got.dtype == torch.float32
+    torch.testing.assert_close(got, pt.fused_pool_ref(y, affine), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "widths",
+    [[(4, 8), (8, 8), (8, 16), (16, 16)], [(5, 15), (15, 15), (15, 30), (30, 30)]],
+    ids=["w4_16", "nfeatures5_d30_padded"],
+)
+def test_pointnet_train_bf16_on_the_card_equals_the_cpu(widths):
+    """The bf16 autograd Function on the card (the bf16 kernels forward,
+    cuBLAS's bf16 GEMMs with f32 output backward) against the same Function
+    on the CPU (plain versions, f32 GEMMs of the bf16 values): the same
+    roundings, sums in other orders, so a bf16 value may sit one step away
+    and move what follows; held at rtol 1e-2 with atol 1e-2 of each
+    output's scale."""
+    _needs_card()
+    rng = np.random.default_rng(5)
+    c, d = widths[0][0], widths[-1][1]
+    x = rng.normal(size=(2, 3, 37, c)).astype(np.float32)
+    layers = [((rng.uniform(-1, 1, (a, c)) / np.sqrt(a)).astype(np.float32),
+               rng.uniform(-0.1, 0.1, c).astype(np.float32),
+               (1 + 0.2 * rng.normal(size=c)).astype(np.float32),
+               (0.1 * rng.normal(size=c)).astype(np.float32)) for a, c in widths]
+    cot = rng.normal(size=(2, 3, d)).astype(np.float32)
+    grads = []
+    before = (pt.fused_layer.launches_bf16, pt.fused_pool.launches_bf16)
+    for device in ("cuda", "cpu"):
+        params = [[torch.tensor(a, device=device, requires_grad=True) for a in layer]
+                  for layer in layers]
+        xt = torch.tensor(x, device=device, requires_grad=True)
+        pooled, means, variances = pt.pointnet_pool_train(xt, params, BF16)
+        torch.sum(pooled * torch.from_numpy(cot).to(device)).backward()
+        grads.append([t.detach().cpu() for t in [pooled, *means, *variances, xt.grad]
+                      + [p.grad for layer in params for p in layer]])
+    assert (pt.fused_layer.launches_bf16, pt.fused_pool.launches_bf16) == (
+        before[0] + 4, before[1] + 1)
+    for i, (got, want) in enumerate(zip(*grads)):
+        assert got.shape == want.shape and got.dtype == torch.float32, i
+        # a dense bias ahead of a train-mode BatchNorm has a zero gradient
+        # up to rounding: held against its layer's W gradient's scale
+        scale = want if i < 10 or (i - 10) % 4 != 1 else grads[1][i - 1]
+        torch.testing.assert_close(got, want, rtol=1e-2,
+                                   atol=1e-2 * float(scale.abs().max()) + 1e-6, msg=str(i))
+
+
 # --- Adam -------------------------------------------------------------------
 
 def _adam_leaf(rng, shape, device="cuda"):
@@ -287,6 +396,32 @@ def test_adam_kernel_matches_plain(shape):
     # the kernel rounds every operation as the plain version does
     for g, wt in zip(got[1:], want[1:]):
         torch.testing.assert_close(g, wt, rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("moments", ["m16", "mv16"])
+@pytest.mark.parametrize("shape", [(136, 648), (1001, 3), (2048, 1025)],
+                         ids=["leaf_136x648", "ragged_tail3", "big"])
+def test_adam_kernel_bf16_moments_bitwise(moments, shape):
+    """The bf16-moment variants round every operation and the stored
+    moments (nearest even) as the plain version does: the same bits."""
+    _needs_card()
+    s1, s2 = adam.adam_scalars(3, 1e-4, 0.9, 0.99)
+    coeffs = dict(s1=s1, s2=s2, b1=0.9, b2=0.99, eps=1e-8)
+    got = _adam_leaf(np.random.default_rng(7), shape)
+    got[2] = got[2].to(BF16)
+    if moments == "mv16":
+        got[3] = got[3].to(BF16)
+    want = [t.clone() for t in got]
+    counter = "launches_" + moments
+    before = getattr(adam.adam_update_, counter)
+    for _ in range(3):
+        adam.adam_update_(*got, **coeffs)
+        adam.adam_update_ref_(*want, **coeffs)
+    torch.cuda.synchronize()
+    assert getattr(adam.adam_update_, counter) == before + 3
+    for g, wt in zip(got[1:], want[1:]):
+        assert g.dtype == wt.dtype and torch.equal(g, wt)
 
 
 @pytest.mark.gpu
@@ -372,6 +507,51 @@ def test_variant_step_kernels_match_plain(variant, dph, adam_launches):
         plain, kernel = losses[False][key], losses[True][key]
         assert np.isfinite(kernel) and abs(kernel - plain) <= 1e-3 * max(abs(plain), 1.0), key
     assert (losses[True]["rec_loss"] == 0.0) == (variant == "V3")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nu16", [False, True], ids=["bf16", "bf16_nu16"])
+def test_v4_step_bf16_kernels_match_plain(nu16):
+    """A bf16 V4 step (``COMPUTE_DTYPE="bfloat16"``, with and without
+    ``BF16_ADAM_NU``) through the bf16 kernels and plain: losses within
+    1e-2 relative to max(|plain|, 1) (bf16 values one rounding step apart
+    move what follows), the bf16 variants launched and the f32 ones not."""
+    from opensetgaitrecognition_pcaa_tpu_torch.config import VARIATION, Config
+    from opensetgaitrecognition_pcaa_tpu_torch.train.pcaa import (
+        VARIANTS,
+        build_pcaa,
+        make_train_step,
+    )
+
+    _needs_card()
+    cfg = Config(COMPUTE_DTYPE="bfloat16", BF16_ADAM_NU=nu16, **VARIANT_DIMS)
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.normal(size=(8, 12, 64, 4)).astype(np.float32)).cuda()
+    y = torch.from_numpy(np.arange(8, dtype=np.int32) % 3).cuda()
+    noise = (torch.from_numpy(rng.normal(size=(8, 16)).astype(np.float32)).cuda(),
+             torch.from_numpy(rng.uniform(size=(8, 1)).astype(np.float32)).cuda())
+    adam_counter = "launches_mv16" if nu16 else "launches_m16"
+
+    def counts():
+        return (pt.fused_layer.launches_bf16, pt.fused_pool.launches_bf16,
+                getattr(adam.adam_update_, adam_counter), pt.fused_layer.launches,
+                pt.fused_pool.launches, adam.adam_update_.launches)
+
+    losses = {}
+    for fused in (False, True):
+        run_cfg = cfg.replace(FUSED_POINTNET=fused, FUSED_ADAM=fused)
+        mods, state = build_pcaa(run_cfg, VARIANTS[VARIATION.V4], device="cuda")
+        before = counts()
+        _, m = make_train_step(mods, run_cfg)(state, x, y, 0, noise)
+        torch.cuda.synchronize()
+        assert tuple(b - a for a, b in zip(before, counts())) == (
+            (4, 1, 1, 0, 0, 0) if fused else (0,) * 6)
+        assert all(v.dtype == BF16 for v in state.opt_g.mu.values())
+        assert all((v.dtype == BF16) == nu16 for v in state.opt_g.nu.values())
+        losses[fused] = {k: float(v) for k, v in m.items()}
+    for key in ("rec_loss", "d_loss", "sup_loss", "tot_loss"):
+        plain, kernel = losses[False][key], losses[True][key]
+        assert np.isfinite(kernel) and abs(kernel - plain) <= 1e-2 * max(abs(plain), 1.0), key
 
 
 # --- Chamfer ------------------------------------------------------------------

@@ -329,14 +329,11 @@ def test_port_trained_run_folder_scores_in_jax(trained):
     [
         ({"FUSED_ADAM": True}, ValueError, "PCAA-only"),
         ({"DEFERRED_DECODER_UPDATE": True}, ValueError, "PCAA-only"),
-        ({"COMPUTE_DTYPE": "bfloat16"}, NotImplementedError, "f32"),
-        ({"BF16_ADAM_NU": True}, NotImplementedError, "BF16_ADAM_NU"),
-        ({"FACTORED_ADAM_NU": True}, NotImplementedError, "FACTORED_ADAM_NU"),
-        ({"BF16_WEIGHT_CACHE": True}, NotImplementedError, "BF16_WEIGHT_CACHE"),
-        ({"DP_DEVICES": 2}, NotImplementedError, "parallelism"),
+        ({"FACTORED_ADAM_NU": True}, NotImplementedError, "FACTORED_ADAM_NU.*item 14"),
+        ({"BF16_WEIGHT_CACHE": True}, NotImplementedError, "BF16_WEIGHT_CACHE.*item 14"),
+        ({"DP_DEVICES": 2}, NotImplementedError, "parallelism.*item 11"),
     ],
-    ids=["fused_adam", "deferred", "bf16", "bf16_nu", "factored_nu", "bf16_cache",
-         "data_parallel"],
+    ids=["fused_adam", "deferred", "factored_nu", "bf16_cache", "data_parallel"],
 )
 def test_unported_options_raise(tmp_path, overrides, error, match):
     cfg = Config(MODELS_PATH=str(tmp_path), MODEL_NAME="X_ORCED", EPOCHS=1,

@@ -319,14 +319,12 @@ def test_port_trained_run_folder_scores_in_jax(trained):
 @pytest.mark.parametrize(
     "variation,overrides,kwargs,match",
     [
-        (VARIATION.V4, {"COMPUTE_DTYPE": "bfloat16"}, {}, "f32"),
-        (VARIATION.V4, {"BF16_ADAM_NU": True}, {}, "BF16_ADAM_NU"),
-        (VARIATION.V4, {"FACTORED_ADAM_NU": True}, {}, "FACTORED_ADAM_NU"),
-        (VARIATION.V4, {"DEFERRED_DECODER_UPDATE": True}, {}, "DEFERRED_DECODER_UPDATE"),
-        (VARIATION.V4, {"BF16_WEIGHT_CACHE": True}, {}, "BF16_WEIGHT_CACHE"),
-        (VARIATION.V4, {"DP_DEVICES": 2}, {}, "parallelism"),
+        (VARIATION.V4, {"FACTORED_ADAM_NU": True}, {}, "FACTORED_ADAM_NU.*item 14"),
+        (VARIATION.V4, {"DEFERRED_DECODER_UPDATE": True}, {}, "DEFERRED_DECODER_UPDATE.*item 14"),
+        (VARIATION.V4, {"BF16_WEIGHT_CACHE": True}, {}, "BF16_WEIGHT_CACHE.*item 14"),
+        (VARIATION.V4, {"DP_DEVICES": 2}, {}, "parallelism.*item 11"),
     ],
-    ids=["bf16", "bf16_nu", "factored_nu", "deferred", "bf16_cache", "data_parallel"],
+    ids=["factored_nu", "deferred", "bf16_cache", "data_parallel"],
 )
 def test_unported_options_raise(tmp_path, variation, overrides, kwargs, match):
     cfg = Config(MODELS_PATH=str(tmp_path), MODEL_NAME="X_V4", EPOCHS=1, **{**DIMS, **overrides})
