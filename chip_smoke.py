@@ -109,13 +109,18 @@ with seeded random weights and seeded crop files. Phases:
       scenario at ks 6 and 1 (the JAX driver's file names, finite F1);
       ``collect_results`` lists every folder;
 11. bf16 training (``COMPUTE_DTYPE="bfloat16"``, ``BF16_ADAM_NU``):
-   a. the bf16 layer kernel (+ its statistics), the bf16-input pool
-      kernel and the Adam kernel with m bf16 and with m and v bf16 against
-      their plain versions at the training shapes and at ragged and
-      padded ones (y within one bf16 rounding step, Adam bitwise), timed
-      plain, kernel, kernel, plain; the bf16 PointNet autograd Function
-      on the card against the same Function on the CPU at the published
-      widths (rtol 1e-2);
+   a. the bf16 layer kernel's ptxas report (no spills); the bf16 layer
+      kernel (+ its statistics), the bf16-input pool kernel and the Adam
+      kernel with m bf16 and with m and v bf16 against their plain
+      versions at the training shapes and at ragged and padded ones (y
+      within one bf16 rounding step, Adam bitwise); the layer at the
+      step's four widths and the pool timed plain, kernel, kernel, plain,
+      two launches of each bitwise equal, the kernels' device time from
+      torch.profiler, the layer at layer 3's shape with the identity
+      prologue beside the affine one, and cuBLAS's bf16 GEMM alone at the
+      four shapes (``gemm_ms``, a yardstick); Adam timed the same way; the
+      bf16 PointNet autograd Function on the card against the same
+      Function on the CPU at the published widths (rtol 1e-2);
    b. the full-width V4 step at B = 16 from one seeded state, f32, bf16
       and bf16 + nu16 through the kernels and bf16 + nu16 plain: ms per
       step, windows/s, device time by kind (torch.profiler, 3 warm
@@ -151,7 +156,8 @@ Files go to ``build/chip_smoke/``.
 ``--serve-artifacts DIR`` is phase 10's fresh process.
 ``python3 chip_smoke.py --chamfer-timing`` builds only the Chamfer kernel
 and runs phase 7a's timing, for comparing trees of the port in one call;
-``--codec-timing`` times the run-folder codec alone the same way.
+``--codec-timing`` times the run-folder codec alone the same way, and
+``--pointnet-bf16-timing`` phase 11a's bf16 layer and pool timing.
 ``--precision-gate`` runs the bf16 tiers' quality gate alone: V4 on a
 synthetic split, 3 seeds x 4 epochs each under f32, bf16 and bf16 + nu16
 (the kernels on), best valid accuracy and windows/s per seed and the
@@ -239,6 +245,7 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_STEP = dict(rtol=2.0**-7, atol=1e-4)
 BF16_LOSS_RTOL = 1e-2
 BF16_TIMED_STEPS = 4  # the first pays set-up; then 3 under torch.profiler
+BF16_LAYER_WIDTHS = ((4, 512), (512, 512), (512, 1024), (1024, 1024))  # a step's 4 layers
 BF16_NAME_BASE = "SMOKE_BF16_"
 # --precision-gate: V4 on a synthetic split, paired seeds (tools/
 # gate_optimizer_quality.py's method), f32 against the two bf16 tiers
@@ -1269,8 +1276,9 @@ def _busy_ms(prof, steps: int) -> tuple:
             continue
         ms = e.device_time_total / 1e3 / steps
         low = e.key.lower()
-        group = ("layer_kernel" if "tf32x3" in low or "bf16mma" in low
-                 else "pool_kernel" if "pool_kernel" in low or "stats_kernel" in low
+        group = ("layer_kernel" if "tf32x3" in low or "bf16mma" in low or "wgmma_bf16" in low
+                 else "pool_kernel" if any(w in low for w in ("pool_kernel", "pool_bf16",
+                                                               "stats_kernel"))
                  else "adam_kernel" if "adam_kernel" in low
                  else "conv" if any(w in low for w in ("conv", "cudnn", "fprop", "dgrad", "wgrad"))
                  else "gemm" if "gemm" in low or "cutlass" in low or "xmma" in low
@@ -2117,6 +2125,147 @@ def reset_bf16_counts() -> None:
     adam.adam_update_.launches_m16 = adam.adam_update_.launches_mv16 = 0
 
 
+def ptxas_report(log: str, needle: str) -> list:
+    """nvcc's ``-Xptxas -v`` lines (registers, shared memory, spills) and any
+    ptxas line on wgmma or setmaxnreg, for the entry functions whose mangled
+    name holds ``needle``."""
+    lines, entry = [], ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+            continue
+        hit = needle in entry and ("registers" in line or "spill" in line)
+        if hit or "wgmma" in line or "setmaxnreg" in line:
+            lines.append(f"{entry}: {line.strip()}" if hit else line.strip())
+    return lines
+
+
+def device_ms(fn, names, calls: int = 5) -> tuple:
+    """torch.profiler over ``calls`` calls of ``fn`` after one warm-up →
+    (device ms a call of the kernel whose name holds one of ``names``,
+    launched once a call, and device ms a call of every kernel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace now and then misses kernels: take another
+        mine = total = 0.0
+        seen = 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            total += e.device_time_total
+            if any(n in e.key for n in names):
+                mine += e.device_time_total
+                seen += e.count
+        if seen == calls:
+            break
+    assert mine > 0, f"torch.profiler saw no device time of {names}"
+    return mine / calls / 1e3, total / calls / 1e3
+
+
+def time_bf16_pointnet(card: str) -> dict:
+    """The bf16 layer kernel at the step's four widths (72,000 rows) and the
+    bf16 pool at (480, 150, 1024), each against its plain version in the
+    order plain, kernel, kernel, plain (CUDA events, 5 calls a turn); at
+    layer 3's shape the layer without its affine (the identity prologue)
+    beside it; cuBLAS's bf16 GEMM alone at the four shapes (``gemm_ms``:
+    bf16 h and W^T in, f32 out, no prologue and no statistics, so a
+    yardstick of the MMAs and not a ``library_ms``); two launches of each
+    kernel bitwise equal; torch.profiler's device time of the kernel alone
+    and of the wrapper's whole call (its padding, W^T cast and statistics
+    reduction included). Times per layer and their mean per launch, with
+    the bounds: bf16 operations at 989 TFLOP/s or the bytes, whichever is
+    larger."""
+    import torch
+
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import pointnet_train as pt
+
+    bf16 = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, device="cuda", generator=g) * scale + shift
+
+    def affine(c):
+        return torch.stack([randn(c, scale=0.3, shift=0.5), randn(c, scale=0.1, shift=0.5),
+                            randn(c, scale=0.3)]).contiguous()
+
+    rows = TRAIN_B * 30 * 150
+    order = ("plain", "kernel", "kernel", "plain")
+    out = dict(layers=[], layer_ms=0.0, layer_plain_ms=0.0)
+    flops = moved = 0
+    for c_in, c_out in BF16_LAYER_WIDTHS:
+        h = randn(rows, c_in, scale=2.0, shift=0.5).to(bf16)
+        a = None if c_in == 4 else affine(c_in)
+        w = randn(c_in, c_out, scale=c_in ** -0.5)
+        b = randn(c_out, scale=0.1)
+        first, second = pt.fused_layer(h, a, w, b), pt.fused_layer(h, a, w, b)
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(first, second)), (c_in, c_out)
+        t = alternate({"kernel": lambda: pt.fused_layer(h, a, w, b),
+                       "plain": lambda: pt.fused_layer_ref(h, a, w, b)}, order, reps=5)
+        hp, _, wp, _ = pt.pad_layer(h, a, w, b, multiple=8)
+        wt = wp.t().to(bf16).contiguous()
+        gemm = cuda_ms(lambda: torch.mm(hp, wt.t(), out_dtype=torch.float32), reps=5)
+        kdev, cdev = device_ms(lambda: pt.fused_layer(h, a, w, b), ("layer_kernel", "gemm_kernel"))
+        f = 2 * rows * c_in * c_out
+        m = nbytes(h, w, b, *first) + (0 if a is None else nbytes(a))
+        bms, by = bound(f, m, BF16_FLOPS)
+        flops, moved = flops + f, moved + m
+        out["layers"].append(dict(shape=[rows, c_in, c_out], ms=t["kernel"], plain_ms=t["plain"],
+                                  gemm_ms=gemm, kernel_device_ms=kdev, call_device_ms=cdev,
+                                  bound_ms=bms, bound_by=by))
+        out["layer_ms"] += t["kernel"] / len(BF16_LAYER_WIDTHS)
+        out["layer_plain_ms"] += t["plain"] / len(BF16_LAYER_WIDTHS)
+        log(f"phase 11a: bf16 layer at ({rows}, {c_in}->{c_out}): kernel {t['kernel']:.4f} ms, "
+            f"plain {t['plain']:.4f} ms; bound {bms:.4f} ms by {by}, "
+            f"{100 * bms / t['kernel']:.1f}% of the kernel's time; device time (profiler) of "
+            f"the kernel {kdev:.4f} ms, of the wrapper's call {cdev:.4f} ms; two launches "
+            f"bitwise equal [{card}]")
+        log(f"phase 11a: gemm_ms {gemm:.4f} at ({rows}, {c_in}->{c_out}): cuBLAS bf16 GEMM alone "
+            f"(torch.mm, f32 out; no prologue, no statistics) [{card}]")
+        del first, second, hp, wt
+    # the prologue's share at layer 3's shape: the same layer with the
+    # identity prologue (no normalize, no ELU) in turns with the affine one
+    t = alternate({"affine": lambda: pt.fused_layer(h, a, w, b),
+                   "identity": lambda: pt.fused_layer(h, None, w, b)},
+                  ("affine", "identity", "identity", "affine"), reps=5)
+    out["layer3_affine_ms"], out["layer3_identity_ms"] = t["affine"], t["identity"]
+    log(f"phase 11a: bf16 layer at ({rows}, 1024->1024): affine prologue {t['affine']:.4f} ms, "
+        f"identity prologue {t['identity']:.4f} ms: the prologue's share "
+        f"{100 * (1 - t['identity'] / t['affine']):.1f}% [{card}]")
+    del h, w, b
+    bms, by = bound(flops, moved, BF16_FLOPS)
+    out["layer_bound_ms"], out["layer_bound_by"] = bms / len(BF16_LAYER_WIDTHS), by
+    log(f"phase 11a: the 4 bf16 layers of a step: kernel {4 * out['layer_ms']:.3f} ms, plain "
+        f"{4 * out['layer_plain_ms']:.3f} ms; bound {bms:.3f} ms by {by} "
+        f"({flops / 1e9:.1f} GFLOP at 989 TFLOP/s, {moved / 1e6:.1f} MB), "
+        f"{100 * bms / (4 * out['layer_ms']):.1f}% of the kernel's time; per launch: kernel "
+        f"{out['layer_ms']:.4f} ms, plain {out['layer_plain_ms']:.4f} ms [{card}]")
+
+    y = randn(TRAIN_B * 30, 150, 1024, scale=2.0, shift=0.5).to(bf16)
+    a = affine(1024)
+    first, second = pt.fused_pool(y, a), pt.fused_pool(y, a)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    t = alternate({"kernel": lambda: pt.fused_pool(y, a), "plain": lambda: pt.fused_pool_ref(y, a)},
+                  order, reps=5)
+    kdev, _ = device_ms(lambda: pt.fused_pool(y, a), ("pool",))
+    # per element: normalize (3 operations), ELU, sum, in f32 on the CUDA cores
+    bms, by = bound(6 * y.numel(), nbytes(y, a) + TRAIN_B * 30 * 1024 * 4)
+    out.update(pool_ms=t["kernel"], pool_plain_ms=t["plain"], pool_device_ms=kdev,
+               pool_bound_ms=bms, pool_bound_by=by)
+    log(f"phase 11a: bf16 pool at ({TRAIN_B * 30}, 150, 1024): kernel {t['kernel']:.4f} ms, "
+        f"plain {t['plain']:.4f} ms; bound {bms:.4f} ms by {by}, "
+        f"{100 * bms / t['kernel']:.1f}% of the kernel's time; device time (profiler) "
+        f"{kdev:.4f} ms; two launches bitwise equal [{card}]")
+    return out
+
+
 def check_bf16_kernels(card: str) -> dict:
     """Phase 11a: the bf16 variants against their plain versions at the
     training path's shapes and at ragged and padded ones, times in the
@@ -2125,8 +2274,15 @@ def check_bf16_kernels(card: str) -> dict:
     plain_ms, bound_ms, bound_by, library_ms)."""
     import torch
 
-    from opensetgaitrecognition_pcaa_tpu_torch.ops import adam
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import _build, adam
     from opensetgaitrecognition_pcaa_tpu_torch.ops import pointnet_train as pt
+
+    # the bf16 kernels' ptxas report: registers, shared memory, no spills
+    report = ptxas_report(_build.BUILD_LOGS.get("pointnet_train", ""), "bf16")
+    for line in report:
+        log(f"phase 11a: nvcc pointnet_train {line}")
+    spills = [line for line in report if "spill" in line]
+    assert spills and all("0 bytes spill stores, 0 bytes spill loads" in s for s in spills), spills
 
     bf16 = torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(SEED + 11)
@@ -2140,17 +2296,14 @@ def check_bf16_kernels(card: str) -> dict:
 
     rows = TRAIN_B * 30 * 150
     out = {}
-    err, ms = 0.0, {"kernel": 0.0, "plain": 0.0}
-    flops = moved = 0
+    err = 0.0
     # the training widths, ragged rows, N = 1, then the widths the wrapper
     # pads to multiples of 8: NFEATURES = 5 and POINTNET_OUT_DIM = 30
-    for n, c_in, c_out, timed in ((rows, 4, 512, True), (rows, 512, 512, True),
-                                  (rows, 512, 1024, True), (rows, 1024, 1024, True),
-                                  (2 * 3 * 37, 4, 512, False), (2 * 3 * 37, 512, 1024, False),
-                                  (2 * 3 * 1, 4, 512, False), (2 * 3 * 1, 512, 1024, False),
-                                  (rows, 5, 512, False), (2 * 3 * 37, 5, 15, False),
-                                  (2 * 3 * 37, 15, 15, False), (2 * 3 * 37, 15, 30, False),
-                                  (2 * 3 * 37, 30, 30, False)):
+    for n, c_in, c_out in ((rows, 4, 512), (rows, 512, 512), (rows, 512, 1024),
+                           (rows, 1024, 1024), (2 * 3 * 37, 4, 512), (2 * 3 * 37, 512, 1024),
+                           (2 * 3 * 1, 4, 512), (2 * 3 * 1, 512, 1024), (rows, 5, 512),
+                           (2 * 3 * 37, 5, 15), (2 * 3 * 37, 15, 15), (2 * 3 * 37, 15, 30),
+                           (2 * 3 * 37, 30, 30)):
         h = randn(n, c_in, scale=2.0, shift=0.5).to(bf16)
         a = None if c_in in (4, 5) else affine(c_in)
         w = randn(c_in, c_out, scale=c_in ** -0.5)
@@ -2166,30 +2319,11 @@ def check_bf16_kernels(card: str) -> dict:
             torch.testing.assert_close(u, v, rtol=1e-4, atol=1e-4)
         e = max(float((u.float() - v.float()).abs().max()) for u, v in zip(got, want))
         err = max(err, e)
-        line = (f"phase 11a: bf16 layer kernel vs plain at ({n}, {c_in}->{c_out}): max |diff| "
-                f"{e:.3e}")
-        if timed:
-            t = alternate({"kernel": lambda: pt.fused_layer(h, a, w, b),
-                           "plain": lambda: pt.fused_layer_ref(h, a, w, b)},
-                          ("plain", "kernel", "kernel", "plain"), reps=5)
-            for k in ms:
-                ms[k] += t[k]
-            flops += 2 * n * c_in * c_out
-            moved += nbytes(h, w, b, *got) + (0 if a is None else nbytes(a))
-            line += f"; kernel {t['kernel']:.3f} ms, plain {t['plain']:.3f} ms [{card}]"
-        log(line)
+        log(f"phase 11a: bf16 layer kernel vs plain at ({n}, {c_in}->{c_out}): max |diff| "
+            f"{e:.3e}")
         del h, got, want
-    bms, by = bound(flops, moved, BF16_FLOPS)
-    # the record is per launch: the mean of the step's 4 layers
-    out["layer"] = dict(err=err, ms=ms["kernel"] / 4, plain_ms=ms["plain"] / 4, library_ms=None,
-                        bound_ms=bms / 4, bound_by=by, bound_route="bf16")
-    log(f"phase 11a: the 4 bf16 layers of a step: kernel {ms['kernel']:.3f} ms, plain "
-        f"{ms['plain']:.3f} ms (y within one bf16 step, mean and var rtol 1e-4, atol 1e-4); "
-        f"bound {bms:.3f} ms by {by} ({flops / 1e9:.1f} GFLOP at 989 TFLOP/s, "
-        f"{moved / 1e6:.1f} MB), {100 * bms / ms['kernel']:.1f}% of the kernel's time; per "
-        f"launch: kernel {ms['kernel'] / 4:.4f} ms, plain {ms['plain'] / 4:.4f} ms [{card}]")
 
-    err = 0.0
+    pool_err = 0.0
     for frames, n in ((TRAIN_B * 30, 150), (2 * 3, 37)):
         y = randn(frames, n, 1024, scale=2.0, shift=0.5).to(bf16)
         a = affine(1024)
@@ -2200,18 +2334,16 @@ def check_bf16_kernels(card: str) -> dict:
         want = pt.fused_pool_ref(y, a)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
         e = float((got - want).abs().max())
-        err = max(err, e)
+        pool_err = max(pool_err, e)
         log(f"phase 11a: bf16 pool kernel vs plain at ({frames}, {n}, 1024): max |diff| {e:.3e}")
-    y = randn(TRAIN_B * 30, 150, 1024, scale=2.0, shift=0.5).to(bf16)
-    t = alternate({"kernel": lambda: pt.fused_pool(y, a), "plain": lambda: pt.fused_pool_ref(y, a)},
-                  ("plain", "kernel", "kernel", "plain"), reps=5)
-    # per element: normalize (2 fma), ELU, sum, in f32 on the CUDA cores
-    bms, by = bound(6 * y.numel(), nbytes(y, a) + TRAIN_B * 30 * 1024 * 4)
-    out["pool"] = dict(err=err, ms=t["kernel"], plain_ms=t["plain"], bound_ms=bms, bound_by=by,
+        del y
+    t = time_bf16_pointnet(card)
+    out["layer"] = dict(err=err, ms=t["layer_ms"], plain_ms=t["layer_plain_ms"], library_ms=None,
+                        bound_ms=t["layer_bound_ms"], bound_by=t["layer_bound_by"],
+                        bound_route="bf16")
+    out["pool"] = dict(err=pool_err, ms=t["pool_ms"], plain_ms=t["pool_plain_ms"],
+                       bound_ms=t["pool_bound_ms"], bound_by=t["pool_bound_by"],
                        bound_route="f32", library_ms=None)
-    log(f"phase 11a: bf16 pool at ({TRAIN_B * 30}, 150, 1024): kernel {t['kernel']:.3f} ms, "
-        f"plain {t['plain']:.3f} ms (rtol 1e-5, atol 1e-5); bound {bms:.4f} ms by {by} [{card}]")
-    del y
 
     s1, s2 = adam.adam_scalars(3, 1e-4, 0.9, 0.99)
     coeffs = dict(s1=s1, s2=s2, b1=0.9, b2=0.99, eps=1e-8)
@@ -2586,6 +2718,25 @@ def chamfer_timing_only() -> int:
     return 0
 
 
+def pointnet_bf16_timing() -> int:
+    """``--pointnet-bf16-timing``: build the train-mode PointNet kernels of
+    the tree this file lies in and time the bf16 layer and pool as phase
+    11a does, one JSON line at the end. To compare two trees, copy this file
+    into each and run both in one call."""
+    from opensetgaitrecognition_pcaa_tpu_torch.infer.common import ieee_f32
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import _build
+
+    card = card_name()
+    log(card)
+    ieee_f32()
+    _build.load_libraries(("pointnet_train",))
+    for line in ptxas_report(_build.BUILD_LOGS.get("pointnet_train", ""), "bf16"):
+        log(f"  nvcc pointnet_train: {line}")
+    log(json.dumps({"pointnet_bf16_timing": time_bf16_pointnet(card), "card": card,
+                    "tree": REPO}))
+    return 0
+
+
 def codec_timing() -> int:
     """``--codec-timing``: the run-folder codec of the tree this file lies
     in, on arrays of the full-width decoder's shapes: ``save_params`` and
@@ -2634,6 +2785,8 @@ def main() -> int:
         return chamfer_timing_only()
     if sys.argv[1:] == ["--codec-timing"]:
         return codec_timing()
+    if sys.argv[1:] == ["--pointnet-bf16-timing"]:
+        return pointnet_bf16_timing()
     if sys.argv[1:] == ["--precision-gate"]:
         return precision_gate()
     if sys.argv[1:2] == ["--serve-artifacts"]:

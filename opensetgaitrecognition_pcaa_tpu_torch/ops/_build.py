@@ -1,9 +1,10 @@
 """Build the package's CUDA sources with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
-into ``<repo>/build/kernels/lib<name>_<hash>.so``; the hash covers the
-source, every ``csrc/`` header it includes and the flags, so an edited
-source or header is rebuilt and a stale library is never loaded. Nothing
+into ``<repo>/build/kernels/lib<name>_<hash>.so``, nvcc's output beside it
+as ``lib<name>_<hash>.log``; the hash covers the source, every ``csrc/``
+header it includes and the flags, so an edited source or header is rebuilt
+and a stale library is never loaded. Nothing
 here runs at import time: the CPU tests import every module on machines
 without nvcc.
 """
@@ -33,7 +34,8 @@ NVCC_FLAGS = (
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-# nvcc's output (ptxas register and shared-memory report) per built library
+# nvcc's output (ptxas register and shared-memory report) per loaded library,
+# read back from the log beside a library built by an earlier process
 BUILD_LOGS: Dict[str, str] = {}
 
 
@@ -100,10 +102,13 @@ def load_library(name: str) -> ctypes.CDLL:
                     f"nvcc failed on {src} (exit {proc.returncode}):\n"
                     + BUILD_LOGS[name]
                 )
+            so_path.with_suffix(".log").write_text(BUILD_LOGS[name])
             os.replace(tmp, so_path)
         finally:
             if os.path.exists(tmp):
                 os.remove(tmp)
+    elif name not in BUILD_LOGS and so_path.with_suffix(".log").exists():
+        BUILD_LOGS[name] = so_path.with_suffix(".log").read_text()
     lib = ctypes.CDLL(str(so_path))
     _LIBS[name] = lib
     return lib

@@ -43,8 +43,11 @@ autograd differentiates on its own.
   accumulation; the f32 bias is added; Σy and Σy² are taken from the
   unrounded f32 y, which is then stored as bf16. The pool reads bf16 y
   and computes and writes f32. On the card these are the bf16 variants
-  of the two kernels (``mma.sync`` bf16 with f32 accumulation), which
-  take widths that are multiples of 8 (``pad_layer(..., multiple=8)``);
+  of the two kernels (the layer a warp-specialised ``wgmma`` kernel fed
+  by TMA, with the BatchNorm + ELU applied to its A fragments in
+  registers), which take widths that are multiples of 8
+  (``pad_layer(..., multiple=8)``) and tensors that start on 16-byte
+  boundaries (``check_aligned``);
 - backward: the stored ys are upcast, the BatchNorm and ELU backward runs
   in f32, and the wgrad and dgrad take bf16 operands with f32
   accumulation and an f32 result (``mm_bf16``: an f32 GEMM of the bf16
@@ -125,6 +128,9 @@ def _library() -> ctypes.CDLL:
     lib.pointnet_train_pool_bf16.restype = ctypes.c_int
     lib.pointnet_train_row_tile.argtypes = []
     lib.pointnet_train_row_tile.restype = ctypes.c_int
+    lib.pointnet_train_bf16_elu.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong,
+                                                                      ctypes.c_void_p]
+    lib.pointnet_train_bf16_elu.restype = ctypes.c_int
     return lib
 
 
@@ -161,6 +167,15 @@ def _check_layer_args(h, affine, w, b) -> Tuple[int, int, int]:
     return rows, c_in, c_out
 
 
+def check_aligned(name: str, t: torch.Tensor) -> None:
+    """Raise unless ``t`` starts on a 16-byte boundary: the bf16 layer
+    kernel reads h and W^T with TMA, the affine in 16-byte loads, and
+    writes y in 16-byte stores."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary for the bf16 layer kernel, "
+                         f"got address {t.data_ptr():#x}")
+
+
 def pad_layer(h: torch.Tensor, affine: Optional[torch.Tensor], w: torch.Tensor,
               b: torch.Tensor, multiple: int = 4):
     """Zero-pad C_in and C_out to multiples of ``multiple`` (4 for the f32
@@ -192,7 +207,9 @@ def fused_layer(h: torch.Tensor, affine: Optional[torch.Tensor], w: torch.Tensor
     A CPU tensor takes ``fused_layer_ref``; a CUDA tensor launches the
     layer kernel of its dtype and the fixed-order reduction, or raises.
     Widths that are not multiples of 4 (f32) or 8 (bf16) are padded
-    (``pad_layer``) and sliced back.
+    (``pad_layer``) and sliced back. The bf16 kernel stages the affine in
+    shared memory beside at least 3 ring stages, which holds C_in up to
+    6784; a wider C_in raises.
     """
     if h.device.type == "cpu":
         return fused_layer_ref(h, affine, w, b)
@@ -203,7 +220,7 @@ def fused_layer(h: torch.Tensor, affine: Optional[torch.Tensor], w: torch.Tensor
     h, affine, w, b = pad_layer(h, affine, w, b, multiple=8 if bf16 else 4)
     c_in, c_out = w.shape
     lib = _library()
-    row_tile = lib.pointnet_train_row_tile()  # rows per block of the layer kernel
+    row_tile = lib.pointnet_train_row_tile()  # rows per block of both layer kernels
     y = torch.empty((rows, c_out), dtype=h.dtype, device=h.device)
     partials = torch.empty((-(-rows // row_tile), 2, c_out), dtype=torch.float32,
                            device=h.device)
@@ -214,6 +231,10 @@ def fused_layer(h: torch.Tensor, affine: Optional[torch.Tensor], w: torch.Tensor
         stream = torch.cuda.current_stream(h.device).cuda_stream
         # the kernel reads W K-major: (C_out, C_in), in h's dtype
         wt = w.t().to(h.dtype).contiguous()
+        if bf16:
+            for name, t in (("h", h), ("wt", wt), ("y", y), ("affine", affine)):
+                if t is not None:
+                    check_aligned(name, t)
         err = fn(h.data_ptr(), None if affine is None else affine.data_ptr(), wt.data_ptr(),
                  b.data_ptr(), y.data_ptr(), partials.data_ptr(), mean.data_ptr(),
                  var.data_ptr(), rows, c_in, c_out, stream)
@@ -226,6 +247,21 @@ def fused_layer(h: torch.Tensor, affine: Optional[torch.Tensor], w: torch.Tensor
     if c_out != c_real:
         y, mean, var = y[:, :c_real].contiguous(), mean[:c_real], var[:c_real]
     return y, mean, var
+
+
+def prologue_elu(x: torch.Tensor) -> torch.Tensor:
+    """The bf16 layer kernel's ELU (its branch-free ``expm1f``) on a CUDA
+    f32 tensor, elementwise: what the card tests hold to ``F.elu``."""
+    if x.device.type != "cuda" or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("prologue_elu takes a contiguous float32 CUDA tensor")
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = _library().pointnet_train_bf16_elu(
+            x.data_ptr(), out.data_ptr(), x.numel(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"pointnet_train ELU kernel launch failed: cudaError {err}")
+    return out
 
 
 def fused_pool(y: torch.Tensor, affine: torch.Tensor) -> torch.Tensor:

@@ -54,3 +54,23 @@ def test_digest_follows_a_redirected_source_dir(tmp_path, monkeypatch):
     header = copy / "tf32x3.cuh"
     header.write_text(header.read_text() + "// edited\n")
     assert _build.source_digest("pointnet_train") != shipped
+
+
+def test_a_cached_library_brings_back_its_build_log(tmp_path, monkeypatch):
+    # a library built by an earlier process is loaded without nvcc, and its
+    # ptxas report comes from the log written beside it at the build
+    src = tmp_path / "csrc"
+    src.mkdir()
+    _tree(src)
+    build = tmp_path / "kernels"
+    build.mkdir()
+    monkeypatch.setattr(_build, "SRC_DIR", src)
+    monkeypatch.setattr(_build, "BUILD_DIR", build)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "BUILD_LOGS", {})
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: ("loaded", path))
+    so = build / f"libk_{_build.source_digest('k', src)}.so"
+    so.write_bytes(b"")
+    so.with_suffix(".log").write_text("ptxas info    : Used 168 registers\n")
+    assert _build.load_library("k") == ("loaded", str(so))
+    assert _build.BUILD_LOGS["k"] == "ptxas info    : Used 168 registers\n"

@@ -299,6 +299,72 @@ def test_layer_kernel_bf16_matches_plain(rows, c_in, c_out, with_affine):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize(
+    "rows,c_in,c_out,with_affine",
+    [(72000, 512, 512, True), (64 * 5 + 1, 512, 256, True), (37, 64, 256, True),
+     (222, 8, 512, False), (222, 8, 512, True), (300, 512, 1536, True), (130, 4096, 256, True)],
+    ids=["half_tile_72000", "64k_plus_1", "rows_below_64", "k8", "k8_affine", "n1536",
+         "k4096_three_stages"],
+)
+def test_layer_kernel_bf16_tile_edges(rows, c_in, c_out, with_affine):
+    """The bf16 layer kernel where its tiles end: row counts that end a
+    64-row warpgroup half but not a 128-row tile (72,000) or one row past a
+    half, fewer rows than a half, K = 8 (one 64-wide TMA box, zero past
+    K in A, h and W^T) with and without the affine, C_out = 1536 (six
+    256-column tiles), and K = 4096, whose staged affine leaves room for 3
+    ring stages, not 4; the same bounds as above."""
+    _needs_card()
+    h, affine, w, b = _layer_case(np.random.default_rng(16), rows, c_in, c_out, with_affine)
+    h = h.to(BF16)
+    before = pt.fused_layer.launches_bf16
+    got = pt.fused_layer(h, affine, w, b)
+    torch.cuda.synchronize()
+    assert pt.fused_layer.launches_bf16 == before + 1
+    want = pt.fused_layer_ref(h, affine, w, b)
+    assert got[0].dtype == BF16 and got[0].shape == (rows, c_out)
+    torch.testing.assert_close(got[0].float(), want[0].float(), **BF16_STEP)
+    for g, wt in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, wt, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_layer_kernel_bf16_raises_on_a_misaligned_input():
+    """TMA needs 16-byte-aligned bases: a contiguous view of h at a 2-byte
+    offset raises, and launches nothing."""
+    _needs_card()
+    h, affine, w, b = _layer_case(np.random.default_rng(17), 64, 16, 16, True)
+    flat = torch.empty(64 * 16 + 1, dtype=BF16, device="cuda")
+    shifted = flat[1:].view(64, 16)
+    shifted.copy_(h.to(BF16))
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    before = pt.fused_layer.launches_bf16
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        pt.fused_layer(shifted, affine, w, b)
+    assert pt.fused_layer.launches_bf16 == before
+
+
+@pytest.mark.gpu
+def test_layer_prologue_elu_is_f_elu_on_every_float():
+    """The bf16 layer kernel's branch-free ELU (its own copy of expm1f for
+    x <= 0) against F.elu on all 2^32 f32 bit patterns, in chunks: equal
+    values everywhere, a NaN for a NaN (expm1f(-0) is -0 where the kernel
+    gives +0, an equal value). Equal h is what keeps the kernel's y within
+    one bf16 step of the plain version's."""
+    _needs_card()
+    chunk = 1 << 28
+    for start in range(0, 1 << 32, chunk):
+        bits = torch.arange(start, start + chunk, dtype=torch.int64, device="cuda")
+        bits = torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(torch.int32)
+        x = bits.view(torch.float32)
+        got, want = pt.prologue_elu(x), torch.nn.functional.elu(x)
+        same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+        bad = (~same).nonzero()
+        assert bad.numel() == 0, (start, x[bad[:5, 0]].tolist(), got[bad[:5, 0]].tolist(),
+                                  want[bad[:5, 0]].tolist())
+        del bits, x, got, want, same
+
+
+@pytest.mark.gpu
 def test_layer_kernel_bf16_is_deterministic():
     _needs_card()
     h, affine, w, b = _layer_case(np.random.default_rng(15), 5000, 512, 1024, True)
@@ -324,6 +390,61 @@ def test_pool_kernel_bf16_matches_plain(shape):
     torch.cuda.synchronize()
     assert pt.fused_pool.launches_bf16 == before + 1 and got.dtype == torch.float32
     torch.testing.assert_close(got, pt.fused_pool_ref(y, affine), rtol=1e-5, atol=1e-6)
+
+
+def _pool_case(rng, shape):
+    d = shape[-1]
+    y = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda().to(BF16)
+    affine = torch.from_numpy(np.stack([
+        rng.normal(0, 0.5, d), rng.uniform(0.5, 2.0, d), rng.normal(0, 0.3, d),
+    ]).astype(np.float32)).cuda()
+    return y, affine
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,offset", [((6, 37, 30), 0), ((5, 150, 1000), 0), ((4, 37, 64), 1)],
+                         ids=["d30_elementwise", "d1000_partial_block", "misaligned_y"])
+def test_pool_kernel_bf16_edges(shape, offset):
+    """The bf16 pool's element-by-element path (d not a multiple of 8, or y
+    not 16-byte aligned) and a channel block cut by d, at the same bounds
+    as above."""
+    _needs_card()
+    y, affine = _pool_case(np.random.default_rng(18), shape)
+    if offset:
+        flat = torch.empty(y.numel() + offset, dtype=BF16, device="cuda")
+        y = flat[offset:].view(shape).copy_(y)
+        assert y.is_contiguous() and y.data_ptr() % 16 == 2 * offset
+    before = pt.fused_pool.launches_bf16
+    got = pt.fused_pool(y, affine)
+    torch.cuda.synchronize()
+    assert pt.fused_pool.launches_bf16 == before + 1
+    torch.testing.assert_close(got, pt.fused_pool_ref(y, affine), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_pool_kernel_bf16_is_deterministic():
+    """The splits' partial sums meet in a fixed order: two launches give
+    the same bits."""
+    _needs_card()
+    y, affine = _pool_case(np.random.default_rng(19), (97, 150, 1024))
+    first = pt.fused_pool(y, affine)
+    second = pt.fused_pool(y, affine)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 8], ids=["aligned", "offset_2_bytes", "offset_16_bytes"])
+def test_check_aligned(offset):
+    """The bf16 layer wrapper's alignment check, on CPU tensors: a base
+    that is not a multiple of 16 bytes raises with the tensor's name."""
+    flat = torch.zeros(64 + 8 * 8, dtype=BF16)
+    base = flat.data_ptr() % 16 // 2  # elements to the first 16-byte boundary
+    t = flat[(8 - base) % 8 + offset:][:64].view(8, 8)
+    if offset % 8:
+        with pytest.raises(ValueError, match="h must start on a 16-byte boundary"):
+            pt.check_aligned("h", t)
+    else:
+        pt.check_aligned("h", t)
 
 
 @pytest.mark.gpu
