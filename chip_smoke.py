@@ -3,8 +3,9 @@
 
 Drives the port's main paths, V4 open-set inference and in-process serving,
 V4 training, OR-CED open-set inference, serving and training, the PCAA
-ablation (every variant, its CLI, the resume), the serving artifacts
-and the remaining sequential drivers, at the full width
+ablation (every variant, its CLI, the resume), the serving artifacts,
+the remaining sequential drivers and both drivers' ``--grid`` mode, at the
+full width
 of the published models (NMAX=150, NSTEPS=30, C=4, PointNet width 1024,
 TCN filters 16..512, latent 32; decoder S = 18000, 215.2M parameters),
 with seeded random weights and seeded crop files. Phases:
@@ -111,7 +112,8 @@ with seeded random weights and seeded crop files. Phases:
 11. bf16 training (``COMPUTE_DTYPE="bfloat16"``, ``BF16_ADAM_NU``):
    a. the bf16 layer kernel's ptxas report (no spills); the bf16 layer
       kernel (+ its statistics), the bf16-input pool kernel and the Adam
-      kernel with m bf16 and with m and v bf16 against their plain
+      kernel with m bf16, with m and v bf16 and with v bf16 (f32 compute
+      with ``BF16_ADAM_NU``) against their plain
       versions at the training shapes and at ragged and padded ones (y
       within one bf16 rounding step, Adam bitwise); the layer at the
       step's four widths and the pool timed plain, kernel, kernel, plain,
@@ -128,7 +130,21 @@ with seeded random weights and seeded crop files. Phases:
       relative of plain; the ORCED step at f32 and bf16 + nu16;
    c. ``run_pcaa_ablation --compute-dtype bfloat16 --bf16-adam-nu``
       (kernels on) trains V4 for one epoch on phase 8's raw tracks, and
-      ``pcaa_inference`` scores the folder through the inference kernel.
+      ``pcaa_inference`` scores the folder through the inference kernel;
+12. the drivers' ``--grid`` mode (``parallel/grid.py``) on phase 8's raw
+   tracks, ``--n-training-classes 6 --n-tests 2 --epochs 1``:
+   a. ``run_pcaa_ablation --grid --variants V4`` (kernels on) trains one
+      chunk of 2 runs, then the sequential driver the same 2
+      runs: seconds and peak device memory of each, launches (layer, pool,
+      Adam) (4, 1, 4) a step taken, each run's epoch losses within
+      LOSS_RTOL of its sequential twin; the device's busy share over
+      GRID_PROFILE_STEPS steps a run (torch.profiler's device time
+      over the host clock of an unprofiled epoch), for 2 runs and for 1;
+   b. the same chunk at f32 with ``--bf16-adam-nu``: the Adam kernel with v
+      bf16 launched 4 times a step;
+   c. ``run_orced --grid`` (no kernel) and the sequential driver on the
+      same 2 runs: seconds, memory, losses within ORCED_GRID_RTOL;
+   d. both ``--grid`` calls again: both splits skipped, none written.
 
 It exits non-zero, with no result line, when there is no CUDA card or a
 phase fails. The line before the last is the per-kernel JSON record (its
@@ -137,9 +153,10 @@ driven with the counts at 0: phases 3, 4, 6c, 7c, 7d, 8c, 9b and 10 (the
 ORCED export's calibration, the orced_inference it is held against, the
 fresh process's requests, the sequential scripts' scoring) for the PointNet
 inference kernel (and 11c), 6b's kernel steps, 6c, 9a's first kernel
-steps, 9b's training, 9c's PCAA runs and 10d's training for the f32
-training kernels, 11b's kernel steps and 11c's training for their bf16
-variants, 7c, 7d, 8c and 10b for the Chamfer kernel; the Chamfer kernel's ``ms`` is its device
+steps, 9b's training, 9c's PCAA runs, 10d's training and 12a-b's driver
+calls for the f32 training kernels, 11b's kernel steps and 11c's training
+for their bf16 variants, 12b's grid for the Adam kernel with v bf16, 7c,
+7d, 8c and 10b for the Chamfer kernel; the Chamfer kernel's ``ms`` is its device
 time per launch at (64, 30, 150, 4) from the CUDA graph, every other
 ``ms`` CUDA events around calls of the wrapper; ``bound_ms`` is the
 larger of the operations over 67 TFLOP/s and the bytes over 3.35 TB/s, the H100 SXM's
@@ -247,6 +264,17 @@ BF16_LOSS_RTOL = 1e-2
 BF16_TIMED_STEPS = 4  # the first pays set-up; then 3 under torch.profiler
 BF16_LAYER_WIDTHS = ((4, 512), (512, 512), (512, 1024), (1024, 1024))  # a step's 4 layers
 BF16_NAME_BASE = "SMOKE_BF16_"
+# phase 12 (the grid): run names, steps a run under the profiler,
+# and the ORCED grid's losses against the sequential driver's (two ORCED
+# runs of one configuration on the card differ, up to 1.8e-3 in phase 9c's
+# resume: cuDNN's backward-filter sums in a run-dependent order; see
+# PERF.md); the PCAA grid is held at LOSS_RTOL
+GRID_BASE = "SMOKE_GRID_"
+# traces device_ms and the grid's busy share take before they give up on
+# torch.profiler (a trace misses kernels now and then, three running at times)
+PROFILER_TRACES = 5
+GRID_PROFILE_STEPS = 3
+ORCED_GRID_RTOL = 1e-2
 # --precision-gate: V4 on a synthetic split, paired seeds (tools/
 # gate_optimizer_quality.py's method), f32 against the two bf16 tiers
 GATE_SEEDS, GATE_EPOCHS = 3, 4
@@ -2123,6 +2151,7 @@ def reset_bf16_counts() -> None:
 
     pt.fused_layer.launches_bf16 = pt.fused_pool.launches_bf16 = 0
     adam.adam_update_.launches_m16 = adam.adam_update_.launches_mv16 = 0
+    adam.adam_update_.launches_v16 = 0
 
 
 def ptxas_report(log: str, needle: str) -> list:
@@ -2140,31 +2169,54 @@ def ptxas_report(log: str, needle: str) -> list:
     return lines
 
 
+def traced_events(fn):
+    """torch.profiler's ``key_averages`` of one call of ``fn`` (which
+    synchronises), traced after a traced warm-up call: a trace's first
+    launches go missing now and then, three traces running at times."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    traced = []
+    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: traced.append(p.key_averages())) as prof:
+        for _ in range(2):
+            fn()
+            prof.step()
+    return traced[-1]
+
+
 def device_ms(fn, names, calls: int = 5) -> tuple:
     """torch.profiler over ``calls`` calls of ``fn`` after one warm-up →
     (device ms a call of the kernel whose name holds one of ``names``,
     launched once a call, and device ms a call of every kernel)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):  # a trace now and then misses kernels: take another
-        mine = total = 0.0
-        seen = 0
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        for e in prof.key_averages():
-            total += e.device_time_total
-            if any(n in e.key for n in names):
-                mine += e.device_time_total
-                seen += e.count
-        if seen == calls:
+    def run():
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+
+    run()
+    for _ in range(PROFILER_TRACES):  # a trace that still misses kernels is taken again
+        events = traced_events(run)
+        mine = [e for e in events if any(n in e.key for n in names)]
+        if sum(e.count for e in mine) == calls:
             break
-    assert mine > 0, f"torch.profiler saw no device time of {names}"
-    return mine / calls / 1e3, total / calls / 1e3
+    mine_ms = sum(e.device_time_total for e in mine) / calls / 1e3
+    total_ms = sum(e.device_time_total for e in events) / calls / 1e3
+    if mine_ms == 0:
+        # no trace held the kernel (seen on the H100 for the bf16 pool, three
+        # traces running): the device time of the whole call by CUDA events
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        mine_ms = total_ms = start.elapsed_time(end) / calls
+        log(f"device_ms: torch.profiler saw no {names} kernel in {PROFILER_TRACES} traces; "
+            f"CUDA events around the call instead: {mine_ms:.4f} ms")
+    assert mine_ms > 0, f"no device time of {names}"
+    return mine_ms, total_ms
 
 
 def time_bf16_pointnet(card: str) -> dict:
@@ -2347,12 +2399,14 @@ def check_bf16_kernels(card: str) -> dict:
 
     s1, s2 = adam.adam_scalars(3, 1e-4, 0.9, 0.99)
     coeffs = dict(s1=s1, s2=s2, b1=0.9, b2=0.99, eps=1e-8)
-    for variant in ("m16", "mv16"):
+    for variant in ("m16", "mv16", "v16"):  # m bf16; m and v bf16; v bf16
         counter = "launches_" + variant
         for shape in ((2047, 1025), (9000, 18000)):  # 2,098,175 elements: n % 4 == 3
-            leaf = [randn(*shape, scale=1e-2), randn(*shape), randn(*shape, scale=1e-3).to(bf16),
+            leaf = [randn(*shape, scale=1e-2), randn(*shape), randn(*shape, scale=1e-3),
                     torch.rand(shape, device="cuda", generator=g) * 1e-4]
-            if variant == "mv16":
+            if variant != "v16":
+                leaf[2] = leaf[2].to(bf16)
+            if variant != "m16":
                 leaf[3] = leaf[3].to(bf16)
             ref = [t.clone() for t in leaf]
             before = getattr(adam.adam_update_, counter)
@@ -2641,6 +2695,193 @@ def bf16_phase(card: str, gen: str) -> tuple:
                     adam_m16=step_launches[2], adam_mv16=step_launches[3] + drv["adam_mv16"])
     log(f"phase 11: {time.perf_counter() - t0:.1f} s [{card}]")
     return checks, launches, drv["infer"]
+
+
+def _grid_call(module, argv: list, kernels: bool) -> dict:
+    """One call of a driver's ``main`` (the training kernels on through its
+    base configuration where ``kernels``), output captured, split writes
+    counted → its seconds, output, writes, launches (f32 layer, pool, Adam;
+    Adam v bf16) and peak device memory above what was allocated before."""
+    import io
+
+    import torch
+
+    from opensetgaitrecognition_pcaa_tpu_torch import config as port_config
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import adam
+
+    writes = []
+    real = module.generate_splits
+    module.generate_splits = lambda **kw: writes.append(kw["train_classes"]) or real(**kw)
+    if kernels:
+        module.default_config = lambda **kw: port_config.default_config(
+            FUSED_POINTNET=True, FUSED_ADAM=True, **kw)
+    reset_train_counts()
+    reset_bf16_counts()
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            module.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        module.generate_splits = real
+        module.default_config = port_config.default_config
+    return dict(s=time.perf_counter() - t0, text=buf.getvalue(), writes=writes,
+                counts=train_counts() + (adam.adam_update_.launches_v16,),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9 - base_gb)
+
+
+def _epoch_metrics(run_dir: str) -> list:
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _hold_losses(grid_dir: str, seq_dir: str, keys, rtol: float) -> float:
+    """Each epoch's ``keys`` of a grid run within ``rtol`` of the same run
+    through the sequential driver, relative to max(|sequential|, 1) →
+    the largest such gap."""
+    worst = 0.0
+    got, want = _epoch_metrics(grid_dir), _epoch_metrics(seq_dir)
+    assert len(got) == len(want) > 0, (grid_dir, len(got), len(want))
+    for g, w in zip(got, want):
+        for k in keys:
+            assert np.isfinite(g[k]), (grid_dir, k)
+            gap = abs(g[k] - w[k]) / max(abs(w[k]), 1.0)
+            assert gap <= rtol, (grid_dir, k, g[k], w[k])
+            worst = max(worst, gap)
+    return worst
+
+
+def _busy_share(trainer, layer_launches: int) -> tuple:
+    """One warm grid epoch of ``trainer``, one on the host clock, then one
+    traced by ``traced_events`` (retaken where it still misses launches of
+    the f32 layer kernel, the ``tf32x3`` engine's GEMM) → (device ms of an
+    epoch, host ms of an epoch, busy share)."""
+    import torch
+
+    def epoch():
+        trainer.run_epoch(0)
+        torch.cuda.synchronize()
+
+    epoch()
+    t0 = time.perf_counter()
+    epoch()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    for _ in range(PROFILER_TRACES):
+        events = traced_events(epoch)
+        seen = sum(e.count for e in events if "tf32x3" in e.key)
+        if seen == layer_launches:
+            break
+    assert seen == layer_launches, (seen, layer_launches)
+    device_ms = sum(e.device_time_total for e in events) / 1e3
+    return device_ms, host_ms, device_ms / host_ms
+
+
+def grid_phase(card: str) -> dict:
+    """Phase 12: the ``--grid`` mode of both drivers on phase 8's raw tracks
+    at the published widths, 6 classes, 2 splits, 1 epoch, beside the same
+    runs through the sequential drivers; the grid's busy share; the
+    grid at f32 with ``--bf16-adam-nu``; a second call of each grid
+    skipping both splits → launches of the training kernels (f32 layer,
+    pool, Adam; Adam v bf16)."""
+    import torch
+
+    from opensetgaitrecognition_pcaa_tpu_torch.config import SPLIT, VARIATION
+    from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import RadarCropDataset
+    from opensetgaitrecognition_pcaa_tpu_torch.parallel.grid import GridPCAATrainer
+    from opensetgaitrecognition_pcaa_tpu_torch.scripts import run_orced
+    from opensetgaitrecognition_pcaa_tpu_torch.scripts import run_pcaa_ablation as rpa
+
+    t_phase = time.perf_counter()
+    raw = os.path.join(WORK, "raw")
+    runs = [f"{GRID_BASE}V4.{N_SEEN}.{i + 1}" for i in range(2)]
+
+    def argv(tag, *extra):
+        return ["--data-path", raw, "--gen-data-path", os.path.join(WORK, f"gen_{tag}"),
+                "--models-path", os.path.join(WORK, f"models_{tag}"), "--n-training-classes",
+                str(N_SEEN), "--n-tests", "2", "--epochs", "1", *extra]
+
+    pcaa = ("--model-name-base", GRID_BASE, "--variants", "V4")
+    # --- 12a. the PCAA grid chunk and the same two runs one after another ---------------
+    grid = _grid_call(rpa, argv("grid", *pcaa, "--grid"), kernels=True)
+    seq = _grid_call(rpa, argv("gridseq", *pcaa), kernels=True)
+    assert "=== grid-training V4 n_tr=6 (splits [1, 2] lockstep, unsharded) ===" in grid["text"]
+    gens = [os.path.join(WORK, f"gen_grid_grid{N_SEEN}_{i}") for i in range(2)]
+    steps = [len(RadarCropDataset(SPLIT.TRAIN, g)) // TRAIN_B for g in gens]
+    want = (4 * sum(steps), sum(steps), 4 * sum(steps), 0)
+    assert grid["counts"] == want and seq["counts"] == want, (grid["counts"], seq["counts"])
+    assert grid["writes"] == seq["writes"] and len(grid["writes"]) == 2
+    gap = max(_hold_losses(os.path.join(WORK, "models_grid", r),
+                           os.path.join(WORK, "models_gridseq", r),
+                           ("Total Loss Train", "Discriminator Loss"), LOSS_RTOL) for r in runs)
+    accs = [line.strip() for line in grid["text"].splitlines() if "best valid accs" in line]
+    log(f"phase 12a: run_pcaa_ablation --grid (kernels on) trained {runs} as one chunk, 1 epoch "
+        f"of {steps} steps, in {grid['s']:.2f} s with the 2 splits' write and the run folders; "
+        f"the same runs one after another (sequential driver) {seq['s']:.2f} s; peak device "
+        f"memory {grid['peak_gb']:.2f} GB for the chunk of 2 against {seq['peak_gb']:.2f} GB "
+        f"for a run; launches (layer, pool, adam, adam v16) {grid['counts']} each; epoch "
+        f"losses grid vs sequential within {gap:.3e} (bound {LOSS_RTOL}); {accs} [{card}]")
+
+    # the grid's device busy share, GRID_PROFILE_STEPS steps a run, against one run alone
+    data = [RadarCropDataset(SPLIT.TRAIN, g).load_all() for g in gens]
+    cut = [(x[:GRID_PROFILE_STEPS * TRAIN_B], y[:GRID_PROFILE_STEPS * TRAIN_B]) for x, y in data]
+    busy = {}
+    for n_runs in (1, 2):
+        cfgs = [full_width(FUSED_POINTNET=True, FUSED_ADAM=True).replace(SEED=i)
+                for i in range(n_runs)]
+        trainer = GridPCAATrainer(cfgs, VARIATION.V4, cut[:n_runs], device="cuda")
+        busy[n_runs] = _busy_share(trainer, 4 * GRID_PROFILE_STEPS * n_runs)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase 12a: device busy share over {GRID_PROFILE_STEPS} V4 steps a run (f32, kernels "
+        f"on, torch.profiler's device time over the host clock of an unprofiled epoch): "
+        f"2 runs in a grid {busy[2][0]:.2f} of {busy[2][1]:.2f} ms = {busy[2][2]:.3f}; one "
+        f"run alone {busy[1][0]:.2f} of {busy[1][1]:.2f} ms = {busy[1][2]:.3f} [{card}]")
+
+    # --- 12b. the grid at f32 with --bf16-adam-nu: the Adam kernel with v bf16 ----------
+    nu16 = _grid_call(rpa, argv("grid", *pcaa, "--grid", "--bf16-adam-nu",
+                                "--models-path", os.path.join(WORK, "models_grid_nu16")),
+                      kernels=True)
+    assert nu16["counts"] == (4 * sum(steps), sum(steps), 0, 4 * sum(steps)), nu16["counts"]
+    for r in runs:
+        rec = _epoch_metrics(os.path.join(WORK, "models_grid_nu16", r))
+        assert all(np.isfinite(v) for e in rec for v in e.values()), r
+    log(f"phase 12b: run_pcaa_ablation --grid --bf16-adam-nu at f32 (kernels on): "
+        f"{nu16['s']:.2f} s, peak {nu16['peak_gb']:.2f} GB; launches (layer, pool, adam, adam "
+        f"v16) {nu16['counts']} [{card}]")
+
+    # --- 12c. the ORCED grid chunk and the same runs one after another -----------------
+    ogrid = _grid_call(run_orced, argv("ogrid", "--grid"), kernels=False)
+    oseq = _grid_call(run_orced, argv("ogridseq"), kernels=False)
+    assert "=== grid-training ORCED n_tr=6 (splits [1, 2] lockstep, unsharded) ===" \
+        in ogrid["text"]
+    assert ogrid["counts"] == oseq["counts"] == (0, 0, 0, 0)
+    ogap = max(_hold_losses(os.path.join(WORK, "models_ogrid", r),
+                            os.path.join(WORK, "models_ogridseq", r),
+                            ("Total Loss Train", "KL Loss", "Triplet Loss"), ORCED_GRID_RTOL)
+               for r in (f"ORCED_.{N_SEEN}.{i + 1}" for i in range(2)))
+    log(f"phase 12c: run_orced --grid trained 2 runs as one chunk, 1 epoch, in "
+        f"{ogrid['s']:.2f} s with the splits' write and the run folders; one after another "
+        f"{oseq['s']:.2f} s; peak {ogrid['peak_gb']:.2f} GB for the chunk against "
+        f"{oseq['peak_gb']:.2f} GB; epoch losses within {ogap:.3e} (bound {ORCED_GRID_RTOL}) "
+        f"[{card}]")
+
+    # --- 12d. second calls: both splits skipped before any is written ------------------
+    for module, args, kernels in ((rpa, argv("grid", *pcaa, "--grid"), True),
+                                  (run_orced, argv("ogrid", "--grid"), False)):
+        again = _grid_call(module, args, kernels)
+        assert "    skipping completed splits [1, 2]" in again["text"], again["text"]
+        assert again["writes"] == [] and "=== grid-training" not in again["text"]
+        assert again["counts"] == (0, 0, 0, 0)
+        log(f"phase 12d: {module.__name__.split('.')[-1]} --grid again: both splits skipped, "
+            f"none written, {again['s']:.3f} s")
+    log(f"phase 12: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    c = [grid["counts"][i] + seq["counts"][i] + nu16["counts"][i] for i in range(4)]
+    return dict(layer=c[0], pool=c[1], adam=c[2], adam_v16=c[3])
 
 
 def precision_gate() -> int:
@@ -3023,6 +3264,11 @@ def main() -> int:
     bf16_checks, bf16_launches, bf16_infer = bf16_phase(card, gen)
     main_launches += bf16_infer
 
+    # --- 12. the drivers' --grid mode ---------------------------------------------------
+    grid_launches = grid_phase(card)
+    for k in ("layer", "pool", "adam"):
+        train_launches[k] += grid_launches[k]
+
     checks["infer"] = dict(err=max_err, ms=pn_ms["kernel"], plain_ms=pn_ms["plain"],
                            library_ms=None, **pn_bound)
     src = "opensetgaitrecognition_pcaa_tpu_torch/csrc/"
@@ -3046,6 +3292,8 @@ def main() -> int:
          bf16_launches["adam_m16"], bf16_checks["adam_m16"]),
         ("fused_adam_tree_update/_adam_block_kernel (m, v bf16)", "adam.cu", "adam_kernel.py:60",
          bf16_launches["adam_mv16"], bf16_checks["adam_mv16"]),
+        ("fused_adam_tree_update/_adam_block_kernel (v bf16)", "adam.cu", "adam_kernel.py:60",
+         grid_launches["adam_v16"], bf16_checks["adam_v16"]),
     ]
     for name, _, _, launches, _ in kernels:
         assert launches > 0, f"the main path never launched {name}"
@@ -3056,7 +3304,7 @@ def main() -> int:
          "bound_route": c["bound_route"]}
         for name, source, replaces, launches, c in kernels
     ]}
-    log(f"chip_smoke: phases 1-11 in {time.perf_counter() - t_start:.1f} s [{card}]")
+    log(f"chip_smoke: phases 1-12 in {time.perf_counter() - t_start:.1f} s [{card}]")
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

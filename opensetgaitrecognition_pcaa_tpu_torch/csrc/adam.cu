@@ -1,6 +1,6 @@
 // One-pass Adam update of one leaf, written by hand for Hopper (sm_90a): g
-// and w f32, the moments m and v each f32 or bf16 (three variants: f32;
-// m bf16; m and v bf16).
+// and w f32, the moments m and v each f32 or bf16 (four variants: f32;
+// m bf16; m and v bf16; v bf16).
 //
 // Replaces opensetgaitrecognition_pcaa_tpu/ops/pallas/adam_kernel.py::
 // _adam_block_kernel. Same update, in the same order of operations:
@@ -16,10 +16,10 @@
 // the TPU kernel's .astype at its store and adam_lowmem do.
 //
 // What bounds it: device memory. 28 bytes per element with f32 moments
-// (16 read, 12 written), 24 with m bf16, 20 with m and v bf16: about 6.0,
-// 5.2 or 4.3 GB per step over the 215.2M elements of the four big decoder
-// matrices at the published widths, so about 1.8, 1.5 or 1.3 ms at 3.35
-// TB/s.
+// (16 read, 12 written), 24 with m or v bf16, 20 with m and v bf16: about
+// 6.0, 5.2 or 4.3 GB per step over the 215.2M elements of the four big
+// decoder matrices at the published widths, so about 1.8, 1.5 or 1.3 ms at
+// 3.35 TB/s.
 //
 // Design: a grid-stride loop over float4 groups (16-byte loads and stores,
 // neighbouring threads on neighbouring addresses), and a scalar loop for a
@@ -131,7 +131,7 @@ int launch(const float* g, float* w, M* m, V* v, long long n, float b1, float om
 
 // Plain C entry points for ctypes. g, w: n contiguous f32 each, m and v n
 // contiguous values of the type in the name (f32 unless named: m16, m bf16;
-// mv16, m and v bf16), the f32 arrays 16-byte and the bf16 ones 8-byte
+// mv16, m and v bf16; v16, v bf16), the f32 arrays 16-byte and the bf16 ones 8-byte
 // aligned; w, m and v are updated in place. omb1 = 1 - b1 and omb2 = 1 - b2
 // come from the caller, rounded to f32 once, as the JAX package's weakly
 // typed Python scalars are. Each returns the cudaError_t of the launch (0 on
@@ -151,5 +151,11 @@ extern "C" int adam_update_m16(const float* g, float* w, __nv_bfloat16* m, float
 extern "C" int adam_update_mv16(const float* g, float* w, __nv_bfloat16* m, __nv_bfloat16* v,
                                 long long n, float b1, float omb1, float b2, float omb2, float s1,
                                 float s2, float eps, int num_sms, void* stream) {
+  return launch(g, w, m, v, n, b1, omb1, b2, omb2, s1, s2, eps, num_sms, stream);
+}
+
+extern "C" int adam_update_v16(const float* g, float* w, float* m, __nv_bfloat16* v, long long n,
+                               float b1, float omb1, float b2, float omb2, float s1, float s2,
+                               float eps, int num_sms, void* stream) {
   return launch(g, w, m, v, n, b1, omb1, b2, omb2, s1, s2, eps, num_sms, stream);
 }

@@ -12,8 +12,9 @@ Port of ``opensetgaitrecognition_pcaa_tpu/ops/pallas/adam_kernel.py``
 g and w are f32; m and v are each f32 or bf16 (``adam_lowmem``'s storage,
 as the JAX function keeps it leaf by leaf): the arithmetic is f32, a bf16
 moment is upcast when read, and m' and v' are rounded to bf16 (nearest
-even) only when stored. The kernel has three variants: f32 moments, m
-bf16, m and v bf16.
+even) only when stored. The kernel has four variants: f32 moments, m
+bf16, m and v bf16, v bf16 (JAX ``build_pcaa``'s moments at f32 compute
+with ``BF16_ADAM_NU``).
 
 2-D leaves of at least ``min_kernel_elems`` elements (2²¹, the JAX
 package's own rule: the four big decoder matrices at the published widths)
@@ -39,7 +40,8 @@ _F32, _BF16 = torch.float32, torch.bfloat16
 # (m dtype, v dtype) -> the kernel's entry point and its launch counter
 _VARIANTS = {(_F32, _F32): ("adam_update_f32", "launches"),
              (_BF16, _F32): ("adam_update_m16", "launches_m16"),
-             (_BF16, _BF16): ("adam_update_mv16", "launches_mv16")}
+             (_BF16, _BF16): ("adam_update_mv16", "launches_mv16"),
+             (_F32, _BF16): ("adam_update_v16", "launches_v16")}
 
 
 def adam_scalars(count: int, lr: float, b1: float, b2: float) -> Tuple[float, float]:
@@ -116,10 +118,11 @@ def adam_update_(g: torch.Tensor, w: torch.Tensor, m: torch.Tensor, v: torch.Ten
 
 
 # Kernel launches since the last reset, per variant (f32 moments; m bf16;
-# m and v bf16); the plain version does not count.
+# m and v bf16; v bf16); the plain version does not count.
 adam_update_.launches = 0
 adam_update_.launches_m16 = 0
 adam_update_.launches_mv16 = 0
+adam_update_.launches_v16 = 0
 
 
 def fused_adam_tree_update(

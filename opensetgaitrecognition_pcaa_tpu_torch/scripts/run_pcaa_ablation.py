@@ -1,4 +1,5 @@
-"""PCAA ablation, sequential: openness levels × splits × variants.
+"""PCAA ablation: openness levels × splits × variants, one run after
+another or (``--grid``) as a grid of runs on one device.
 
 Port of the sequential mode of ``scripts/run_pcaa_ablation.py`` (``main``,
 ``:226-337``, and ``unique_class_subsets``, ``:33-41``): for each number
@@ -15,10 +16,24 @@ configuration saves one (``SAVE_RESUME_STATE``).
     python -m opensetgaitrecognition_pcaa_tpu_torch.scripts.run_pcaa_ablation \\
         --data-path RAW_TRACKS [--variants V1 V2 V3 V4] [--device cuda]
 
+``--grid`` is the port of the JAX driver's grid mode (``run_grid_mode``
+and ``run_grid_chunk``, ``:43-223``): the splits of each (variant,
+openness) cell train as one grid on the one device
+(``parallel/grid.py::GridPCAATrainer``), ``--grid-runs-per-device`` runs a
+chunk, into the per-split directories ``<gen>_grid<n_tr>_<i>``; the runs
+are the sequential mode's (names, ``SEED``, class subsets), with
+``NOTES`` "Grid-parallel ablation run, Variant N", three metrics logged per
+epoch, validation on checkpoint epochs, and a ``run_complete.json`` that
+holds only ``best_valid_accuracy``. Completed splits are skipped before
+any split is written; the grid writes no resume state.
+
+    python -m opensetgaitrecognition_pcaa_tpu_torch.scripts.run_pcaa_ablation \\
+        --data-path RAW_TRACKS --grid [--grid-runs-per-device 2] [--device cuda]
+
 The flags are the JAX driver's, plus ``--device`` (default ``cuda``).
 ``--compute-dtype bfloat16`` and ``--bf16-adam-nu`` train as the JAX
-driver's do (bf16 compute, bf16 Adam moments); ``--grid`` and
-``--bf16-weight-cache`` are not ported and raise ``NotImplementedError``.
+driver's do (bf16 compute, bf16 Adam moments), in both modes;
+``--bf16-weight-cache`` is not ported and raises ``NotImplementedError``.
 The CUDA training kernels are switched by the base configuration's
 ``FUSED_POINTNET``/``FUSED_ADAM``, whose defaults are off as in the JAX
 package: a caller replaces this module's ``default_config`` to turn them
@@ -28,15 +43,28 @@ on.
 from __future__ import annotations
 
 import argparse
+import os
 from typing import List, Optional, Sequence
 
 import numpy as np
 
-from opensetgaitrecognition_pcaa_tpu_torch.config import N_SUBJECTS, VARIATION, default_config
+from opensetgaitrecognition_pcaa_tpu_torch.config import (
+    N_SUBJECTS,
+    SPLIT,
+    VARIATION,
+    default_config,
+)
+from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import RadarCropDataset
 from opensetgaitrecognition_pcaa_tpu_torch.data.splits import generate_splits
 from opensetgaitrecognition_pcaa_tpu_torch.ops.openset import openness
-from opensetgaitrecognition_pcaa_tpu_torch.train.pcaa import train_pcaa
-from opensetgaitrecognition_pcaa_tpu_torch.train.run_folder import run_completed
+from opensetgaitrecognition_pcaa_tpu_torch.parallel.grid import GridPCAATrainer, mesh_chunks
+from opensetgaitrecognition_pcaa_tpu_torch.train.metrics import MetricLogger
+from opensetgaitrecognition_pcaa_tpu_torch.train.pcaa import VARIANTS, _checkpoint, train_pcaa
+from opensetgaitrecognition_pcaa_tpu_torch.train.run_folder import (
+    mark_run_completed,
+    run_completed,
+    save_array,
+)
 
 
 def unique_class_subsets(n_tr: int, n_tests: int, rng: np.random.Generator) -> List[List[int]]:
@@ -64,7 +92,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--no-skip-completed", action="store_true",
                    help="retrain runs whose folder already has a completion marker")
     p.add_argument("--grid-runs-per-device", type=int, default=2,
-                   help="lockstep runs per device in --grid mode (not ported)")
+                   help="runs per grid chunk in --grid mode; splits beyond it train "
+                   "in sequential chunks")
     p.add_argument("--compute-dtype", default=None, choices=["float32", "bfloat16"],
                    help="override Config.COMPUTE_DTYPE")
     p.add_argument("--bf16-adam-nu", action="store_true",
@@ -72,18 +101,15 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--bf16-weight-cache", action="store_true",
                    help="bf16 copies of the decoder kernels (not ported)")
     p.add_argument("--grid", action="store_true",
-                   help="train all splits of a (variant, openness) cell in lockstep (not ported)")
+                   help="train all splits of a (variant, openness) cell as one grid on the "
+                   "device (parallel/grid.py) instead of one after another")
     p.add_argument("--device", default="cuda", help="torch device to train on")
     return p
 
 
 def check_ported(args: argparse.Namespace) -> None:
-    """Raise ``NotImplementedError`` for a JAX driver option that the port
-    does not have: ``--grid`` and ``--bf16-weight-cache``."""
-    if args.grid:
-        raise NotImplementedError(
-            "--grid (lockstep multi-split training) is not ported: ROADMAP.md Queue 1 item 11"
-        )
+    """Raise ``NotImplementedError`` for the JAX driver option that the
+    port does not have, ``--bf16-weight-cache``."""
     if args.bf16_weight_cache:
         raise NotImplementedError(
             "--bf16-weight-cache is not ported: ROADMAP.md Queue 1 item 14 (bit-identical "
@@ -101,6 +127,101 @@ def apply_precision_flags(cfg, args: argparse.Namespace):
     return cfg
 
 
+def open_run_folders(cfgs) -> List[MetricLogger]:
+    """Each run's folder with its ``config.json`` → its metric logger."""
+    loggers = []
+    for cfg in cfgs:
+        os.makedirs(cfg.run_dir(), exist_ok=True)
+        cfg.save(os.path.join(cfg.run_dir(), "config.json"))
+        loggers.append(MetricLogger(cfg.run_dir(), cfg.to_dict()))
+    return loggers
+
+
+def run_grid_mode(args: argparse.Namespace, base_cfg) -> None:
+    """``--grid``: per openness level, decide which splits each variant
+    still has to train (before any split is written), write and load those
+    splits, then train each variant's splits in grid chunks of
+    ``--grid-runs-per-device`` runs."""
+    rng = np.random.default_rng(0)
+    for n_tr in args.n_training_classes:
+        subsets = unique_class_subsets(n_tr, args.n_tests, rng)
+        gen_dirs = [f"{args.gen_data_path}_grid{n_tr}_{i}" for i in range(args.n_tests)]
+
+        cfgs_by_variant, todo_by_variant = {}, {}
+        for v in args.variants:
+            all_cfgs = [
+                base_cfg.replace(
+                    MODEL_NAME=f"{args.model_name_base}{v}.{n_tr}.{i + 1}",
+                    TRAIN_CLASSES=tuple(subsets[i]),
+                    Openness=openness(n_tr, N_SUBJECTS),
+                    GEN_DATA_PATH=gen_dirs[i],
+                    SEED=i,
+                    NOTES=f"Grid-parallel ablation run, Variant {v[-1]}",
+                )
+                for i in range(args.n_tests)
+            ]
+            cfgs_by_variant[v] = all_cfgs
+            todo_by_variant[v] = [
+                i for i in range(args.n_tests)
+                if args.no_skip_completed or not run_completed(all_cfgs[i].run_dir())
+            ]
+
+        data = {}
+        for i in sorted(set().union(*todo_by_variant.values())):
+            generate_splits(data_path=args.data_path, gen_data_path=gen_dirs[i],
+                            train_classes=subsets[i], seed=0, nmax_points=base_cfg.NMAX,
+                            nsteps=base_cfg.NSTEPS, crop_step=base_cfg.CROP_STEP, verbose=False)
+            data[i] = tuple(RadarCropDataset(split, gen_dirs[i]).load_all()
+                            for split in (SPLIT.TRAIN, SPLIT.VALID))
+
+        for v in args.variants:
+            todo = todo_by_variant[v]
+            if len(todo) < args.n_tests:
+                done = sorted(set(range(args.n_tests)) - set(todo))
+                print(f"    skipping completed splits {[i + 1 for i in done]}")
+            # one device: every chunk is unsharded
+            for chunk, _ in mesh_chunks(todo, args.grid_runs_per_device, 1):
+                print(f"=== grid-training {v} n_tr={n_tr} "
+                      f"(splits {[i + 1 for i in chunk]} lockstep, unsharded) ===")
+                # one call per chunk: its trainer (a few GB of weights and
+                # moments per run on the card) is freed before the next is built
+                run_grid_chunk(args, [cfgs_by_variant[v][i] for i in chunk], VARIATION(v),
+                               [data[i] for i in chunk], base_cfg)
+        del data
+
+
+def run_grid_chunk(args: argparse.Namespace, cfgs, variation: VARIATION, data,
+                   base_cfg) -> None:
+    """Train one chunk of splits through the grid trainer and write each
+    run's folder: ``config.json``, ``metrics.jsonl``, the best weights by
+    validation accuracy (checked every ``CHECKPOINT_FREQUENCY`` epochs) in
+    the variant's module files, ``discriminator_means.npy`` and
+    ``run_complete.json``."""
+    trainer = GridPCAATrainer(cfgs, variation, train_sets=[d[0] for d in data],
+                              valid_sets=[d[1] for d in data], device=args.device)
+    loggers = open_run_folders(cfgs)
+
+    for epoch in range(base_cfg.EPOCHS):
+        m = trainer.run_epoch(epoch)
+        if epoch % base_cfg.CHECKPOINT_FREQUENCY == 0:
+            trainer.note_validation(trainer.valid_accuracy())
+        for r, logger in enumerate(loggers):
+            logger.log({
+                "Total Loss Train": float(m["tot_loss"][r]),
+                "Discriminator Loss": float(m["d_loss"][r]),
+                "Train Accuracy": float(m["train_accuracy"][r]),
+            }, step=epoch)
+
+    for r, (cfg, payload, logger) in enumerate(zip(cfgs, trainer.best_run_payloads(), loggers)):
+        _checkpoint(cfg.run_dir(), cfg.MODEL_NAME, trainer.mods[r], payload)
+        if not VARIANTS[variation].learned_centroids:
+            save_array(trainer.states[r].centroids.cpu().numpy(),
+                       os.path.join(cfg.run_dir(), "discriminator_means.npy"))
+        logger.finish()
+        mark_run_completed(cfg.run_dir(), {"best_valid_accuracy": float(trainer._best_accs[r])})
+    print(f"    best valid accs: {np.round(trainer._best_accs, 4)}")
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = _parser().parse_args(argv)
     check_ported(args)
@@ -114,6 +235,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if args.epochs:
         base_cfg = base_cfg.replace(EPOCHS=args.epochs)
     base_cfg = apply_precision_flags(base_cfg, args)
+    if args.grid:
+        run_grid_mode(args, base_cfg)
+        return
 
     rng = np.random.default_rng(0)  # splits_seed = 0 (PCAA_ablation.py:1132)
     for n_tr in args.n_training_classes:

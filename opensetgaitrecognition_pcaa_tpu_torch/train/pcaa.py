@@ -138,7 +138,7 @@ def check_unported(cfg: Config) -> None:
             raise NotImplementedError(f"{flag} is not ported (ROADMAP.md Queue 1 item 14)")
     if cfg.DP_DEVICES * cfg.MP_DEVICES > 1:
         raise NotImplementedError(
-            "data and tensor parallelism are not ported yet (ROADMAP.md Queue 1 item 11)")
+            "data and tensor parallelism are not ported yet (ROADMAP.md Queue 1 item 11b)")
 
 
 def compute_dtype(cfg: Config) -> torch.dtype:

@@ -4,8 +4,10 @@ Mirrors ``tests/test_scripts.py::TestGridDrivers`` for the sequential
 mode of ``opensetgaitrecognition_pcaa_tpu_torch/scripts/run_pcaa_ablation.py``
 on the CPU: a fresh call trains V1-V4 on one 2-class subset of a
 10-subject synthetic raw set; a second call skips all four runs without
-writing the splits again, in under ``max(5 s, fresh / 5)``. ``--grid`` and
-``--bf16-weight-cache`` raise ``NotImplementedError``.
+writing the splits again, in under ``max(5 s, fresh / 5)``.
+``--bf16-weight-cache`` raises ``NotImplementedError`` in either mode
+(``--grid`` is held against the JAX driver in
+``tests/test_torch_grid_drivers.py``).
 """
 
 import json
@@ -114,10 +116,12 @@ def test_class_subsets_equal_the_jax_driver_s():
 
 @pytest.mark.parametrize(
     "extra,match",
-    [(["--grid"], "item 11"), (["--bf16-weight-cache"], "item 14")],
+    [(["--grid", "--bf16-weight-cache"], "item 14"), (["--bf16-weight-cache"], "item 14")],
     ids=["grid", "bf16_weight_cache"],
 )
 def test_unported_modes_raise(tmp_path, extra, match):
+    """``--bf16-weight-cache`` raises before any split is written, in the
+    sequential and the ``--grid`` mode."""
     with pytest.raises(NotImplementedError, match=match):
         rpa.main(_argv(str(tmp_path / "raw"), str(tmp_path), *extra))
     assert not os.path.exists(tmp_path / "gen")

@@ -1,10 +1,12 @@
 """The drivers' bf16 flags: ``run_pcaa_ablation`` and ``run_orced`` with
 ``--compute-dtype bfloat16`` (and ``--bf16-adam-nu``) make the JAX
-drivers' calls with the same flags, configurations included; a bf16
-ablation trains end to end at tiny dims on the CPU and writes f32 module
-files that the port's inference reads; ``--bf16-weight-cache`` and
-``--grid`` still raise ``NotImplementedError`` (ROADMAP.md Queue 1 items 14
-and 11) for both drivers, before any split is written.
+drivers' calls with the same flags, configurations included, and
+``--grid`` hands ``run_grid_mode`` the configuration with the flags
+applied; a bf16 ablation trains end to end at tiny dims on the CPU and
+writes f32 module files that the port's inference reads;
+``--bf16-weight-cache`` still raises ``NotImplementedError`` (ROADMAP.md
+Queue 1 item 14) for both drivers, with and without ``--grid``, before any
+split is written.
 """
 
 import os
@@ -53,7 +55,7 @@ def test_bf16_flags_make_the_jax_driver_s_calls(driver, flags, tmp_path, monkeyp
                for c in configs)
 
 
-@pytest.mark.parametrize("extra,match", [(["--grid"], "item 11"),
+@pytest.mark.parametrize("extra,match", [(["--grid", "--bf16-weight-cache"], "item 14"),
                                          (["--bf16-weight-cache"], "item 14"),
                                          (["--compute-dtype", "bfloat16", "--bf16-weight-cache"],
                                           "item 14")],
@@ -65,6 +67,23 @@ def test_unported_modes_still_raise(driver, extra, match, tmp_path):
         module.main(["--data-path", str(tmp_path / "raw"), "--gen-data-path",
                      str(tmp_path / "gen"), "--models-path", str(tmp_path / "m"), *extra])
     assert not os.path.exists(tmp_path / "gen")
+
+
+@pytest.mark.parametrize("flags", [["--compute-dtype", "bfloat16", "--bf16-adam-nu"],
+                                   ["--bf16-adam-nu"], []],
+                         ids=["bf16_adam_nu", "f32_adam_nu", "f32"])
+@pytest.mark.parametrize("driver", list(DRIVERS))
+def test_grid_mode_gets_the_precision_flags(driver, flags, monkeypatch):
+    """``--grid`` hands ``run_grid_mode`` the sequential mode's base
+    configuration: the flags and ``--epochs`` applied."""
+    module = DRIVERS[driver][1]
+    got = []
+    monkeypatch.setattr(module, "run_grid_mode", lambda args, cfg: got.append((args, cfg)))
+    module.main(["--data-path", "raw", "--grid", "--epochs", "3", "--device", "cpu", *flags])
+    (args, cfg), = got
+    assert args.grid and args.device == "cpu" and cfg.EPOCHS == 3
+    assert cfg.COMPUTE_DTYPE == ("bfloat16" if "bfloat16" in flags else "float32")
+    assert cfg.BF16_ADAM_NU == ("--bf16-adam-nu" in flags)
 
 
 def test_bf16_ablation_trains_and_writes_f32_files(raw10, tmp_path, monkeypatch):  # noqa: F811

@@ -319,9 +319,13 @@ def test_optax_mu_rounds_b1_to_bf16():
 
 
 def test_bf16_moments_argument_checks():
+    """Every (m, v) pair of f32 and bf16 has a kernel, f32 m with bf16 v
+    (JAX ``build_pcaa``'s moments at f32 with ``BF16_ADAM_NU``) among
+    them; another moment type has none."""
     g = torch.zeros(4, 4)
     with pytest.raises(ValueError, match="no kernel for moments"):
-        adam._check_cuda_args(g, g, g, g.to(BF16))
+        adam._check_cuda_args(g, g, g, g.to(torch.float16))
+    adam._check_cuda_args(g, g, g, g.to(BF16))
     adam._check_cuda_args(g, g, g.to(BF16), g)
     adam._check_cuda_args(g, g, g.to(BF16), g.to(BF16))
 

@@ -353,10 +353,12 @@ def test_collect_results_equals_the_root_one(tmp_path):
 
 @pytest.mark.parametrize(
     "extra,match",
-    [(["--grid"], "item 11"), (["--bf16-weight-cache"], "item 14")],
+    [(["--grid", "--bf16-weight-cache"], "item 14"), (["--bf16-weight-cache"], "item 14")],
     ids=["grid", "bf16_weight_cache"],
 )
 def test_run_orced_unported_modes_raise(tmp_path, extra, match):
+    """``--bf16-weight-cache`` raises before any split is written, in the
+    sequential and the ``--grid`` mode."""
     with pytest.raises(NotImplementedError, match=match):
         run_orced.main(_argv(str(tmp_path / "raw"), str(tmp_path), *extra))
     assert not os.path.exists(tmp_path / "gen")

@@ -38,11 +38,11 @@ for name in names:
 print(",".join(names))
 print(",".join(sorted({m.split(".")[0] for m in sys.modules})))
 """
-# the serving artifact's loader and the command-line drivers, each imported
-# by the walk over the port
+# the serving artifact's loader, the command-line drivers and the grid
+# trainers, each imported by the walk over the port
 _ENTRY_MODULES = tuple(
     "opensetgaitrecognition_pcaa_tpu_torch." + m for m in (
-        "infer.serving", "scripts.run_pcaa_ablation", "scripts.run_orced",
+        "infer.serving", "parallel.grid", "scripts.run_pcaa_ablation", "scripts.run_orced",
         "scripts.run_pointsubsampling", "scripts.run_inference_scenarios",
         "scripts.export_serving", "scripts.collect_results",
     )

@@ -520,18 +520,20 @@ def test_adam_kernel_matches_plain(shape):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("moments", ["m16", "mv16"])
+@pytest.mark.parametrize("moments", ["m16", "mv16", "v16"])
 @pytest.mark.parametrize("shape", [(136, 648), (1001, 3), (2048, 1025)],
                          ids=["leaf_136x648", "ragged_tail3", "big"])
 def test_adam_kernel_bf16_moments_bitwise(moments, shape):
-    """The bf16-moment variants round every operation and the stored
-    moments (nearest even) as the plain version does: the same bits."""
+    """The bf16-moment variants (m bf16; m and v bf16; v bf16) round every
+    operation and the stored moments (nearest even) as the plain version
+    does: the same bits."""
     _needs_card()
     s1, s2 = adam.adam_scalars(3, 1e-4, 0.9, 0.99)
     coeffs = dict(s1=s1, s2=s2, b1=0.9, b2=0.99, eps=1e-8)
     got = _adam_leaf(np.random.default_rng(7), shape)
-    got[2] = got[2].to(BF16)
-    if moments == "mv16":
+    if moments != "v16":
+        got[2] = got[2].to(BF16)
+    if moments != "m16":
         got[3] = got[3].to(BF16)
     want = [t.clone() for t in got]
     counter = "launches_" + moments
@@ -631,12 +633,15 @@ def test_variant_step_kernels_match_plain(variant, dph, adam_launches):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("nu16", [False, True], ids=["bf16", "bf16_nu16"])
-def test_v4_step_bf16_kernels_match_plain(nu16):
-    """A bf16 V4 step (``COMPUTE_DTYPE="bfloat16"``, with and without
-    ``BF16_ADAM_NU``) through the bf16 kernels and plain: losses within
-    1e-2 relative to max(|plain|, 1) (bf16 values one rounding step apart
-    move what follows), the bf16 variants launched and the f32 ones not."""
+@pytest.mark.parametrize("dtype,nu16", [("bfloat16", False), ("bfloat16", True),
+                                        ("float32", True)],
+                         ids=["bf16", "bf16_nu16", "f32_nu16"])
+def test_v4_step_bf16_kernels_match_plain(dtype, nu16):
+    """A V4 step with bf16 storage (``COMPUTE_DTYPE="bfloat16"`` with and
+    without ``BF16_ADAM_NU``; f32 with ``BF16_ADAM_NU``) through the
+    kernels and plain: losses within 1e-2 relative to max(|plain|, 1)
+    (bf16 values one rounding step apart move what follows), the kernel
+    variants of the storage launched and no other."""
     from opensetgaitrecognition_pcaa_tpu_torch.config import VARIATION, Config
     from opensetgaitrecognition_pcaa_tpu_torch.train.pcaa import (
         VARIANTS,
@@ -645,13 +650,15 @@ def test_v4_step_bf16_kernels_match_plain(nu16):
     )
 
     _needs_card()
-    cfg = Config(COMPUTE_DTYPE="bfloat16", BF16_ADAM_NU=nu16, **VARIANT_DIMS)
+    cfg = Config(COMPUTE_DTYPE=dtype, BF16_ADAM_NU=nu16, **VARIANT_DIMS)
     rng = np.random.default_rng(10)
     x = torch.from_numpy(rng.normal(size=(8, 12, 64, 4)).astype(np.float32)).cuda()
     y = torch.from_numpy(np.arange(8, dtype=np.int32) % 3).cuda()
     noise = (torch.from_numpy(rng.normal(size=(8, 16)).astype(np.float32)).cuda(),
              torch.from_numpy(rng.uniform(size=(8, 1)).astype(np.float32)).cuda())
-    adam_counter = "launches_mv16" if nu16 else "launches_m16"
+    mu16 = dtype == "bfloat16"
+    adam_counter = {(True, False): "launches_m16", (True, True): "launches_mv16",
+                    (False, True): "launches_v16"}[(mu16, nu16)]
 
     def counts():
         return (pt.fused_layer.launches_bf16, pt.fused_pool.launches_bf16,
@@ -665,14 +672,54 @@ def test_v4_step_bf16_kernels_match_plain(nu16):
         before = counts()
         _, m = make_train_step(mods, run_cfg)(state, x, y, 0, noise)
         torch.cuda.synchronize()
-        assert tuple(b - a for a, b in zip(before, counts())) == (
-            (4, 1, 1, 0, 0, 0) if fused else (0,) * 6)
-        assert all(v.dtype == BF16 for v in state.opt_g.mu.values())
+        want = ((4, 1, 1, 0, 0, 0) if mu16 else (0, 0, 1, 4, 1, 0)) if fused else (0,) * 6
+        assert tuple(b - a for a, b in zip(before, counts())) == want
+        assert all((v.dtype == BF16) == mu16 for v in state.opt_g.mu.values())
         assert all((v.dtype == BF16) == nu16 for v in state.opt_g.nu.values())
         losses[fused] = {k: float(v) for k, v in m.items()}
     for key in ("rec_loss", "d_loss", "sup_loss", "tot_loss"):
         plain, kernel = losses[False][key], losses[True][key]
         assert np.isfinite(kernel) and abs(kernel - plain) <= 1e-2 * max(abs(plain), 1.0), key
+
+
+@pytest.mark.gpu
+def test_grid_runs_launch_the_kernels_and_follow_their_solo_runs():
+    """Two grid V4 runs (seeds 0 and 1; run 1 with 2 of run 0's 3 steps)
+    with the kernels on: (layer, pool, Adam) launches (4, 1, 1) per step
+    taken, and each run's per-step losses within 1e-3 relative to
+    max(|solo|, 1) of its solo ``train_epoch`` (cuDNN's backward-filter
+    sums in a run-dependent order on the card)."""
+    from opensetgaitrecognition_pcaa_tpu_torch.config import VARIATION, Config
+    from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import epoch_batch_indices
+    from opensetgaitrecognition_pcaa_tpu_torch.parallel.grid import GridPCAATrainer
+    from opensetgaitrecognition_pcaa_tpu_torch.train.pcaa import (
+        VARIANTS,
+        build_pcaa,
+        make_epoch_fns,
+    )
+
+    _needs_card()
+    cfgs = [Config(SEED=r, FUSED_POINTNET=True, FUSED_ADAM=True, **VARIANT_DIMS)
+            for r in range(2)]
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(24, 12, 64, 4)).astype(np.float32)
+    y = (np.arange(24) % 3).astype(np.int32)
+    sets = [(x, y), (x[:16], y[:16])]
+    trainer = GridPCAATrainer(cfgs, VARIATION.V4, sets, device="cuda")
+    before = (pt.fused_layer.launches, pt.fused_pool.launches, adam.adam_update_.launches)
+    trainer.run_epoch(0)
+    torch.cuda.synchronize()
+    now = (pt.fused_layer.launches, pt.fused_pool.launches, adam.adam_update_.launches)
+    assert tuple(b - a for a, b in zip(before, now)) == (4 * 5, 5, 5)
+    for r, (cfg, (xr, yr)) in enumerate(zip(cfgs, sets)):
+        mods, state = build_pcaa(cfg, VARIANTS[VARIATION.V4], device="cuda")
+        perm = epoch_batch_indices(len(xr), 8, True, rng=np.random.default_rng(r))
+        _, m = make_epoch_fns(mods, cfg)[0](state, torch.from_numpy(xr).cuda(),
+                                            torch.from_numpy(yr).cuda(), perm)
+        for key in ("rec_loss", "d_loss", "sup_loss", "tot_loss"):
+            solo, got = m[key].cpu().numpy(), trainer.last_epoch_steps[r][key].cpu().numpy()
+            assert got.shape == solo.shape and np.isfinite(got).all()
+            assert (np.abs(got - solo) <= 1e-3 * np.maximum(np.abs(solo), 1.0)).all(), key
 
 
 # --- Chamfer ------------------------------------------------------------------
