@@ -4,7 +4,8 @@
 Drives the port's main paths, V4 open-set inference and in-process serving,
 V4 training, OR-CED open-set inference, serving and training, the PCAA
 ablation (every variant, its CLI, the resume), the serving artifacts,
-the remaining sequential drivers and both drivers' ``--grid`` mode, at the
+the remaining sequential drivers, both drivers' ``--grid`` mode and the
+reference run-folder export and import, at the
 full width
 of the published models (NMAX=150, NSTEPS=30, C=4, PointNet width 1024,
 TCN filters 16..512, latent 32; decoder S = 18000, 215.2M parameters),
@@ -71,9 +72,11 @@ with seeded random weights and seeded crop files. Phases:
       one seeded state on phase 6's crops with injected noise: 3 steps
       through the kernels (launches (layer, pool, adam) (4, 1, 4) a step,
       (4, 1, 0) for V3, whose leaves are all below the Adam kernel's
-      size), the same again under torch.profiler (does a step repeat bit
-      for bit, and which first-step gradients do not; device time by
-      kind), then 3 plain; losses within phase 6b's bound, the DPH at its
+      size), the same again under torch.profiler after a traced warm-up,
+      both from the same state, traced again while the trace holds fewer
+      kernel launches than the counters (does a step repeat bit for bit,
+      and which first-step gradients do not; device time by kind), then 3
+      plain; losses within phase 6b's bound, the DPH at its
       init; on V1's live state, the resume file's save and load timed;
    b. the port's ``run_pcaa_ablation`` driver, kernels on, trains V1-V4
       one epoch on a 6-class subset of phase 8's raw tracks, each run
@@ -125,8 +128,9 @@ with seeded random weights and seeded crop files. Phases:
       Function on the CPU at the published widths (rtol 1e-2);
    b. the full-width V4 step at B = 16 from one seeded state, f32, bf16
       and bf16 + nu16 through the kernels and bf16 + nu16 plain: ms per
-      step, windows/s, device time by kind (torch.profiler, 3 warm
-      steps), the bf16 + nu16 losses through the kernels within 1e-2
+      step, windows/s, device time by kind (torch.profiler, 3 warm steps
+      after a traced warm-up, from a snapshot that a retaken trace
+      restarts from), the bf16 + nu16 losses through the kernels within 1e-2
       relative of plain; the ORCED step at f32 and bf16 + nu16;
    c. ``run_pcaa_ablation --compute-dtype bfloat16 --bf16-adam-nu``
       (kernels on) trains V4 for one epoch on phase 8's raw tracks, and
@@ -144,7 +148,20 @@ with seeded random weights and seeded crop files. Phases:
       bf16 launched 4 times a step;
    c. ``run_orced --grid`` (no kernel) and the sequential driver on the
       same 2 runs: seconds, memory, losses within ORCED_GRID_RTOL;
-   d. both ``--grid`` calls again: both splits skipped, none written.
+   d. both ``--grid`` calls again: both splits skipped, none written;
+13. the reference run-folder export and import at the same width
+   (``scripts/export_reference_run.py``, ``scripts/import_reference_run.py``):
+   a. phase 3's V4 folder (given seeded G, D and GPH), phase 7b's OR-CED
+      folder and phase 9b's V1 folder exported as reference folders of
+      ``.pt`` state_dicts (V1 through ``python -m``): seconds and MB;
+   b. each imported back: module files and means byte-equal to the
+      source's, ``config.json`` equal but for ``MODELS_PATH`` (the driver's
+      V1 also in fields the reference's config.pkl lacks); seconds per
+      import, and the decoder's unit permutation alone;
+   c. ``pcaa_inference`` of the imported V4 folder through the kernel:
+      decisions equal to phase 3's kernel run, latents' max |diff|;
+   d. ``orced_inference`` of the imported OR-CED folder with phase 7c's
+      eps through both kernels: decisions equal to phase 7c's kernel run.
 
 It exits non-zero, with no result line, when there is no CUDA card or a
 phase fails. The line before the last is the per-kernel JSON record (its
@@ -152,11 +169,11 @@ phase fails. The line before the last is the per-kernel JSON record (its
 driven with the counts at 0: phases 3, 4, 6c, 7c, 7d, 8c, 9b and 10 (the
 ORCED export's calibration, the orced_inference it is held against, the
 fresh process's requests, the sequential scripts' scoring) for the PointNet
-inference kernel (and 11c), 6b's kernel steps, 6c, 9a's first kernel
+inference kernel (and 11c, 13c and 13d), 6b's kernel steps, 6c, 9a's first kernel
 steps, 9b's training, 9c's PCAA runs, 10d's training and 12a-b's driver
 calls for the f32 training kernels, 11b's kernel steps and 11c's training
 for their bf16 variants, 12b's grid for the Adam kernel with v bf16, 7c,
-7d, 8c and 10b for the Chamfer kernel; the Chamfer kernel's ``ms`` is its device
+7d, 8c, 10b and 13d for the Chamfer kernel; the Chamfer kernel's ``ms`` is its device
 time per launch at (64, 30, 150, 4) from the CUDA graph, every other
 ``ms`` CUDA events around calls of the wrapper; ``bound_ms`` is the
 larger of the operations over 67 TFLOP/s and the bytes over 3.35 TB/s, the H100 SXM's
@@ -184,6 +201,7 @@ paired deltas against f32 (``tools/gate_optimizer_quality.py``'s method).
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import os
 import shutil
@@ -940,6 +958,17 @@ def orced_knife_edge(cal, split: str, keep=None):
     return (np.abs(re - thr) <= RE_EDGE * np.abs(thr)) | (np.abs(p - THRESHOLD_G) <= P_EDGE).any(0)
 
 
+def orced_eps(gen: str, latent: int) -> dict:
+    """Phase 7c's pinned eps: ``(n_crops, latent)`` f32 for each split."""
+    from opensetgaitrecognition_pcaa_tpu_torch.config import SPLIT
+    from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import RadarCropDataset
+
+    rng = np.random.default_rng(SEED + 6)
+    return {key: rng.normal(size=(len(RadarCropDataset(split, gen)), latent)).astype(np.float32)
+            for key, split in (("train", SPLIT.TRAIN), ("test", SPLIT.TEST),
+                               ("unseen", SPLIT.UNSEEN))}
+
+
 def orced_phase(card: str, gen: str) -> dict:
     """Phase 7b-d → launches of the PointNet and Chamfer kernels on the
     ORCED main path (7c's kernel run and 7d)."""
@@ -969,11 +998,7 @@ def orced_phase(card: str, gen: str) -> dict:
     assert len(train_x) >= ORCED_B, len(train_x)
     src = os.path.join(WORK, "models_orced_src")
     make_orced_run_folder(src, cfg, train_x)
-    rng = np.random.default_rng(SEED + 6)
-    eps = {key: rng.normal(size=(len(RadarCropDataset(split, gen)), cfg.SUP_LATENT_DIM))
-           .astype(np.float32)
-           for key, split in (("train", SPLIT.TRAIN), ("test", SPLIT.TEST),
-                              ("unseen", SPLIT.UNSEEN))}
+    eps = orced_eps(gen, cfg.SUP_LATENT_DIM)
 
     # --- 7c. orced_inference through the kernels, then plain ------------------
     runs = {}
@@ -1296,10 +1321,10 @@ def variant_spec(variant: str, dph: bool):
     return dataclasses.replace(spec, use_disc_head=True) if dph else spec
 
 
-def _busy_ms(prof, steps: int) -> tuple:
-    """→ (device ms a step, {kind: ms a step}) from a torch.profiler run."""
+def _busy_ms(events, steps: int) -> tuple:
+    """→ (device ms a step, {kind: ms a step}) from a trace's ``key_averages``."""
     groups, total = {}, 0.0
-    for e in prof.key_averages():
+    for e in events:
         if e.device_time_total <= 0:
             continue
         ms = e.device_time_total / 1e3 / steps
@@ -1317,6 +1342,47 @@ def _busy_ms(prof, steps: int) -> tuple:
     return total, groups
 
 
+# the names of the training kernels: the layer GEMM (f32 and bf16), the
+# pool (f32 and bf16 input), Adam; the bf16 layer's ELU test kernel excepted
+_TRAIN_KERNELS = (("tf32x3", "wgmma_bf16", "bf16mma"), ("pool_kernel", "pool_bf16"),
+                  ("adam_kernel",))
+
+
+def _kernel_events(events) -> tuple:
+    """The (layer, pool, Adam) kernel launches a trace's events hold."""
+    counts = [0, 0, 0]
+    for e in events:
+        low = e.key.lower()
+        if e.device_time_total <= 0 or "elu_kernel" in low:
+            continue
+        for i, needles in enumerate(_TRAIN_KERNELS):
+            if any(n in low for n in needles):
+                counts[i] += e.count
+                break
+    return tuple(counts)
+
+
+def traced_until_whole(call, counted, label: str) -> tuple:
+    """torch.profiler's events of ``call()``, traced after a traced warm-up
+    call, and traced again (up to PROFILER_TRACES traces) while they hold
+    fewer layer, pool or Adam kernel launches than ``counted(result)``, the
+    launch counters' (layer, pool, Adam) over the traced call: a trace
+    drops kernel events now and then. ``call`` restarts from the same state
+    snapshot every time, synchronises, and returns its result → (events,
+    the last traced call's result)."""
+    for attempt in range(1, PROFILER_TRACES + 1):
+        results = []
+        events = traced_events(lambda: results.append(call()))
+        seen, want = _kernel_events(events), counted(results[-1])
+        if all(a >= b for a, b in zip(seen, want)):
+            break
+        log(f"{label}: trace {attempt} of {PROFILER_TRACES} holds (layer, pool, Adam) kernel "
+            f"launches {seen}, the counters {want}: "
+            + ("traced again from the same state" if attempt < PROFILER_TRACES
+               else "kept, short"))
+    return events, results[-1]
+
+
 def _differing(a: dict, b: dict) -> list:
     """The names of the tensors of two same-keyed dicts that differ in a bit."""
     import torch
@@ -1326,14 +1392,14 @@ def _differing(a: dict, b: dict) -> list:
 
 def variant_steps(card: str, gen: str) -> tuple:
     """Phase 9a: each variant's step from one seeded state, VARIANT_STEPS
-    steps through the kernels, the same again under torch.profiler (to see
-    whether a step repeats bit for bit, and where its device time goes),
+    steps through the kernels, the same again under torch.profiler after a
+    traced warm-up from the same state (to see whether a step repeats bit
+    for bit, and where its device time goes; ``traced_until_whole``),
     then as many plain (the weights restored before each run), on phase
     6's crops with injected noise; for V1, the resume file's save and load
     timed on its live state → (launches of the layer, pool and Adam
     kernels in the first kernel run, warm ms per variant)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from opensetgaitrecognition_pcaa_tpu_torch.config import SPLIT
     from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import (
@@ -1370,33 +1436,43 @@ def variant_steps(card: str, gen: str) -> tuple:
         mods, state = build_pcaa(cfg, variant_spec(variant, dph), device="cuda")
         start = _ckpt_payload(mods)
         n_params = sum(p.numel() for p in mods.parameters())
-        runs = {}
-        for path, fused in (("kernel", True), ("again", True), ("plain", False)):
-            run_cfg = cfg.replace(FUSED_POINTNET=fused, FUSED_ADAM=fused)
+        centroids, generator = state.centroids, state.generator
+
+        def run_path(fused: bool) -> dict:
+            """VARIANT_STEPS steps from ``start`` and zero Adam states."""
             mods.load_state_dict(start)
             state = PCAAState(adam_init(mods.g.named_parameters()),
-                              adam_init(mods.d.named_parameters()), state.centroids,
-                              state.generator)
-            step = make_train_step(mods, run_cfg)
-            r = runs[path] = dict(losses=[], ms=[], counts=[])
-            with profile(activities=[ProfilerActivity.CUDA]) if path == "again" else (
-                    contextlib.nullcontext()) as prof:
-                for i in range(VARIANT_STEPS):
-                    idx = perm[i]
-                    reset_train_counts()
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    state, m = step(state, x[idx], y[idx], i, (noise[0][i], noise[1][i]))
-                    torch.cuda.synchronize()
-                    r["ms"].append(1e3 * (time.perf_counter() - t0))
-                    r["counts"].append(train_counts())
-                    r["losses"].append({k: float(v) for k, v in m.items()})
-                    if i == 0 and fused:  # the first step's gradients: mu = (1 - b1) g
-                        r["mu"] = {f"{side}.{k}": v.clone() for side, opt in
-                                   (("g", state.opt_g), ("d", state.opt_d))
-                                   for k, v in opt.mu.items()}
-            if prof is not None:
-                r["busy"] = _busy_ms(prof, VARIANT_STEPS)
+                              adam_init(mods.d.named_parameters()), centroids, generator)
+            step = make_train_step(mods, cfg.replace(FUSED_POINTNET=fused, FUSED_ADAM=fused))
+            r = dict(losses=[], ms=[], counts=[])
+            for i in range(VARIANT_STEPS):
+                idx = perm[i]
+                reset_train_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, x[idx], y[idx], i, (noise[0][i], noise[1][i]))
+                torch.cuda.synchronize()
+                r["ms"].append(1e3 * (time.perf_counter() - t0))
+                r["counts"].append(train_counts())
+                r["losses"].append({k: float(v) for k, v in m.items()})
+                if i == 0 and fused:  # the first step's gradients: mu = (1 - b1) g
+                    r["mu"] = {f"{side}.{k}": v.clone() for side, opt in
+                               (("g", state.opt_g), ("d", state.opt_d))
+                               for k, v in opt.mu.items()}
+            r["state"] = state
+            return r
+
+        runs = {}
+        for path, fused in (("kernel", True), ("again", True), ("plain", False)):
+            if path == "again":
+                events, r = traced_until_whole(
+                    lambda: run_path(True),
+                    lambda r: tuple(map(sum, zip(*r["counts"]))), f"phase 9a: {variant}")
+                r["busy"] = _busy_ms(events, VARIANT_STEPS)
+            else:
+                r = run_path(fused)
+            runs[path] = r
+            state = r.pop("state")
             if dph:  # every path into the head is detached: it never moves
                 for k, v in mods.d["disc_head"].state_dict().items():
                     assert torch.equal(v, start[f"d.disc_head.{k}"]), k
@@ -1456,7 +1532,7 @@ def variant_steps(card: str, gen: str) -> tuple:
                 f"[{card}]")
             shutil.rmtree(os.path.dirname(path))
             del opts, before
-        del mods, state, step, start, m, runs
+        del mods, state, start, runs
         gc.collect()
         torch.cuda.empty_cache()
     return launches, warm
@@ -1468,7 +1544,6 @@ def ablation_driver(card: str, raw: str) -> dict:
     then a second call skips every run and writes no splits; each folder is
     scored by ``pcaa_inference`` through the inference kernel and then plain
     → launches of the training kernels and of the inference kernel."""
-    import io
 
     import torch
 
@@ -2001,7 +2076,6 @@ def driver_phase(card: str) -> dict:
     kernels on) and ``run_inference_scenarios`` on phase 8's raw tracks and
     phase 9b's folders, each called again to skip what is done, then
     ``collect_results`` → launches of each kernel."""
-    import io
 
     import torch
 
@@ -2470,36 +2544,68 @@ def check_bf16_kernels(card: str) -> dict:
     return out
 
 
-def _timed_and_profiled(step_fn, n_timed: int) -> dict:
+def _snapshot(mods, opts) -> tuple:
+    """A copy of the modules' state and of the Adam states ``opts``."""
+    return ({k: v.clone() for k, v in mods.state_dict().items()},
+            [(o.count, {k: v.clone() for k, v in o.mu.items()},
+              {k: v.clone() for k, v in o.nu.items()}) for o in opts])
+
+
+def _restore(mods, opts, snap: tuple) -> None:
+    """Put ``_snapshot``'s copy back, in place."""
+    mods.load_state_dict(snap[0])
+    for o, (count, mu, nu) in zip(opts, snap[1]):
+        o.count = count
+        for k in mu:
+            o.mu[k].copy_(mu[k])
+            o.nu[k].copy_(nu[k])
+
+
+def _timed_and_profiled(step_fn, n_timed: int, mods, opts, label: str) -> dict:
     """``n_timed`` steps on the host clock (the first pays set-up), then 3
-    under torch.profiler → ms per step, losses, launch counts (f32 layer,
-    pool, Adam; bf16 layer, pool, Adam m16, Adam mv16) per step, device ms
-    a step and by kind, peak memory."""
+    under torch.profiler, from a snapshot of ``mods`` and the Adam states
+    ``opts`` that every trace restarts from (``traced_until_whole``) → ms
+    per step, losses, launch counts (f32 layer, pool, Adam; bf16 layer,
+    pool, Adam m16, Adam mv16) per step, device ms a step and by kind, peak
+    memory over the timed steps."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     r = dict(ms=[], losses=[], counts=[])
 
-    def run(i):
+    def run(i, rec):
         reset_train_counts()
         reset_bf16_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         m = step_fn(i)
         torch.cuda.synchronize()
-        r["ms"].append(1e3 * (time.perf_counter() - t0))
-        r["counts"].append(train_counts() + bf16_counts())
-        r["losses"].append({k: float(v) for k, v in m.items()})
+        rec["ms"].append(1e3 * (time.perf_counter() - t0))
+        rec["counts"].append(train_counts() + bf16_counts())
+        rec["losses"].append({k: float(v) for k, v in m.items()})
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for i in range(n_timed):
-        run(i)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(n_timed, n_timed + 3):
-            run(i)
-    r["busy"] = _busy_ms(prof, 3)
+        run(i, r)
     r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    snap = _snapshot(mods, opts)
+
+    def traced() -> dict:
+        _restore(mods, opts, snap)
+        rec = dict(ms=[], losses=[], counts=[])
+        for i in range(n_timed, n_timed + 3):
+            run(i, rec)
+        return rec
+
+    def counted(rec) -> tuple:  # (layer, pool, Adam) over the traced steps, f32 and bf16
+        c = [sum(col) for col in zip(*rec["counts"])]
+        return c[0] + c[3], c[1] + c[4], c[2] + c[5] + c[6]
+
+    events, rec = traced_until_whole(traced, counted, label)
+    del snap
+    for key in ("ms", "losses", "counts"):
+        r[key] += rec[key]
+    r["busy"] = _busy_ms(events, 3)
     r["warm_ms"] = sum(r["ms"][1:n_timed]) / (n_timed - 1)
     return r
 
@@ -2555,7 +2661,8 @@ def bf16_steps(card: str, gen: str) -> list:
         def step_fn(i, step=step, state=state):
             return step(state, x[perm[i]], y[perm[i]], i, (noise[0][i], noise[1][i]))[1]
 
-        r = runs[name] = _timed_and_profiled(step_fn, BF16_TIMED_STEPS)
+        r = runs[name] = _timed_and_profiled(step_fn, BF16_TIMED_STEPS, mods,
+                                             (state.opt_g, state.opt_d), f"phase 11b: {name}")
         assert all(c == want[name] for c in r["counts"]), (name, r["counts"])
         for m in r["losses"]:
             assert all(np.isfinite(v) for v in m.values()), (name, m)
@@ -2593,7 +2700,8 @@ def bf16_steps(card: str, gen: str) -> list:
         def step_fn(i, step=step, state=state):
             return step(state, x[perm[i]], y[perm[i]], 0.5, eps[i])[1]
 
-        r = runs[name] = _timed_and_profiled(step_fn, BF16_TIMED_STEPS)
+        r = runs[name] = _timed_and_profiled(step_fn, BF16_TIMED_STEPS, mods, (state.opt,),
+                                             f"phase 11b: {name}")
         assert all(c == (0,) * 7 for c in r["counts"]), (name, r["counts"])
         for m in r["losses"]:
             assert all(np.isfinite(v) for v in m.values()), (name, m)
@@ -2617,7 +2725,6 @@ def bf16_driver(card: str) -> dict:
     subset of phase 8's raw tracks; then ``pcaa_inference`` scores the
     folder through the (f32) inference kernel → launches of the bf16
     variants and of the inference kernel."""
-    import io
 
     import torch
 
@@ -2702,7 +2809,6 @@ def _grid_call(module, argv: list, kernels: bool) -> dict:
     base configuration where ``kernels``), output captured, split writes
     counted → its seconds, output, writes, launches (f32 layer, pool, Adam;
     Adam v bf16) and peak device memory above what was allocated before."""
-    import io
 
     import torch
 
@@ -2933,6 +3039,222 @@ def precision_gate() -> int:
         r["mean_paired_delta_vs_f32"] = round(float((np.array(r["accs"]) - base).mean()), 4)
     log(json.dumps({"precision_gate": out, "epochs": GATE_EPOCHS, "card": card}))
     return 0
+
+
+def _tree_mb(path: str) -> float:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs) / 1e6
+
+
+def add_v4_modules(run_dir: str, cfg) -> None:
+    """Phase 3's folder holds the encoder and the means, all that inference
+    reads: add a V4 run's other modules (G fed by the GPH's 2·latent, D,
+    GPH) from seeded inits, saved by the port."""
+    import torch
+
+    from opensetgaitrecognition_pcaa_tpu_torch.convert import (
+        decoder_variables,
+        discriminator_variables,
+        head_variables,
+    )
+    from opensetgaitrecognition_pcaa_tpu_torch.models.pcaa import (
+        CGDecoder,
+        CGDiscriminator,
+        ProjectionHead,
+    )
+    from opensetgaitrecognition_pcaa_tpu_torch.train.run_folder import module_path, save_params
+
+    init = torch.Generator().manual_seed(SEED + 20)
+    latent = cfg.SUP_LATENT_DIM
+    modules = {
+        "G": (CGDecoder(2 * latent, cfg.NSTEPS, cfg.NMAX, cfg.NFEATURES, generator=init),
+              decoder_variables),
+        "D": (CGDiscriminator(latent, cfg.n_classes, generator=init), discriminator_variables),
+        "GPH": (ProjectionHead(latent, 2 * latent, generator=init), head_variables),
+    }
+    for tag, (module, to_variables) in modules.items():
+        save_params(to_variables(module.state_dict()), module_path(run_dir, cfg.MODEL_NAME, tag))
+
+
+def reference_phase(card: str, gen: str) -> dict:
+    """Phase 13: the reference run-folder export and import at the
+    published widths, then inference on the imported folders through the
+    kernels → launches of the PointNet and Chamfer kernels in 13c-d.
+
+    a. ``export_reference_run`` writes phase 3's V4 folder (E with its
+       head, G, D, GPH, means), phase 7b's OR-CED folder (E, G, ML) and
+       phase 9b's V1 folder (E, D, G, GPH, ML, means) as reference
+       folders; the V1 one through ``python -m`` in a subprocess;
+    b. ``import_reference_run`` reads each back: every module file and
+       ``discriminator_means.npy`` byte-equal to the source's,
+       ``config.json`` equal but for ``MODELS_PATH`` (and, for the driver's
+       V1 run, the fields the reference's config.pkl does not carry); the
+       decoder's unit permutation timed alone in both directions;
+    c. ``pcaa_inference`` of the imported V4 folder through the kernel:
+       decisions equal to phase 3's kernel run, latents' max |diff| printed;
+    d. ``orced_inference`` of the imported OR-CED folder with phase 7c's
+       pinned eps at batch 64: decisions equal to phase 7c's kernel run."""
+    import torch
+
+    from opensetgaitrecognition_pcaa_tpu_torch.config import SPLIT, VARIATION, Config
+    from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import RadarCropDataset
+    from opensetgaitrecognition_pcaa_tpu_torch.infer.orced import orced_inference
+    from opensetgaitrecognition_pcaa_tpu_torch.infer.pcaa import (
+        _encode_split,
+        pcaa_inference,
+        pcaa_inference_setup,
+    )
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import chamfer_kernel as ck
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import pointnet_infer as pn
+    from opensetgaitrecognition_pcaa_tpu_torch.scripts import export_reference_run as ex
+    from opensetgaitrecognition_pcaa_tpu_torch.scripts import import_reference_run as im
+    from opensetgaitrecognition_pcaa_tpu_torch.transplant import (
+        orced_decoder_state_dict,
+        torch_cg_decoder_to_flax,
+    )
+    from opensetgaitrecognition_pcaa_tpu_torch.train.run_folder import load_params, module_path
+
+    t_phase = time.perf_counter()
+    # --- 13a. export -----------------------------------------------------------------
+    sources = {"V4": os.path.join(WORK, "models_ref_src", NAME),
+               "ORCED": os.path.join(WORK, "models_orced_src", ORCED_NAME),
+               "V1": os.path.join(WORK, "models_ablation", f"{ABLATION_BASE}V1.{N_SEEN}.1")}
+    shutil.copytree(os.path.join(WORK, "models_src", NAME), sources["V4"])
+    add_v4_modules(sources["V4"], Config.load(os.path.join(sources["V4"], "config.json")))
+    reference = os.path.join(WORK, "reference")
+    exported = {}
+    for kind, run in sources.items():
+        t0 = time.perf_counter()
+        if kind == "V1":
+            proc = subprocess.run(
+                [sys.executable, "-m",
+                 "opensetgaitrecognition_pcaa_tpu_torch.scripts.export_reference_run",
+                 "--run", run, "--out-models", reference],
+                cwd=REPO, capture_output=True, text=True)
+            assert proc.returncode == 0, proc.stderr[-4000:]
+            dst = os.path.join(reference, os.path.basename(run))
+            how = "python -m, a fresh interpreter"
+        else:
+            with contextlib.redirect_stdout(io.StringIO()):
+                dst = ex.export_reference_run(run, reference)
+            how = "in process"
+        seconds = time.perf_counter() - t0
+        exported[kind] = dst
+        log(f"phase 13a: export_reference_run {kind} ({how}): {seconds:.2f} s, "
+            f"{_tree_mb(dst):.1f} MB in {sorted(os.listdir(dst))} from {_tree_mb(run):.1f} MB "
+            f"[{card}]")
+
+    # --- 13b. import -----------------------------------------------------------------
+    imported = os.path.join(WORK, "imported")
+    carried = set(ex._BASE_KEYS) | set(ex._ORCED_KEYS) | {
+        "DEC_MLP_SIZE", "DTC_FILTERS", "TRAIN_CLASSES", "TRAIN_SCENARIOS", "DATA_PATH",
+        "GEN_DATA_PATH"}
+    for kind, dst in exported.items():
+        src_cfg = Config.load(os.path.join(sources[kind], "config.json"))
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cfg = im.import_reference_run(dst, imported, DATA_PATH=src_cfg.DATA_PATH,
+                                          GEN_DATA_PATH=src_cfg.GEN_DATA_PATH)
+        seconds = time.perf_counter() - t0
+        run_dir = cfg.run_dir()
+        files = sorted(f for f in os.listdir(run_dir) if f != "config.json")
+        want = sorted(f for f in os.listdir(sources[kind])
+                      if f.endswith(".msgpack") or f == "discriminator_means.npy")
+        assert files == want, (kind, files, want)
+        for fname in files:
+            with open(os.path.join(sources[kind], fname), "rb") as a, \
+                    open(os.path.join(run_dir, fname), "rb") as b:
+                assert a.read() == b.read(), (kind, fname)
+        got = Config.load(os.path.join(run_dir, "config.json")).to_dict()
+        differ = sorted(k for k, v in src_cfg.to_dict().items()
+                        if k != "MODELS_PATH" and got[k] != v)
+        assert not set(differ) & carried, (kind, differ)
+        assert kind == "V1" or not differ, (kind, differ)
+        log(f"phase 13b: import_reference_run {kind}: {seconds:.2f} s; {len(files)} files "
+            f"byte-equal to the source's ({', '.join(files)}); config.json equal but for "
+            f"MODELS_PATH" + (f" and {differ}, which the reference's config.pkl does not "
+                              f"carry" if differ else "") + f" [{card}]")
+    cfg = Config.load(os.path.join(sources["V4"], "config.json"))
+    dec_sd = im._load_state_dict(os.path.join(exported["V4"], f"{NAME}_G.pt"))
+    t0 = time.perf_counter()
+    dec = torch_cg_decoder_to_flax(dec_sd, cfg.NSTEPS, cfg.NMAX, cfg.NFEATURES)
+    inverse_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = orced_decoder_state_dict({"params": dec}, cfg.NSTEPS, cfg.NMAX, cfg.NFEATURES)
+    forward_s = time.perf_counter() - t0
+    assert torch.equal(back["dense5.weight"], dec_sd["dense5.weight"])
+    log(f"phase 13b: the decoder maps alone, dense5 {tuple(dec_sd['dense5.weight'].shape)} f32 "
+        f"({dec_sd['dense5.weight'].numel() * 4 / 1e6:.0f} MB): reference to run folder "
+        f"(unit permutation + transposes) {inverse_s:.2f} s, back {forward_s:.2f} s [{card}]")
+    del dec_sd, dec, back
+
+    # --- 13c. pcaa_inference on the imported V4 folder ---------------------------------
+    pn.pointnet_pool_infer.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logs = pcaa_inference(
+        [NAME], ks=KS, models_path=imported, figures_path=os.path.join(WORK, "figures_imported"),
+        variation=VARIATION.V4, generate_dataset=False, dump_calibration=True, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    v4_launches = pn.pointnet_pool_infer.launches
+    assert v4_launches > 0, "pcaa_inference of the imported folder launched no kernel"
+    phase3, mine = os.path.join(WORK, "models_kernel", NAME), os.path.join(imported, NAME)
+    want, got = (dict(np.load(os.path.join(d, "calibration.npz"))) for d in (phase3, mine))
+    ll_gap = max(float(np.abs(got[k] - want[k]).max()) for k in ("test_ll", "unseen_ll"))
+    for key in ("test_preds", "test_labels", "unseen_preds", "unseen_labels", "is_val"):
+        np.testing.assert_array_equal(got[key], want[key])
+    for k in KS:
+        for stem in ("final_preds", "final_labels"):
+            a = np.load(os.path.join(phase3, f"{stem}_{k}.npy"))
+            b = np.load(os.path.join(mine, f"{stem}_{k}.npy"))
+            assert a.shape == b.shape and (a == b).all(), f"{stem}_{k}: decisions differ"
+    lat_err = 0.0
+    for split in (SPLIT.TEST, SPLIT.UNSEEN):
+        ds = RadarCropDataset(split, gen, sequential=True)
+        fvs = []
+        for models in (os.path.join(WORK, "models_kernel"), imported):
+            _, encoder, _ = pcaa_inference_setup(NAME, VARIATION.V4, device="cuda",
+                                                 models_path=models, generate_dataset=False)
+            fvs.append(_encode_split(encoder, ds, "cuda", use_kernel=True)[0])
+        lat_err = max(lat_err, float(np.abs(fvs[0] - fvs[1]).max()))
+    del encoder
+    log(f"phase 13c: pcaa_inference of the imported V4 folder via kernel: {seconds:.2f} s, "
+        f"{v4_launches} launches, f1_micro {[round(logs[NAME][k]['f1_micro'], 4) for k in KS]}; "
+        f"decisions equal to phase 3's kernel run for ks {list(KS)}; latents max |diff| "
+        f"{lat_err:.3e}, log-likelihoods max |diff| {ll_gap:.3e} [{card}]")
+
+    # --- 13d. orced_inference on the imported OR-CED folder -----------------------------
+    eps = orced_eps(gen, cfg.SUP_LATENT_DIM)
+    pn.pointnet_pool_infer.launches = ck.seq_chamfer_kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    figures = os.path.join(WORK, "figures_orced_imported")
+    logs = orced_inference(
+        [ORCED_NAME], device="cuda", models_path=imported, figures_path=figures,
+        generate_dataset=False, batch_size=ORCED_B, eps_streams=eps, dump_calibration=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    orced_launches = (pn.pointnet_pool_infer.launches, ck.seq_chamfer_kernel.launches)
+    assert orced_launches[0] > 0 and orced_launches[1] > 0, orced_launches
+    for stem in ("preds", "labels"):
+        a = np.load(os.path.join(WORK, "figures_orced_kernel", ORCED_NAME,
+                                 f"ensemble_ood_final_{stem}_fixed.npy"))
+        b = np.load(os.path.join(figures, ORCED_NAME, f"ensemble_ood_final_{stem}_fixed.npy"))
+        assert a.shape == b.shape and (a == b).all(), f"OR-CED {stem} differ"
+    want, got = (dict(np.load(os.path.join(d, ORCED_NAME, "orced_calibration.npz")))
+                 for d in (os.path.join(WORK, "models_orced_kernel"), imported))
+    z_gap = max(float(np.abs(got[f"{s}_z"] - want[f"{s}_z"]).max())
+                for s in ("train", "test", "unseen"))
+    re_gap = max(float(np.abs(got[f"{s}_re"] - want[f"{s}_re"]).max())
+                 for s in ("train", "test", "unseen"))
+    log(f"phase 13d: orced_inference of the imported OR-CED folder via kernels: {seconds:.2f} s, "
+        f"launches (PointNet, Chamfer) {orced_launches}, {len(b)} decisions equal to phase 7c's "
+        f"kernel run, f1_micro {logs[ORCED_NAME]['f1_micro']:.4f}; latents max |diff| "
+        f"{z_gap:.3e}, rec errors max |diff| {re_gap:.3e} [{card}]")
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(pointnet=v4_launches + orced_launches[0], chamfer=orced_launches[1])
 
 
 def card_name() -> str:
@@ -3269,6 +3591,11 @@ def main() -> int:
     for k in ("layer", "pool", "adam"):
         train_launches[k] += grid_launches[k]
 
+    # --- 13. the reference run-folder export and import, inference on the imports ---------
+    ref_launches = reference_phase(card, gen)
+    main_launches += ref_launches["pointnet"]
+    orced_launches["chamfer"] += ref_launches["chamfer"]
+
     checks["infer"] = dict(err=max_err, ms=pn_ms["kernel"], plain_ms=pn_ms["plain"],
                            library_ms=None, **pn_bound)
     src = "opensetgaitrecognition_pcaa_tpu_torch/csrc/"
@@ -3304,7 +3631,7 @@ def main() -> int:
          "bound_route": c["bound_route"]}
         for name, source, replaces, launches, c in kernels
     ]}
-    log(f"chip_smoke: phases 1-12 in {time.perf_counter() - t_start:.1f} s [{card}]")
+    log(f"chip_smoke: phases 1-13 in {time.perf_counter() - t_start:.1f} s [{card}]")
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

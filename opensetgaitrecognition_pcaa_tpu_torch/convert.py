@@ -23,7 +23,9 @@ bf16 leaf (the moments of a bf16 run; numpy holds it as
 becomes an f32 array of the same values, since the port does not import
 ml_dtypes.
 A collection missing from the tree (``batch_stats`` of a moment tree) is
-skipped, and so is a key missing from the ``state_dict``.
+skipped, and so is a key missing from the ``state_dict``. The state_dict
+of a module built on the meta device maps to the tree of its shapes (a
+tuple at each leaf), with no values read or made.
 """
 
 from __future__ import annotations
@@ -131,12 +133,17 @@ def _to_variables(state_dict: Dict[str, torch.Tensor], entries) -> Dict:
     for path, key, layout in entries:
         if key not in state_dict:
             continue
-        t = state_dict[key].detach().cpu()
-        a = _relayout((t.float() if t.dtype == torch.bfloat16 else t).numpy(), layout)
+        t = state_dict[key].detach()
+        if t.is_meta:  # shapes only: both layouts reverse the axes
+            leaf = tuple(reversed(t.shape)) if layout != "plain" else tuple(t.shape)
+        else:
+            t = t.cpu()
+            a = _relayout((t.float() if t.dtype == torch.bfloat16 else t).numpy(), layout)
+            leaf = np.array(a, order="C")  # a copy: never a view of the tensor
         node = tree
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = np.array(a, order="C")  # a copy: never a view of the tensor
+        node[path[-1]] = leaf
     return tree
 
 

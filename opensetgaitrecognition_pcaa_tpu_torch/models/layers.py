@@ -66,6 +66,8 @@ def elu(x: torch.Tensor) -> torch.Tensor:
 
 
 def _uniform_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    if t.is_meta:  # a module built on the meta device for its shapes holds no values
+        return
     bound = 1.0 / fan_in**0.5
     with torch.no_grad():
         t.copy_(torch.rand(t.shape, generator=generator) * (2 * bound) - bound)
