@@ -107,11 +107,11 @@ with seeded random weights and seeded crop files. Phases:
    c. ``run_orced`` trains one ORCED run (6 classes, 1 epoch) on phase
       8's raw tracks; a second call trains nothing and writes no split;
    d. ``run_pointsubsampling`` (the training kernels on) trains and
-      scores V4 at 50 and 150 points, ks 1 and 6; with one log deleted it
-      re-scores that run without training; a third call skips both;
-   e. ``run_inference_scenarios`` scores phase 9b's four folders per
+      scores V4 at 50 points, ks 1 and 6; with one log deleted it
+      re-scores the run without training; a third call skips it;
+   e. ``run_inference_scenarios`` scores phase 9b's V1 and V4 folders per
       scenario at ks 6 and 1 (the JAX driver's file names, finite F1);
-      ``collect_results`` lists every folder;
+      ``collect_results`` lists them;
 11. bf16 training (``COMPUTE_DTYPE="bfloat16"``, ``BF16_ADAM_NU``):
    a. the bf16 layer kernel's ptxas report (no spills); the bf16 layer
       kernel (+ its statistics), the bf16-input pool kernel and the Adam
@@ -138,16 +138,17 @@ with seeded random weights and seeded crop files. Phases:
 12. the drivers' ``--grid`` mode (``parallel/grid.py``) on phase 8's raw
    tracks, ``--n-training-classes 6 --n-tests 2 --epochs 1``:
    a. ``run_pcaa_ablation --grid --variants V4`` (kernels on) trains one
-      chunk of 2 runs, then the sequential driver the same 2
-      runs: seconds and peak device memory of each, launches (layer, pool,
-      Adam) (4, 1, 4) a step taken, each run's epoch losses within
-      LOSS_RTOL of its sequential twin; the device's busy share over
-      GRID_PROFILE_STEPS steps a run (torch.profiler's device time
-      over the host clock of an unprofiled epoch), for 2 runs and for 1;
-   b. the same chunk at f32 with ``--bf16-adam-nu``: the Adam kernel with v
-      bf16 launched 4 times a step;
-   c. ``run_orced --grid`` (no kernel) and the sequential driver on the
-      same 2 runs: seconds, memory, losses within ORCED_GRID_RTOL;
+      chunk of 2 runs: seconds and peak device memory, launches (layer,
+      pool, Adam) (4, 1, 4) a step taken, finite epoch losses (each grid
+      run is its solo run, bit for bit on the CPU: the tier-1 tests); a
+      grid of 2 runs of GRID_PROFILE_STEPS steps, its run 1 held to the
+      same run trained alone (losses within LOSS_RTOL, correct counts
+      equal), then its device busy share (torch.profiler's device time
+      over the host clock of an unprofiled epoch);
+   b. the grid at f32 with ``--bf16-adam-nu`` on 1 split: the Adam kernel
+      with v bf16 launched 4 times a step;
+   c. ``run_orced --grid`` (no kernel) on the same 2 splits: seconds,
+      memory, finite losses;
    d. both ``--grid`` calls again: both splits skipped, none written;
 13. the reference run-folder export and import at the same width
    (``scripts/export_reference_run.py``, ``scripts/import_reference_run.py``):
@@ -161,7 +162,22 @@ with seeded random weights and seeded crop files. Phases:
    c. ``pcaa_inference`` of the imported V4 folder through the kernel:
       decisions equal to phase 3's kernel run, latents' max |diff|;
    d. ``orced_inference`` of the imported OR-CED folder with phase 7c's
-      eps through both kernels: decisions equal to phase 7c's kernel run.
+      eps through both kernels: decisions equal to phase 7c's kernel run;
+14. data and tensor parallelism (``parallel/mesh.py``): first the layer
+   kernel (f32 and bf16, with and without its f64 column sums) at the
+   shapes 14a-b give it and the Adam kernel on a decoder shard, each held
+   to its plain version; then one run over 2 ranks, processes started by
+   ``launch`` with the gloo backend, both on the one card, at the same
+   width, B = 16, MESH_STEPS steps from one seeded state on phase 6's
+   train crops with injected noise, each held to the same steps on one
+   rank (losses within MESH_LOSS_RTOL, correct counts equal, the gathered
+   Adam first moments and running statistics), with each rank's launches,
+   seconds and peak memory:
+   a. V4 at DP 2 (the kernels on: 8 crops, 36,000 PointNet rows a rank);
+   b. V4 at MP 2 (the layer kernel on column shards of 256 and 512, the
+      Adam kernel on the decoder's sharded leaves; launches per width and
+      leaf printed);
+   c. OR-CED at DP 2 (the triplet loss over the all-gathered pair grid).
 
 It exits non-zero, with no result line, when there is no CUDA card or a
 phase fails. The line before the last is the per-kernel JSON record (its
@@ -170,8 +186,8 @@ driven with the counts at 0: phases 3, 4, 6c, 7c, 7d, 8c, 9b and 10 (the
 ORCED export's calibration, the orced_inference it is held against, the
 fresh process's requests, the sequential scripts' scoring) for the PointNet
 inference kernel (and 11c, 13c and 13d), 6b's kernel steps, 6c, 9a's first kernel
-steps, 9b's training, 9c's PCAA runs, 10d's training and 12a-b's driver
-calls for the f32 training kernels, 11b's kernel steps and 11c's training
+steps, 9b's training, 9c's PCAA runs, 10d's training, 12a-b's driver
+calls and 14a-b's ranks for the f32 training kernels, 11b's kernel steps and 11c's training
 for their bf16 variants, 12b's grid for the Adam kernel with v bf16, 7c,
 7d, 8c, 10b and 13d for the Chamfer kernel; the Chamfer kernel's ``ms`` is its device
 time per launch at (64, 30, 150, 4) from the CUDA graph, every other
@@ -192,6 +208,10 @@ Files go to ``build/chip_smoke/``.
 and runs phase 7a's timing, for comparing trees of the port in one call;
 ``--codec-timing`` times the run-folder codec alone the same way, and
 ``--pointnet-bf16-timing`` phase 11a's bf16 layer and pool timing.
+``--mesh-nccl`` runs phase 14's runs on a machine with 4 cards, with
+NCCL: V4 at DP 4 and DP 2 x MP 2, OR-CED at DP 2 x MP 2.
+``--grid-cards`` times a grid chunk of GRID_CARD_RUNS V4 runs over every
+card against the same runs on one card, with each card's busy share.
 ``--precision-gate`` runs the bf16 tiers' quality gate alone: V4 on a
 synthetic split, 3 seeds x 4 epochs each under f32, bf16 and bf16 + nu16
 (the kernels on), best valid accuracy and windows/s per seed and the
@@ -282,17 +302,12 @@ BF16_LOSS_RTOL = 1e-2
 BF16_TIMED_STEPS = 4  # the first pays set-up; then 3 under torch.profiler
 BF16_LAYER_WIDTHS = ((4, 512), (512, 512), (512, 1024), (1024, 1024))  # a step's 4 layers
 BF16_NAME_BASE = "SMOKE_BF16_"
-# phase 12 (the grid): run names, steps a run under the profiler,
-# and the ORCED grid's losses against the sequential driver's (two ORCED
-# runs of one configuration on the card differ, up to 1.8e-3 in phase 9c's
-# resume: cuDNN's backward-filter sums in a run-dependent order; see
-# PERF.md); the PCAA grid is held at LOSS_RTOL
+# phase 12 (the grid): run names, steps a run under the profiler
 GRID_BASE = "SMOKE_GRID_"
 # traces device_ms and the grid's busy share take before they give up on
 # torch.profiler (a trace misses kernels now and then, three running at times)
 PROFILER_TRACES = 5
 GRID_PROFILE_STEPS = 3
-ORCED_GRID_RTOL = 1e-2
 # --precision-gate: V4 on a synthetic split, paired seeds (tools/
 # gate_optimizer_quality.py's method), f32 against the two bf16 tiers
 GATE_SEEDS, GATE_EPOCHS = 3, 4
@@ -2131,13 +2146,13 @@ def driver_phase(card: str) -> dict:
     argv = ["--data-path", raw, "--gen-data-path", os.path.join(WORK, "gen_points"),
             "--models-path", models, "--figures-path", os.path.join(WORK, "fig_points"),
             "--n-training-classes", str(N_SEEN), "--n-tests", "1", "--n-points-subs", "50",
-            "150", "--epochs", "1", "--ks", "1", "6"]
-    names = [f"PCAA_npts_V4_{n}.{N_SEEN}.1" for n in (50, 150)]
+            "--epochs", "1", "--ks", "1", "6"]
+    names = [f"PCAA_npts_V4_{n}.{N_SEEN}.1" for n in (50,)]
     rps.default_config = lambda **kw: port_config.default_config(
         FUSED_POINTNET=True, FUSED_ADAM=True, **kw)
     try:
         fresh = call(rps.main, argv, rps)
-        assert fresh["writes"] == [50, 150], fresh["writes"]
+        assert fresh["writes"] == [50], fresh["writes"]
         assert all(f"=== training {n} ===" in fresh["text"] for n in names), fresh["text"]
         for n in names:
             for k in (1, 6):
@@ -2149,7 +2164,6 @@ def driver_phase(card: str) -> dict:
         os.remove(os.path.join(models, names[0], "naive_seq_log_6.json"))
         rescore = call(rps.main, argv, rps)
         assert f"=== re-running inference for {names[0]} ===" in rescore["text"]
-        assert f"=== skipping completed {names[1]} ===" in rescore["text"]
         assert "=== training" not in rescore["text"] and rescore["train"] == (0, 0, 0)
         assert rescore["writes"] == [50] and rescore["infer"][0] > 0
         assert os.stat(e_file).st_mtime_ns == mtime
@@ -2171,6 +2185,7 @@ def driver_phase(card: str) -> dict:
     # --- 10e. run_inference_scenarios over phase 9b's folders, then collect_results ------
     abl_models = os.path.join(WORK, "models_ablation_kernel")
     abl_names = sorted(os.listdir(abl_models))
+    abl_names = [abl_names[0], abl_names[-1]]  # V1 and V4: the projection heads' two variants
     argv = ["--data-path", raw, "--models-path", abl_models, "--figures-path",
             os.path.join(WORK, "fig_scenarios"), "--model-names", *abl_names, "--ks", "6", "1"]
     scen = call(run_inference_scenarios.main, argv)
@@ -2189,7 +2204,7 @@ def driver_phase(card: str) -> dict:
                 assert all(np.isfinite(log_[m]) for m in ("f1_micro", "f1_macro")), (n, suffix)
                 f1.setdefault(n.split(".")[0][-2:], []).append(round(log_["f1_micro"], 3))
     rows = collect_results.collect(abl_models)
-    assert {r["run"] for r in rows} == set(abl_names), rows
+    assert set(abl_names) <= {r["run"] for r in rows}, rows
     table = collect_results.to_markdown(rows)
     log(f"phase 10e: run_inference_scenarios over {len(abl_names)} folders x 3 scenarios, ks "
         f"6 1, in {scen['s']:.2f} s (splits written on the first pass; {scen['infer'][0]} "
@@ -2845,22 +2860,6 @@ def _epoch_metrics(run_dir: str) -> list:
         return [json.loads(line) for line in f]
 
 
-def _hold_losses(grid_dir: str, seq_dir: str, keys, rtol: float) -> float:
-    """Each epoch's ``keys`` of a grid run within ``rtol`` of the same run
-    through the sequential driver, relative to max(|sequential|, 1) →
-    the largest such gap."""
-    worst = 0.0
-    got, want = _epoch_metrics(grid_dir), _epoch_metrics(seq_dir)
-    assert len(got) == len(want) > 0, (grid_dir, len(got), len(want))
-    for g, w in zip(got, want):
-        for k in keys:
-            assert np.isfinite(g[k]), (grid_dir, k)
-            gap = abs(g[k] - w[k]) / max(abs(w[k]), 1.0)
-            assert gap <= rtol, (grid_dir, k, g[k], w[k])
-            worst = max(worst, gap)
-    return worst
-
-
 def _busy_share(trainer, layer_launches: int) -> tuple:
     """One warm grid epoch of ``trainer``, one on the host clock, then one
     traced by ``traced_events`` (retaken where it still misses launches of
@@ -2886,13 +2885,51 @@ def _busy_share(trainer, layer_launches: int) -> tuple:
     return device_ms, host_ms, device_ms / host_ms
 
 
+def _hold_grid_to_solo(trainer, cfg, split) -> float:
+    """One epoch of ``trainer`` against its run 1 trained alone: the solo
+    ``train_epoch`` from the same seed (weights and noise generator) on the
+    same split and permutation (the grid's host draw) → the largest loss gap
+    of any step relative to max(|solo|, 1); every gap within LOSS_RTOL and
+    the correct counts equal."""
+    import torch
+
+    from opensetgaitrecognition_pcaa_tpu_torch.config import VARIATION
+    from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import epoch_batch_indices
+    from opensetgaitrecognition_pcaa_tpu_torch.train.pcaa import (
+        VARIANTS,
+        build_pcaa,
+        make_epoch_fns,
+    )
+
+    trainer.run_epoch(0)
+    grid = {k: v.cpu().numpy() for k, v in trainer.last_epoch_steps[0].items()}
+    mods, state = build_pcaa(cfg, VARIANTS[VARIATION.V4], device="cuda")
+    x, y = (torch.from_numpy(a).cuda() for a in split)
+    perm = epoch_batch_indices(len(split[0]), cfg.BATCH_SIZE, shuffle=True,
+                               rng=np.random.default_rng(cfg.SEED))
+    _, m = make_epoch_fns(mods, cfg)[0](state, x, y, perm)
+    worst = 0.0
+    for key, v in m.items():
+        want = v.cpu().numpy()
+        if key == "n_correct":
+            assert np.array_equal(grid[key], want), (grid[key], want)
+            continue
+        gap = float(np.max(np.abs(grid[key] - want) / np.maximum(np.abs(want), 1.0)))
+        assert gap <= LOSS_RTOL, (key, grid[key], want)
+        worst = max(worst, gap)
+    del mods, state, m, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return worst
+
+
 def grid_phase(card: str) -> dict:
     """Phase 12: the ``--grid`` mode of both drivers on phase 8's raw tracks
-    at the published widths, 6 classes, 2 splits, 1 epoch, beside the same
-    runs through the sequential drivers; the grid's busy share; the
-    grid at f32 with ``--bf16-adam-nu``; a second call of each grid
-    skipping both splits → launches of the training kernels (f32 layer,
-    pool, Adam; Adam v bf16)."""
+    at the published widths, 6 classes, 2 splits, 1 epoch (each grid run is
+    its solo run bit for bit on the CPU, ``tests/test_torch_grid.py``); the
+    grid's busy share; the grid at f32 with ``--bf16-adam-nu`` on 1 split;
+    a second call of each grid skipping both splits → launches of the
+    training kernels (f32 layer, pool, Adam; Adam v bf16)."""
     import torch
 
     from opensetgaitrecognition_pcaa_tpu_torch.config import SPLIT, VARIATION
@@ -2905,76 +2942,68 @@ def grid_phase(card: str) -> dict:
     raw = os.path.join(WORK, "raw")
     runs = [f"{GRID_BASE}V4.{N_SEEN}.{i + 1}" for i in range(2)]
 
-    def argv(tag, *extra):
+    def argv(tag, *extra, n_tests=2):
         return ["--data-path", raw, "--gen-data-path", os.path.join(WORK, f"gen_{tag}"),
                 "--models-path", os.path.join(WORK, f"models_{tag}"), "--n-training-classes",
-                str(N_SEEN), "--n-tests", "2", "--epochs", "1", *extra]
+                str(N_SEEN), "--n-tests", str(n_tests), "--epochs", "1", *extra]
+
+    def finite(models: str, names) -> None:
+        for r in names:
+            rec = _epoch_metrics(os.path.join(WORK, models, r))
+            assert rec and all(np.isfinite(v) for e in rec for v in e.values()), r
 
     pcaa = ("--model-name-base", GRID_BASE, "--variants", "V4")
-    # --- 12a. the PCAA grid chunk and the same two runs one after another ---------------
+    # --- 12a. the PCAA grid chunk -----------------------------------------------------------
     grid = _grid_call(rpa, argv("grid", *pcaa, "--grid"), kernels=True)
-    seq = _grid_call(rpa, argv("gridseq", *pcaa), kernels=True)
     assert "=== grid-training V4 n_tr=6 (splits [1, 2] lockstep, unsharded) ===" in grid["text"]
     gens = [os.path.join(WORK, f"gen_grid_grid{N_SEEN}_{i}") for i in range(2)]
     steps = [len(RadarCropDataset(SPLIT.TRAIN, g)) // TRAIN_B for g in gens]
     want = (4 * sum(steps), sum(steps), 4 * sum(steps), 0)
-    assert grid["counts"] == want and seq["counts"] == want, (grid["counts"], seq["counts"])
-    assert grid["writes"] == seq["writes"] and len(grid["writes"]) == 2
-    gap = max(_hold_losses(os.path.join(WORK, "models_grid", r),
-                           os.path.join(WORK, "models_gridseq", r),
-                           ("Total Loss Train", "Discriminator Loss"), LOSS_RTOL) for r in runs)
+    assert grid["counts"] == want, grid["counts"]
+    assert len(grid["writes"]) == 2
+    finite("models_grid", runs)
     accs = [line.strip() for line in grid["text"].splitlines() if "best valid accs" in line]
     log(f"phase 12a: run_pcaa_ablation --grid (kernels on) trained {runs} as one chunk, 1 epoch "
         f"of {steps} steps, in {grid['s']:.2f} s with the 2 splits' write and the run folders; "
-        f"the same runs one after another (sequential driver) {seq['s']:.2f} s; peak device "
-        f"memory {grid['peak_gb']:.2f} GB for the chunk of 2 against {seq['peak_gb']:.2f} GB "
-        f"for a run; launches (layer, pool, adam, adam v16) {grid['counts']} each; epoch "
-        f"losses grid vs sequential within {gap:.3e} (bound {LOSS_RTOL}); {accs} [{card}]")
+        f"peak device memory {grid['peak_gb']:.2f} GB for the chunk of 2; launches (layer, pool, "
+        f"adam, adam v16) {grid['counts']}; epoch losses finite; {accs} [{card}]")
 
-    # the grid's device busy share, GRID_PROFILE_STEPS steps a run, against one run alone
+    # the grid's device busy share, GRID_PROFILE_STEPS steps a run
     data = [RadarCropDataset(SPLIT.TRAIN, g).load_all() for g in gens]
     cut = [(x[:GRID_PROFILE_STEPS * TRAIN_B], y[:GRID_PROFILE_STEPS * TRAIN_B]) for x, y in data]
-    busy = {}
-    for n_runs in (1, 2):
-        cfgs = [full_width(FUSED_POINTNET=True, FUSED_ADAM=True).replace(SEED=i)
-                for i in range(n_runs)]
-        trainer = GridPCAATrainer(cfgs, VARIATION.V4, cut[:n_runs], device="cuda")
-        busy[n_runs] = _busy_share(trainer, 4 * GRID_PROFILE_STEPS * n_runs)
-        del trainer
-        gc.collect()
-        torch.cuda.empty_cache()
+    cfgs = [full_width(FUSED_POINTNET=True, FUSED_ADAM=True).replace(SEED=i) for i in range(2)]
+    trainer = GridPCAATrainer(cfgs, VARIATION.V4, cut, device="cuda")
+    solo_gap = _hold_grid_to_solo(trainer, cfgs[0], cut[0])
+    log(f"phase 12a: grid run 1's {GRID_PROFILE_STEPS} steps against its solo train_epoch "
+        f"(same seed, split and permutation): losses within {solo_gap:.3e} (relative to "
+        f"max(|solo|, 1); bound {LOSS_RTOL}), correct counts equal [{card}]")
+    busy = _busy_share(trainer, 4 * GRID_PROFILE_STEPS * 2)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"phase 12a: device busy share over {GRID_PROFILE_STEPS} V4 steps a run (f32, kernels "
         f"on, torch.profiler's device time over the host clock of an unprofiled epoch): "
-        f"2 runs in a grid {busy[2][0]:.2f} of {busy[2][1]:.2f} ms = {busy[2][2]:.3f}; one "
-        f"run alone {busy[1][0]:.2f} of {busy[1][1]:.2f} ms = {busy[1][2]:.3f} [{card}]")
+        f"2 runs in a grid {busy[0]:.2f} of {busy[1]:.2f} ms = {busy[2]:.3f} [{card}]")
 
-    # --- 12b. the grid at f32 with --bf16-adam-nu: the Adam kernel with v bf16 ----------
+    # --- 12b. the grid at f32 with --bf16-adam-nu, 1 split: the Adam kernel with v bf16 -----
     nu16 = _grid_call(rpa, argv("grid", *pcaa, "--grid", "--bf16-adam-nu",
-                                "--models-path", os.path.join(WORK, "models_grid_nu16")),
-                      kernels=True)
-    assert nu16["counts"] == (4 * sum(steps), sum(steps), 0, 4 * sum(steps)), nu16["counts"]
-    for r in runs:
-        rec = _epoch_metrics(os.path.join(WORK, "models_grid_nu16", r))
-        assert all(np.isfinite(v) for e in rec for v in e.values()), r
-    log(f"phase 12b: run_pcaa_ablation --grid --bf16-adam-nu at f32 (kernels on): "
+                                "--models-path", os.path.join(WORK, "models_grid_nu16"),
+                                n_tests=1), kernels=True)
+    assert nu16["counts"] == (4 * steps[0], steps[0], 0, 4 * steps[0]), nu16["counts"]
+    finite("models_grid_nu16", runs[:1])
+    log(f"phase 12b: run_pcaa_ablation --grid --bf16-adam-nu at f32 (kernels on), 1 split: "
         f"{nu16['s']:.2f} s, peak {nu16['peak_gb']:.2f} GB; launches (layer, pool, adam, adam "
         f"v16) {nu16['counts']} [{card}]")
 
-    # --- 12c. the ORCED grid chunk and the same runs one after another -----------------
+    # --- 12c. the ORCED grid chunk -----------------------------------------------------------
     ogrid = _grid_call(run_orced, argv("ogrid", "--grid"), kernels=False)
-    oseq = _grid_call(run_orced, argv("ogridseq"), kernels=False)
     assert "=== grid-training ORCED n_tr=6 (splits [1, 2] lockstep, unsharded) ===" \
         in ogrid["text"]
-    assert ogrid["counts"] == oseq["counts"] == (0, 0, 0, 0)
-    ogap = max(_hold_losses(os.path.join(WORK, "models_ogrid", r),
-                            os.path.join(WORK, "models_ogridseq", r),
-                            ("Total Loss Train", "KL Loss", "Triplet Loss"), ORCED_GRID_RTOL)
-               for r in (f"ORCED_.{N_SEEN}.{i + 1}" for i in range(2)))
+    assert ogrid["counts"] == (0, 0, 0, 0)
+    finite("models_ogrid", [f"ORCED_.{N_SEEN}.{i + 1}" for i in range(2)])
     log(f"phase 12c: run_orced --grid trained 2 runs as one chunk, 1 epoch, in "
-        f"{ogrid['s']:.2f} s with the splits' write and the run folders; one after another "
-        f"{oseq['s']:.2f} s; peak {ogrid['peak_gb']:.2f} GB for the chunk against "
-        f"{oseq['peak_gb']:.2f} GB; epoch losses within {ogap:.3e} (bound {ORCED_GRID_RTOL}) "
-        f"[{card}]")
+        f"{ogrid['s']:.2f} s with the splits' write and the run folders; peak "
+        f"{ogrid['peak_gb']:.2f} GB for the chunk; epoch losses finite [{card}]")
 
     # --- 12d. second calls: both splits skipped before any is written ------------------
     for module, args, kernels in ((rpa, argv("grid", *pcaa, "--grid"), True),
@@ -2986,7 +3015,7 @@ def grid_phase(card: str) -> dict:
         log(f"phase 12d: {module.__name__.split('.')[-1]} --grid again: both splits skipped, "
             f"none written, {again['s']:.3f} s")
     log(f"phase 12: {time.perf_counter() - t_phase:.1f} s [{card}]")
-    c = [grid["counts"][i] + seq["counts"][i] + nu16["counts"][i] for i in range(4)]
+    c = [grid["counts"][i] + nu16["counts"][i] for i in range(4)]
     return dict(layer=c[0], pool=c[1], adam=c[2], adam_v16=c[3])
 
 
@@ -3257,6 +3286,523 @@ def reference_phase(card: str, gen: str) -> dict:
     return dict(pointnet=v4_launches + orced_launches[0], chamfer=orced_launches[1])
 
 
+# phase 14 (data and tensor parallelism): the sub-phases, each (name, run
+# kind, DP, MP) on 2 ranks of gloo sharing the card, and the steps each
+# runs from one seeded state with injected noise
+MESH_CASES = (("14a", "pcaa", 2, 1), ("14b", "pcaa", 1, 2), ("14c", "orced", 2, 1))
+MESH_STEPS = 3
+MESH_BACKEND = "gloo"  # the ranks share one card; nccl needs a card per rank
+MESH_TIMEOUT = 600  # s: a rank that fails stops the others at once, a hang at this
+# a sharded run against one rank: the losses of MESH_STEPS steps relative
+# to max(|one rank|, 1) (f32 sums in other orders; on an H100, 1.1e-7 to
+# 2.9e-6 at 2 and 4 ranks); after the first step, each Adam first moment
+# ((1 - b1) times its gradient) within rtol 1e-3 and 1e-4 of its leaf's
+# largest magnitude, tests/test_torch_dp.py's bound for two f32 gradients,
+# and each running statistic to the same bound. Not after the last step:
+# from the second step on, Adam turns the sum order's noise in a gradient
+# that is 0 up to rounding (a bias ahead of a BatchNorm) into a step of lr
+# either way, which moves the next running means by up to lr, and a
+# Chamfer tie can flip a reconstruction gradient (on an H100: up to 1.5e-3
+# of a leaf's scale after 3 steps, the losses within 6e-7)
+MESH_LOSS_RTOL = 1e-5
+MOMENT_RTOL, MOMENT_ATOL_OF_SCALE = 1e-3, 1e-4
+
+
+def _mesh_cfg(kind: str, dp: int, mp: int):
+    """Phase 14's configuration: the published widths, B = 16, the training
+    kernels on for PCAA (OR-CED's trainer reaches none, as in JAX)."""
+    kernels = dict(FUSED_POINTNET=True, FUSED_ADAM=True) if kind == "pcaa" else {}
+    return full_width(DP_DEVICES=dp, MP_DEVICES=mp, EPOCHS=1, **kernels)
+
+
+def _run_tree(mods, opts, mesh, specs) -> dict:
+    """A run's whole state_dict (``modules``) and the first moments of each
+    Adam state of ``opts``, on the card: gathered over the model group
+    where the run is sharded (every rank calls it)."""
+    from opensetgaitrecognition_pcaa_tpu_torch.parallel.mesh import gather_state, sub_specs
+
+    if mesh is None:
+        return {"modules": mods.state_dict(), **{n: opt.mu for n, (opt, _) in opts.items()}}
+    return {"modules": gather_state(mods.state_dict(), specs, mesh),
+            **{n: gather_state(opt.mu, sub_specs(specs, prefix), mesh)
+               for n, (opt, prefix) in opts.items()}}
+
+
+def _mesh_steps(kind: str, cfg, data: dict, keep_tree: bool = False) -> tuple:
+    """MESH_STEPS steps of ``cfg``'s run (on its mesh of ranks where
+    DP × MP > 1) from ``cfg.SEED``'s state, the batches and noise of
+    ``data`` → (this rank's global metrics per step, its training-kernel
+    launches (the layer's per output width, Adam's per leaf shape), its
+    seconds and peak device memory; where ``keep_tree``, the run's whole
+    state after the first step (``_run_tree``) on the host, else None)."""
+    import torch
+
+    from opensetgaitrecognition_pcaa_tpu_torch.config import VARIATION
+    from opensetgaitrecognition_pcaa_tpu_torch.infer.common import ieee_f32
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import adam
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import pointnet_train as pt
+    from opensetgaitrecognition_pcaa_tpu_torch.train.orced import (
+        build_orced,
+        make_orced_epoch_fns,
+    )
+    from opensetgaitrecognition_pcaa_tpu_torch.train.pcaa import (
+        VARIANTS,
+        build_pcaa,
+        make_epoch_fns,
+        place_state,
+        run_mesh,
+    )
+
+    ieee_f32()
+    t0 = time.perf_counter()
+    mesh = run_mesh(cfg)
+    if kind == "pcaa":
+        mods, state = build_pcaa(cfg, VARIANTS[VARIATION.V4], device="cuda")
+        opts = {"opt_g": (state.opt_g, "g."), "opt_d": (state.opt_d, "d.")}
+    else:
+        mods, state = build_orced(cfg, device="cuda")
+        opts = {"opt": (state.opt, "")}
+    specs = place_state(mods, opts, mesh, cfg.MP_MIN_DIM)
+    cuda = {k: torch.from_numpy(v).cuda() for k, v in data.items()}
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    reset_train_counts()
+    pt.fused_layer.widths.clear()
+    adam.adam_update_.shapes.clear()
+    epoch = (make_epoch_fns if kind == "pcaa" else make_orced_epoch_fns)(mods, cfg, mesh)[0]
+    # the epoch in two calls, 1 step and the rest: a step's index within its
+    # call picks its supervision, which SUPERVISION_FREQUENCY 1 gives every step
+    assert cfg.SUPERVISION_FREQUENCY == 1
+
+    def steps(sl: slice) -> tuple:
+        nonlocal state
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if kind == "pcaa":
+            state, m = epoch(state, cuda["x"], cuda["y"], cuda["perm"][sl],
+                             noise=(cuda["z0"][sl], cuda["alphas"][sl]))
+        else:
+            state, m = epoch(state, cuda["x"], cuda["y"], cuda["perm"][sl], 0.5,
+                             noise=cuda["eps"][sl])
+        torch.cuda.synchronize()
+        return m, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e9
+
+    first, first_s, first_gb = steps(slice(0, 1))
+    # the state after the first step, whose Adam first moments are (1 - b1)
+    # times its gradients, on the host where ``keep_tree``
+    tree = _run_tree(mods, opts, mesh, specs)
+    tree = {part: {k: v.to("cpu", copy=True) for k, v in leaves.items()}
+            for part, leaves in tree.items()} if keep_tree else None
+    rest, rest_s, rest_gb = steps(slice(1, None))
+    out = dict(metrics={k: torch.cat([first[k], rest[k]]).cpu().numpy().tolist() for k in first},
+               counts=train_counts(), widths=dict(pt.fused_layer.widths),
+               adam_shapes=dict(adam.adam_update_.shapes), build_s=build_s,
+               steps_s=first_s + rest_s, peak_gb=max(first_gb, rest_gb))
+    del mods, state, first, rest, cuda
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, tree
+
+
+def _noise_grad(key: str) -> bool:
+    """An Adam leaf whose gradient is f32 noise about 0: a dense or conv
+    bias ahead of a train-mode BatchNorm (the PointNet's, the TCN's, the
+    mean learner's first three)."""
+    parts = key.split(".")
+    return parts[-1] == "bias" and ("pointnet.dense." in key or ".conv." in key or (
+        parts[0] == "mean_learner" and parts[1] == "dense" and parts[2] in "012"))
+
+
+def _hold_state(name: str, got: dict, want: dict) -> dict:
+    """A sharded run's gathered state (``_run_tree``) against one rank's
+    after the same first step: each Adam first moment and running statistic
+    within MOMENT_RTOL and MOMENT_ATOL_OF_SCALE of its leaf's largest
+    magnitude; a leaf of ``_noise_grad`` below MOMENT_ATOL_OF_SCALE of its
+    weight's moment's largest magnitude on both sides → the largest gaps
+    relative to their leaf's scale, the number of leaves held and the
+    (at most 5 worst) leaves outside their bound, for the caller to fail
+    on after logging."""
+    gaps = dict(moment_gap=0.0, stats_gap=0.0, held=0)
+    outside = []
+
+    def hold(kind, key, g, w, scale):
+        assert g.shape == w.shape, (name, key, g.shape, w.shape)
+        gaps["held"] += 1
+        excess = float(((g - w).abs() - MOMENT_RTOL * w.abs()).max())
+        if excess > MOMENT_ATOL_OF_SCALE * scale:
+            outside.append((key, excess / max(scale, 1e-30)))
+        gaps[kind] = max(gaps[kind], float((g - w).abs().max()) / max(scale, 1e-30))
+
+    for opt in (k for k in want if k != "modules"):
+        for key, w in want[opt].items():
+            g = got[opt][key]
+            if _noise_grad(key):
+                scale = float(want[opt][key[:-len("bias")] + "weight"].abs().max())
+                noise = max(float(g.abs().max()), float(w.abs().max()))
+                gaps["held"] += 1
+                if noise > MOMENT_ATOL_OF_SCALE * scale:
+                    outside.append((f"{opt}/{key} (noise)", noise / scale))
+                continue
+            hold("moment_gap", f"{opt}/{key}", g, w, float(w.abs().max()))
+    for key, w in want["modules"].items():
+        if key.endswith((".mean", ".var")):  # the running statistics
+            hold("stats_gap", key, got["modules"][key], w, float(w.abs().max()))
+    gaps["outside"] = sorted(outside, key=lambda t: -t[1])[:5]
+    return gaps
+
+
+def _mesh_ranks(cases: list, data: dict) -> list:
+    """Phase 14's ranks (``launch``): each case's steps in turn; after each,
+    rank 0 runs the same steps on one rank (no mesh) and holds the gathered
+    state after the first step to it (``_hold_state``) → every rank's
+    ``_mesh_steps`` results,
+    rank 0's with the one-rank run's (``one``) and the state's gaps
+    (``state``), gathered on rank 0."""
+    import torch.distributed as dist
+
+    mine = []
+    for kind, cfg in cases:
+        rank0 = dist.get_rank() == 0
+        out, tree = _mesh_steps(kind, cfg, data[kind], keep_tree=rank0)
+        if rank0:
+            out["one"], one_tree = _mesh_steps(kind, _mesh_cfg(kind, 1, 1), data[kind], True)
+            out["state"] = _hold_state(kind, tree, one_tree)
+            del one_tree
+        del tree
+        mine.append(out)
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, mine)
+    return out
+
+
+def _mesh_data() -> dict:
+    """Phase 14's batches (phase 6's train crops) and noise, by run kind."""
+    from opensetgaitrecognition_pcaa_tpu_torch.config import SPLIT
+    from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import RadarCropDataset
+
+    x, y = RadarCropDataset(SPLIT.TRAIN, os.path.join(WORK, "gen")).load_all()
+    n = MESH_STEPS * TRAIN_B
+    rng = np.random.default_rng(SEED + 14)
+    base = dict(x=x[:n], y=y[:n], perm=np.arange(n).reshape(MESH_STEPS, TRAIN_B))
+    return {"pcaa": dict(base, z0=rng.normal(size=(MESH_STEPS, TRAIN_B, 32)).astype(np.float32),
+                         alphas=rng.uniform(size=(MESH_STEPS, TRAIN_B, 1)).astype(np.float32)),
+            "orced": dict(base, eps=rng.normal(size=(MESH_STEPS, TRAIN_B, 32)).astype(np.float32))}
+
+
+def _hold_to_one_rank(ranks: list) -> tuple:
+    """Every rank's losses against rank 0's one-rank run of the same steps
+    (``_mesh_ranks``) → (the largest gap relative to max(|one rank|, 1),
+    whether every rank's correct counts equal the one rank's), for
+    ``_report_mesh_case`` to hold to MESH_LOSS_RTOL."""
+    worst, counts_equal = 0.0, True
+    for key, want in ranks[0]["one"]["metrics"].items():
+        for rank in ranks:
+            got = np.asarray(rank["metrics"][key])
+            if key == "n_correct":
+                counts_equal &= bool(np.array_equal(got, want))
+                continue
+            gap = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1.0)))
+            worst = max(worst, gap if np.isfinite(gap) else np.inf)
+    return worst, counts_equal
+
+
+def check_mesh_kernels(card: str) -> dict:
+    """Phase 14's kernel shapes against the plain versions, before its ranks
+    start: the layer kernel, f32 and bf16, at a DP 2 rank's rows (36,000)
+    and full widths (14a), and at 14b's column shards (4->256, 512->256,
+    512->512, 1024->512) on 72,000 rows, each called with and without
+    ``sums``: y and the column sums per row (Σy/n, Σy²/n) held to
+    ``fused_layer_ref(..., sums=True)`` at phase 6a's tolerance (y at bf16
+    at phase 11a's), y equal between the two calls and ``stats_from_sums``
+    of the sums equal bit for bit to the kernel's own mean and var; the
+    Adam kernel on 14b's largest decoder shard, (9000, 9000), at phase 6a's
+    tolerance → the largest |diff| of the f32 layer, the bf16 layer and
+    Adam."""
+    import torch
+
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import adam
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import pointnet_train as pt
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 14)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, device="cuda", generator=g) * scale + shift
+
+    dp_rows, mp_rows = TRAIN_B // 2 * 30 * 150, TRAIN_B * 30 * 150
+    shapes = [(dp_rows, 4, 512), (dp_rows, 512, 512), (dp_rows, 512, 1024),
+              (dp_rows, 1024, 1024), (mp_rows, 4, 256), (mp_rows, 512, 256),
+              (mp_rows, 512, 512), (mp_rows, 1024, 512)]
+    err = dict(layer=0.0, layer_bf16=0.0)
+    for dtype, key, counter, y_tol in (
+            (torch.float32, "layer", "launches", dict(rtol=1e-4, atol=1e-4)),
+            (torch.bfloat16, "layer_bf16", "launches_bf16", BF16_STEP)):
+        for rows, c_in, c_out in shapes:
+            h = randn(rows, c_in, scale=2.0, shift=0.5).to(dtype)
+            a = None if c_in == 4 else torch.stack([
+                randn(c_in, scale=0.3, shift=0.5), randn(c_in, scale=0.1, shift=0.5),
+                randn(c_in, scale=0.3)]).contiguous()
+            w = randn(c_in, c_out, scale=c_in ** -0.5)
+            b = randn(c_out, scale=0.1)
+            before = getattr(pt.fused_layer, counter)
+            y, mean, var = pt.fused_layer(h, a, w, b)
+            y_sums, sums = pt.fused_layer(h, a, w, b, sums=True)
+            torch.cuda.synchronize()
+            assert getattr(pt.fused_layer, counter) == before + 2, (rows, c_in, c_out)
+            assert sums.dtype == torch.float64 and tuple(sums.shape) == (2, c_out)
+            assert torch.equal(y, y_sums), (dtype, rows, c_in, c_out)
+            s_mean, s_var = pt.stats_from_sums(sums, rows)
+            assert torch.equal(s_mean, mean) and torch.equal(s_var, var), (dtype, rows, c_in, c_out)
+            y_ref, sums_ref = pt.fused_layer_ref(h, a, w, b, sums=True)
+            torch.testing.assert_close(y.float(), y_ref.float(), **y_tol)
+            torch.testing.assert_close(sums / rows, sums_ref / rows, rtol=1e-4, atol=1e-4)
+            e = max(float((y.float() - y_ref.float()).abs().max()),
+                    float(((sums - sums_ref) / rows).abs().max()))
+            err[key] = max(err[key], e)
+            log(f"phase 14: {'f32' if dtype == torch.float32 else 'bf16'} layer kernel with and "
+                f"without sums vs plain at ({rows}, {c_in}->{c_out}): max |diff| {e:.3e}; "
+                f"stats_from_sums equal to the kernel's mean and var")
+            del h, y, y_sums, y_ref
+    s1, s2 = adam.adam_scalars(3, 1e-4, 0.9, 0.99)
+    coeffs = dict(s1=s1, s2=s2, b1=0.9, b2=0.99, eps=1e-8)
+    shape = (9000, 9000)
+    leaf = [randn(*shape, scale=1e-2), randn(*shape), randn(*shape, scale=1e-3),
+            torch.rand(shape, device="cuda", generator=g) * 1e-4]
+    ref = [t.clone() for t in leaf]
+    before = adam.adam_update_.launches
+    adam.adam_update_(*leaf, **coeffs)
+    torch.cuda.synchronize()
+    assert adam.adam_update_.launches == before + 1
+    adam.adam_update_ref_(*ref, **coeffs)
+    for u, v in zip(leaf[1:], ref[1:]):
+        torch.testing.assert_close(u, v, rtol=1e-6, atol=1e-9)
+    err["adam"] = max(float((u - v).abs().max()) for u, v in zip(leaf[1:], ref[1:]))
+    log(f"phase 14: Adam kernel vs plain on a {shape} decoder shard: max |diff| "
+        f"{err['adam']:.3e} (rtol 1e-6, atol 1e-9) [{card}]")
+    del leaf, ref
+    torch.cuda.empty_cache()
+    return err
+
+
+def _report_mesh_case(label: str, kind: str, dp: int, mp: int, per_rank: list,
+                      card: str) -> list:
+    """Log a sharded run against its one-rank run → its faults, for the
+    caller to fail on once every case is logged: losses beyond
+    MESH_LOSS_RTOL, a correct count that differs, leaves of the state
+    outside their bound (``_hold_state``)."""
+    one, state = per_rank[0]["one"], per_rank[0]["state"]
+    worst, counts_equal = _hold_to_one_rank(per_rank)
+    log(f"{label}: {kind.upper()} at DP {dp} x MP {mp}, {MESH_STEPS} steps of B = {TRAIN_B} "
+        f"({TRAIN_B // dp} crops, {TRAIN_B // dp * 30 * 150} PointNet rows a rank a step): "
+        f"losses within {worst:.3e} of one rank's (relative to max(|one rank|, 1); bound "
+        f"{MESH_LOSS_RTOL}), correct counts {one['metrics']['n_correct']} (equal on every "
+        f"rank: {counts_equal}); gathered state after step 1 "
+        f"against one rank's: {state['held']} leaves, Adam first moments within "
+        f"{state['moment_gap']:.3e} of their leaf's scale (bound rtol {MOMENT_RTOL}, atol "
+        f"{MOMENT_ATOL_OF_SCALE} of the scale), running statistics within "
+        f"{state['stats_gap']:.3e} of theirs (same bound); per rank: launches (layer, pool, adam) "
+        f"{[r['counts'] for r in per_rank]}, layer launches per output width "
+        f"{[dict(sorted(r['widths'].items())) for r in per_rank]}, Adam kernel leaves "
+        f"{[sorted(r['adam_shapes']) for r in per_rank]}; build s "
+        f"{[round(r['build_s'], 2) for r in per_rank]}, steps s "
+        f"{[round(r['steps_s'], 3) for r in per_rank]} (one rank {one['steps_s']:.3f}), peak GB "
+        f"{[round(r['peak_gb'], 2) for r in per_rank]} (one rank {one['peak_gb']:.2f}) [{card}]")
+    faults = []
+    if worst > MESH_LOSS_RTOL:
+        faults.append(f"{label}: losses {worst:.3e} from one rank's")
+    if not counts_equal:
+        faults.append(f"{label}: correct counts differ")
+    if state["outside"]:
+        faults.append(f"{label}: leaves outside their bound {state['outside']}")
+    return faults
+
+
+def mesh_phase(card: str) -> tuple:
+    """Phase 14: the kernels at its shapes (``check_mesh_kernels``), then
+    one run of the port over 2 ranks (``parallel/mesh.py``, processes of
+    gloo sharing the card) at the published widths, B = 16: V4 at DP 2
+    (14a) and MP 2 (14b) with the training kernels, OR-CED at DP 2 (14c),
+    each MESH_STEPS steps held to the same steps on one rank: losses within
+    MESH_LOSS_RTOL, correct counts equal, the gathered Adam first moments
+    and running statistics (``_hold_state``) → (the ranks' launches of the
+    f32 layer, pool and Adam kernels, the kernels' largest errors)."""
+    from opensetgaitrecognition_pcaa_tpu_torch.parallel.mesh import launch
+
+    t_phase = time.perf_counter()
+    err = check_mesh_kernels(card)
+    data = _mesh_data()
+    cases = [(kind, _mesh_cfg(kind, dp, mp)) for _, kind, dp, mp in MESH_CASES]
+    t0 = time.perf_counter()
+    ranks = launch(_mesh_ranks, 2, cases, data, backend=MESH_BACKEND, timeout=MESH_TIMEOUT)
+    launch_s = time.perf_counter() - t0
+    log(f"phase 14: 2 ranks, backend {MESH_BACKEND!r} (the ranks share cuda:0), "
+        f"{launch_s:.1f} s from the launch to rank 0's result [{card}]")
+    totals = dict(layer=0, pool=0, adam=0)
+    faults = []
+    for i, (name, kind, dp, mp) in enumerate(MESH_CASES):
+        per_rank = [r[i] for r in ranks]
+        for rank in per_rank:
+            for k, c in zip(("layer", "pool", "adam"), rank["counts"]):
+                totals[k] += c
+        widths = [dict(sorted(r["widths"].items())) for r in per_rank]
+        shapes = [sorted(r["adam_shapes"]) for r in per_rank]
+        if kind == "pcaa":
+            # every step: 4 layers, 1 pool, the 4 big decoder leaves (their shards at MP 2)
+            assert all(r["counts"] == (4 * MESH_STEPS, MESH_STEPS, 4 * MESH_STEPS)
+                       for r in per_rank), [r["counts"] for r in per_rank]
+            want_widths = {512 // mp: 2 * MESH_STEPS, 1024 // mp: 2 * MESH_STEPS}
+            assert all(w == want_widths for w in widths), widths
+            assert all(len(s) == 4 and all(sh[0] in (2250 // mp, 4500 // mp, 9000 // mp,
+                                                     18000 // mp) for sh in s)
+                       for s in shapes), shapes
+        else:
+            assert all(r["counts"] == (0, 0, 0) for r in per_rank)
+        faults += _report_mesh_case(f"phase {name}", kind, dp, mp, per_rank, card)
+    assert not faults, faults
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return totals, err
+
+
+def mesh_nccl() -> int:
+    """``--mesh-nccl``: phase 14's runs on every card of the machine (4)
+    with NCCL, rank r on ``cuda:r``: V4 at DP 4 and at DP 2 x MP 2 (the
+    kernels on), OR-CED at DP 2 x MP 2, each held to the same steps on one
+    rank as phase 14 holds its gloo ranks."""
+    import torch
+
+    from opensetgaitrecognition_pcaa_tpu_torch.infer.common import ieee_f32
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import _build
+    from opensetgaitrecognition_pcaa_tpu_torch.parallel.mesh import launch
+
+    card = card_name()
+    n = torch.cuda.device_count()
+    log(f"{card}; {n} cards")
+    if n != 4:
+        print(f"chip_smoke --mesh-nccl: needs 4 cards, found {n}", file=sys.stderr)
+        return 1
+    ieee_f32()
+    _build.load_libraries(("pointnet_train", "adam"))
+    shutil.rmtree(WORK, ignore_errors=True)
+    write_crops(os.path.join(WORK, "gen"), np.random.default_rng(SEED + 2),
+                (("train", range(N_SEEN), TRAIN_CROPS_PER_TRACK[0]),))
+    data = _mesh_data()
+    layouts = (("pcaa", 4, 1), ("pcaa", 2, 2), ("orced", 2, 2))
+    cases = [(kind, _mesh_cfg(kind, dp, mp)) for kind, dp, mp in layouts]
+    t0 = time.perf_counter()
+    ranks = launch(_mesh_ranks, n, cases, data, backend="nccl", timeout=MESH_TIMEOUT)
+    log(f"--mesh-nccl: {n} ranks on cuda:0-{n - 1}, backend 'nccl', "
+        f"{time.perf_counter() - t0:.1f} s from the launch to rank 0's result")
+    faults = []
+    for i, (kind, dp, mp) in enumerate(layouts):
+        faults += _report_mesh_case("--mesh-nccl", kind, dp, mp, [r[i] for r in ranks], card)
+    assert not faults, faults
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": n}}))
+    return 0
+
+
+GRID_CARD_RUNS = 4  # --grid-cards: runs in a chunk, one a card on a 4-card machine
+
+
+def _cards_busy(trainer, n: int) -> tuple:
+    """One warm epoch of ``trainer``, one on the host clock, then one
+    traced by torch.profiler (retaken where a card that holds a run shows
+    no kernel) → (host ms of an epoch, each card's kernel ms in the traced
+    epoch, each card's busy share: its kernel ms over the host ms)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    def epoch():
+        trainer.run_epoch(0)
+        for i in range(n):
+            torch.cuda.synchronize(i)
+
+    epoch()
+    t0 = time.perf_counter()
+    epoch()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    used = {d.index for d in trainer.run_devices}
+    for _ in range(PROFILER_TRACES):
+        traced = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: traced.append(p.events())) as prof:
+            for _ in range(2):
+                epoch()
+                prof.step()
+        kernel_ms = [0.0] * n
+        for e in traced[-1]:
+            if e.device_type == DeviceType.CUDA:
+                kernel_ms[e.device_index] += (e.time_range.end - e.time_range.start) / 1e3
+        if all(kernel_ms[i] > 0 for i in used):
+            break
+    assert all(kernel_ms[i] > 0 for i in used), kernel_ms
+    return host_ms, kernel_ms, [ms / host_ms for ms in kernel_ms]
+
+
+def grid_cards() -> int:
+    """``--grid-cards``: whether a grid chunk spread over the cards (the
+    drivers' ``--grid`` on a machine of several, ``parallel/grid.py``)
+    trains faster than the same runs on one card, or only holds more.
+    GRID_CARD_RUNS V4 runs (f32, the training kernels on, seeds 0.., phase
+    6's 144 train crops: 9 steps of B = 16 an epoch): one run alone on
+    cuda:0 (a chunk of one; ``--grid-runs-per-device 1`` on one card
+    trains GRID_CARD_RUNS such chunks in turn), the runs as one chunk on
+    cuda:0, and as one chunk over every card (run r on cuda:r % n) → for
+    each, the host seconds of a warm epoch, each card's busy share
+    (torch.profiler's kernel time on that card over the host clock of an
+    unprofiled epoch) and each card's peak memory."""
+    import torch
+
+    from opensetgaitrecognition_pcaa_tpu_torch.config import SPLIT, VARIATION
+    from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import RadarCropDataset
+    from opensetgaitrecognition_pcaa_tpu_torch.infer.common import ieee_f32
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import _build
+    from opensetgaitrecognition_pcaa_tpu_torch.parallel.grid import GridPCAATrainer
+
+    card = card_name()
+    n = torch.cuda.device_count()
+    log(f"{card}; {n} cards")
+    ieee_f32()
+    _build.load_libraries(("pointnet_train", "adam"))
+    shutil.rmtree(WORK, ignore_errors=True)
+    gen = os.path.join(WORK, "gen")
+    write_crops(gen, np.random.default_rng(SEED + 2),
+                (("train", range(N_SEEN), TRAIN_CROPS_PER_TRACK[0]),))
+    split = RadarCropDataset(SPLIT.TRAIN, gen).load_all()
+    steps = len(split[0]) // TRAIN_B
+    cards = [f"cuda:{i}" for i in range(n)]
+    epochs = {}
+    for label, runs, mesh in (("1 run on cuda:0", 1, None),
+                              (f"{GRID_CARD_RUNS} runs on cuda:0", GRID_CARD_RUNS, None),
+                              (f"{GRID_CARD_RUNS} runs over {n} cards", GRID_CARD_RUNS, cards)):
+        cfgs = [full_width(FUSED_POINTNET=True, FUSED_ADAM=True).replace(SEED=i)
+                for i in range(runs)]
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
+        t0 = time.perf_counter()
+        trainer = GridPCAATrainer(cfgs, VARIATION.V4, [split] * runs, mesh=mesh, device="cuda:0")
+        build_s = time.perf_counter() - t0
+        host_ms, kernel_ms, busy = _cards_busy(trainer, n)
+        peak = [torch.cuda.max_memory_allocated(d) / 1e9 for d in cards]
+        epochs[label] = host_ms
+        log(f"--grid-cards: {label}: a warm epoch of {steps} steps a run in {host_ms:.1f} ms "
+            f"({host_ms / (runs * steps):.2f} ms a run-step); per card kernel ms "
+            f"{[round(ms, 1) for ms in kernel_ms]}, busy share {[round(b, 3) for b in busy]}, "
+            f"peak GB {[round(p, 2) for p in peak]}; built in {build_s:.1f} s [{card}]")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    one = epochs["1 run on cuda:0"]
+    log(f"--grid-cards: {GRID_CARD_RUNS} runs an epoch: {GRID_CARD_RUNS} chunks of 1 on one "
+        f"card {GRID_CARD_RUNS * one:.1f} ms, 1 chunk on one card "
+        f"{epochs[f'{GRID_CARD_RUNS} runs on cuda:0']:.1f} ms, 1 chunk over {n} cards "
+        f"{epochs[f'{GRID_CARD_RUNS} runs over {n} cards']:.1f} ms [{card}]")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": n}}))
+    return 0
+
+
 def card_name() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -3352,6 +3898,10 @@ def main() -> int:
         return pointnet_bf16_timing()
     if sys.argv[1:] == ["--precision-gate"]:
         return precision_gate()
+    if sys.argv[1:] == ["--mesh-nccl"]:
+        return mesh_nccl()
+    if sys.argv[1:] == ["--grid-cards"]:
+        return grid_cards()
     if sys.argv[1:2] == ["--serve-artifacts"]:
         return serve_artifacts(sys.argv[2])
     from opensetgaitrecognition_pcaa_tpu_torch.config import SPLIT, VARIATION, Config
@@ -3369,7 +3919,15 @@ def main() -> int:
     from opensetgaitrecognition_pcaa_tpu_torch.ops import pointnet_infer as pn
 
     # --- 1. card, precision, build ------------------------------------------
+    t_phase = time.perf_counter()
     card = card_name()
+
+    def phase_done(n: int) -> None:
+        """Log phase ``n``'s seconds (phases 9-14 log their own)."""
+        nonlocal t_phase
+        log(f"phase {n}: {time.perf_counter() - t_phase:.1f} s [{card}]")
+        t_phase = time.perf_counter()
+
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     ieee_f32()
@@ -3381,6 +3939,8 @@ def main() -> int:
         for line in _build.BUILD_LOGS.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  nvcc {name}: {line.strip()}")
+
+    phase_done(1)
 
     # --- 2. kernel vs plain --------------------------------------------------
     g = torch.Generator().manual_seed(SEED)
@@ -3433,6 +3993,8 @@ def main() -> int:
         f"{pn_bound['bound_3xtf32_ms']:.2f} ms "
         f"({100 * pn_bound['bound_3xtf32_ms'] / pn_ms['kernel']:.1f}%) [{card}]")
     del x
+
+    phase_done(2)
 
     # --- 3. the slice ----------------------------------------------------------
     shutil.rmtree(WORK, ignore_errors=True)
@@ -3500,6 +4062,8 @@ def main() -> int:
     log(f"phase 3: latents kernel vs plain: max |diff| {lat_err:.3e} (atol 1e-4); "
         f"latent std across crops {float(fv_k.std(axis=0).mean()):.3e}")
 
+    phase_done(3)
+
     # --- 4. serve ----------------------------------------------------------------
     cal = runs["kernel"]["cal"]
     k = 6
@@ -3536,6 +4100,8 @@ def main() -> int:
         f"_window_vote ({exempt} knife-edge windows exempt); kernel launches "
         f"{serve_launches}; ms per request {[round(t, 2) for t in serve_ms]} [{card}]")
 
+    phase_done(4)
+
     # --- 5. encoder throughput ---------------------------------------------------
     xb = torch.from_numpy(np.resize(x_all, (256,) + x_all.shape[1:])).cuda()
     enc_ms = alternate(
@@ -3550,6 +4116,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase_done(5)
+
     # --- 6. training -------------------------------------------------------------
     write_crops(gen, np.random.default_rng(SEED + 2), (
         ("train", range(N_SEEN), TRAIN_CROPS_PER_TRACK[0]),
@@ -3559,15 +4127,21 @@ def main() -> int:
     train_launches = train_phase(card, gen)
     main_launches += train_launches["infer"]
 
+    phase_done(6)
+
     # --- 7. OR-CED inference and serving -----------------------------------------
     checks["chamfer"] = check_chamfer_kernel(card)
     orced_launches = orced_phase(card, gen)
     main_launches += orced_launches["pointnet"]
 
+    phase_done(7)
+
     # --- 8. OR-CED from raw tracks: splits, training, scoring ------------------------
     orced_train_launches = orced_training_phase(card)
     main_launches += orced_train_launches["pointnet"]
     orced_launches["chamfer"] += orced_train_launches["chamfer"]
+
+    phase_done(8)
 
     # --- 9. the PCAA ablation: every variant's step, the driver, the resume ------------
     ablation_launches = ablation_phase(card, gen)
@@ -3595,6 +4169,15 @@ def main() -> int:
     ref_launches = reference_phase(card, gen)
     main_launches += ref_launches["pointnet"]
     orced_launches["chamfer"] += ref_launches["chamfer"]
+
+    # --- 14. data and tensor parallelism: one run over 2 ranks --------------------------
+    mesh_launches, mesh_err = mesh_phase(card)
+    for k in ("layer", "pool", "adam"):
+        train_launches[k] += mesh_launches[k]
+    # max_abs_err: the kernels at phase 14's shapes too
+    for c, k in ((checks["layer"], "layer"), (checks["adam"], "adam"),
+                 (bf16_checks["layer"], "layer_bf16")):
+        c["err"] = max(c["err"], mesh_err[k])
 
     checks["infer"] = dict(err=max_err, ms=pn_ms["kernel"], plain_ms=pn_ms["plain"],
                            library_ms=None, **pn_bound)
@@ -3631,7 +4214,7 @@ def main() -> int:
          "bound_route": c["bound_route"]}
         for name, source, replaces, launches, c in kernels
     ]}
-    log(f"chip_smoke: phases 1-13 in {time.perf_counter() - t_start:.1f} s [{card}]")
+    log(f"chip_smoke: phases 1-14 in {time.perf_counter() - t_start:.1f} s [{card}]")
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -155,13 +155,17 @@ def encoder_state_dict(enc_vars: Dict) -> Dict[str, torch.Tensor]:
     return _to_state_dict(enc_vars, _encoder_entries(_n_tcn(enc_vars), heads))
 
 
+def _encoder_entries_of(state_dict: Dict[str, torch.Tensor]) -> Iterator[_Entry]:
+    """The entries of the encoder whose state_dict this is."""
+    n_tcn = len({k.split(".")[3] for k in state_dict if k.startswith("backbone.tcn.layers.")})
+    names = {k.split(".")[0] for k in state_dict}
+    return _encoder_entries(n_tcn, _encoder_heads(names, "MLP_head" in names))
+
+
 def encoder_variables(state_dict: Dict[str, torch.Tensor]) -> Dict:
     """The port's ``CGEncoder`` or ``ORCEDEncoder`` state_dict → JAX
     variables (numpy leaves)."""
-    n_tcn = len({k.split(".")[3] for k in state_dict if k.startswith("backbone.tcn.layers.")})
-    names = {k.split(".")[0] for k in state_dict}
-    heads = _encoder_heads(names, "MLP_head" in names)
-    return _to_variables(state_dict, _encoder_entries(n_tcn, heads))
+    return _to_variables(state_dict, _encoder_entries_of(state_dict))
 
 
 def decoder_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
@@ -227,6 +231,34 @@ _ORCED = (
 
 def _sub(state_dict: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
     return {k[len(prefix):]: v for k, v in state_dict.items() if k.startswith(prefix)}
+
+
+# each module's entries, from its own state_dict
+_MODULE_ENTRIES = {
+    "encoder": _encoder_entries_of,
+    "decoder": lambda sd: _dense_stack_entries(5),
+    "discriminator": lambda sd: _dense_stack_entries(3),
+    "dec_head": lambda sd: _head_entries(),
+    "disc_head": lambda sd: _head_entries(),
+    "mean_learner": lambda sd: _mean_learner_entries(),
+}
+
+
+def leaf_entries(state_dict: Dict) -> Dict[str, Tuple[str, Tuple[str, ...], str]]:
+    """Each key of a ``PCAAModules`` (``g.encoder.…``, ``d.…``, ``ml.…``)
+    or ``ORCEDModules`` (``encoder.…``) state_dict → (its module's key, its
+    path in that module's JAX variables, its layout: "dense", "conv" or
+    "plain"). A key of no table is left out."""
+    prefixes = [(f"{side}.{name}.", name) for side, table in _PCAA_SIDES for name, _, _ in table]
+    prefixes += [(f"{name}.", name) for name, _, _ in _ORCED]
+    out = {}
+    for prefix, name in prefixes:
+        sub = _sub(state_dict, prefix)
+        if sub:
+            for path, key, layout in _MODULE_ENTRIES[name](sub):
+                if key in sub:
+                    out[prefix + key] = (name, path, layout)
+    return out
 
 
 def module_variables(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Dict]:

@@ -26,6 +26,13 @@ sums, on the CPU and the card alike (TF32 is off, ``infer/common.py::
 ieee_f32``). Autograd through the casts gives JAX's gradients too: the
 cotangent of a bf16 operand is rounded to bf16 and then upcast.
 
+Under tensor parallelism (``mesh``, set by ``parallel/mesh.py::
+shard_modules`` on a layer whose kernel the model group shards) the
+layer holds the rows ``[m·out/MP, (m+1)·out/MP)`` of its weight, computes
+those output columns with the matching block of its replicated bias, and
+all-gathers the columns over the model group (whose backward is the
+reduce-scatter-sum of the cotangents).
+
 Weights start from torch's default init, U(±1/√fan_in) for kernel and
 bias, drawn from an explicit ``torch.Generator``; a run folder's weights
 replace them through ``convert.py``.
@@ -82,12 +89,24 @@ class TorchDense(nn.Linear):
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__(in_features, out_features)
         self.compute_dtype = compute_dtype
+        self.mesh = None
         gen = generator or torch.Generator().manual_seed(0)
         _uniform_(self.weight, in_features, gen)
         _uniform_(self.bias, in_features, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return dense(x, self.weight, self.bias, self.compute_dtype)
+        if self.mesh is None:
+            return dense(x, self.weight, self.bias, self.compute_dtype)
+        y = dense(x, self.weight, _shard_rows(self.bias, self.weight, self.mesh),
+                  self.compute_dtype)
+        return self.mesh.gather_model(y, dim=-1)
+
+
+def _shard_rows(full: torch.Tensor, shard: torch.Tensor, mesh) -> torch.Tensor:
+    """The block of the replicated vector ``full`` that matches a model
+    rank's ``shard`` of a kernel's output rows."""
+    n = shard.shape[0]
+    return full[mesh.model_rank * n:(mesh.model_rank + 1) * n]
 
 
 class PointNetBlock(nn.Module):
@@ -122,6 +141,7 @@ class CausalDilatedConv1d(nn.Module):
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.mesh = None
         self.dilation = dilation
         self.pad = (kernel_size - 1) * dilation
         self.conv = nn.Conv1d(in_features, features, kernel_size, dilation=dilation)
@@ -135,11 +155,16 @@ class CausalDilatedConv1d(nn.Module):
         """``compute_dtype`` overrides the module's for this call."""
         dtype = compute_dtype or self.compute_dtype
         h = F.pad(x.transpose(1, 2), (self.pad, 0))  # (B, C, pad + T)
+        weight, bias = self.conv.weight, self.conv.bias
+        if self.mesh is not None:  # this rank's output channels, gathered below
+            bias = _shard_rows(bias, weight, self.mesh)
         if dtype == torch.float32:
-            h = self.conv(h)
+            h = F.conv1d(h, weight, bias, dilation=self.dilation)
         else:
-            h = F.conv1d(round_bf16(h), round_bf16(self.conv.weight), dilation=self.dilation)
-            h = h.to(dtype) + self.conv.bias.to(dtype)[:, None]
+            h = F.conv1d(round_bf16(h), round_bf16(weight), dilation=self.dilation)
+            h = h.to(dtype) + bias.to(dtype)[:, None]
+        if self.mesh is not None:
+            h = self.mesh.gather_model(h, dim=1)
         return elu(self.norm(h.transpose(1, 2)))  # (B, T, features)
 
 

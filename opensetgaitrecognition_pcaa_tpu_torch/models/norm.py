@@ -10,6 +10,13 @@ are used. Channels-last, so one module covers BatchNorm over (B, T, N),
 
 Parameter names follow the JAX tree: ``scale``/``bias`` parameters and
 ``mean``/``var`` buffers (its ``batch_stats``).
+
+Under data parallelism (``mesh``, set by ``parallel/mesh.py::
+shard_modules``) a batch's rows lie on the ranks of the data group, and the
+train-mode statistics are the global batch's, as GSPMD computes them: the
+sums of the two passes are all-reduced over the group (differentiably: the
+backward sums the cotangents over it too), the means taken with the global
+count, and the running estimates move with it.
 """
 
 from __future__ import annotations
@@ -27,14 +34,20 @@ class TorchBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
+        self.mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         if self.training:
             dims = tuple(range(x.dim() - 1))
             n = xf.numel() // xf.shape[-1]
-            mean = xf.mean(dim=dims)
-            var = ((xf - mean) ** 2).mean(dim=dims)
+            if self.mesh is None or self.mesh.dp == 1:
+                mean = xf.mean(dim=dims)
+                var = ((xf - mean) ** 2).mean(dim=dims)
+            else:
+                n *= self.mesh.dp
+                mean = self.mesh.sum_data(xf.sum(dim=dims)) / n
+                var = self.mesh.sum_data(((xf - mean) ** 2).sum(dim=dims)) / n
             with torch.no_grad():
                 m = self.momentum
                 unbiased = var * (n / max(n - 1, 1))

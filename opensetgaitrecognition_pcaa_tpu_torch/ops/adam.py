@@ -17,8 +17,10 @@ bf16, m and v bf16, v bf16 (JAX ``build_pcaa``'s moments at f32 compute
 with ``BF16_ADAM_NU``).
 
 2-D leaves of at least ``min_kernel_elems`` elements (2²¹, the JAX
-package's own rule: the four big decoder matrices at the published widths)
-go through ``adam_update_``, which launches ``csrc/adam.cu`` for a CUDA
+package's own rule: the four big decoder matrices at the published widths;
+counted on the leaf's global shape, so that a model rank's shard of such a
+leaf under tensor parallelism takes the kernel too) go through
+``adam_update_``, which launches ``csrc/adam.cu`` for a CUDA
 tensor or raises; the other leaves, and CPU tensors, take the plain
 version with the same formula. Unlike the JAX function, which returns new
 trees, this one **updates w, m and v in place** and returns the new count.
@@ -26,8 +28,10 @@ trees, this one **updates w, m and v in place** and returns the new count.
 
 from __future__ import annotations
 
+import collections
 import ctypes
-from typing import Dict, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -115,14 +119,17 @@ def adam_update_(g: torch.Tensor, w: torch.Tensor, m: torch.Tensor, v: torch.Ten
     if err != 0:
         raise RuntimeError(f"adam kernel launch failed: cudaError {err}")
     setattr(adam_update_, counter, getattr(adam_update_, counter) + 1)
+    adam_update_.shapes[tuple(w.shape)] += 1
 
 
 # Kernel launches since the last reset, per variant (f32 moments; m bf16;
-# m and v bf16; v bf16); the plain version does not count.
+# m and v bf16; v bf16), and of all variants per leaf shape; the plain
+# version does not count.
 adam_update_.launches = 0
 adam_update_.launches_m16 = 0
 adam_update_.launches_mv16 = 0
 adam_update_.launches_v16 = 0
+adam_update_.shapes = collections.Counter()
 
 
 def fused_adam_tree_update(
@@ -137,15 +144,19 @@ def fused_adam_tree_update(
     b2: float,
     eps: float = 1e-8,
     min_kernel_elems: int = MIN_KERNEL_ELEMS,
+    global_shapes: Optional[Dict[str, Tuple[int, ...]]] = None,
 ) -> int:
     """One Adam step over every leaf of ``params``; updates ``params``,
-    ``mu`` and ``nu`` in place and returns ``count + 1``."""
+    ``mu`` and ``nu`` in place and returns ``count + 1``. ``global_shapes``
+    (by name) are the leaves' shapes before tensor parallelism sharded
+    them, which choose kernel or plain; by default the leaves' own."""
     count2 = count + 1
     s1, s2 = adam_scalars(count2, lr, b1, b2)
     coeffs = dict(s1=s1, s2=s2, b1=b1, b2=b2, eps=eps)
     for name, w in params.items():
         g, m, v = grads[name], mu[name], nu[name]
-        if w.dim() == 2 and w.numel() >= min_kernel_elems:
+        shape = tuple(w.shape) if global_shapes is None else tuple(global_shapes[name])
+        if len(shape) == 2 and math.prod(shape) >= min_kernel_elems:
             adam_update_(g, w, m, v, **coeffs)
         else:
             adam_update_ref_(g, w, m, v, **coeffs)

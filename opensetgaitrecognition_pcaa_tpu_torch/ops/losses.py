@@ -7,14 +7,24 @@ CE loss (a kept quirk of the reference model); the loss itself is the
 standard mean log-softmax CE. The miner returns boolean masks over the
 ``(B, B)`` pair grid, and the triplet loss takes every (anchor, kept
 positive, kept negative) triplet of the grid, as the JAX package does.
+
+With a ``mesh`` (``parallel/mesh.py``) the batch's rows lie on the ranks of
+its data group: the triplet loss then mines and sums over the global
+``(B, B)`` grid of the all-gathered embeddings and labels, the loss of the
+global batch on every data rank. The means need no mesh: a rank's mean
+over its rows is its estimate of the global one, and the trainers take
+each rank's share of the whole loss at once
+(``train/pcaa.py::mesh_grads``).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from opensetgaitrecognition_pcaa_tpu_torch.parallel.mesh import Mesh
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -61,12 +71,17 @@ def multi_similarity_mine(embeddings: torch.Tensor, labels: torch.Tensor,
 
 
 def triplet_loss_with_ms_miner(embeddings: torch.Tensor, labels: torch.Tensor,
-                               margin: float = 0.5, epsilon: float = 0.1) -> torch.Tensor:
+                               margin: float = 0.5, epsilon: float = 0.1,
+                               mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Triplet-margin loss over the Multi-Similarity-mined pairs: the mean
     of ``relu(d(a, p) - d(a, n) + margin)`` over the *violating* triplets
     (pytorch_metric_learning's ``AvgNonZeroReducer``), 0 when there are
     none, with ``d = sqrt(max(|a|² + |b|² - 2a·b, 0) + 1e-16)``. Expects
-    L2-normalized embeddings (reference ``train_ORCED.py:30-34,161-163``)."""
+    L2-normalized embeddings (reference ``train_ORCED.py:30-34,161-163``).
+    With a ``mesh``, the loss of the global batch (the module docstring)."""
+    if mesh is not None and mesh.dp > 1:
+        return triplet_loss_with_ms_miner(mesh.gather_data(embeddings), mesh.gather_data(labels),
+                                          margin, epsilon)
     keep_pos, keep_neg = multi_similarity_mine(embeddings.detach(), labels, epsilon)
     sq_norm = torch.sum(embeddings ** 2, dim=1)
     sq = sq_norm[:, None] + sq_norm[None, :] - 2.0 * embeddings @ embeddings.T

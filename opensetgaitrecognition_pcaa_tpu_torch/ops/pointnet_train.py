@@ -33,6 +33,26 @@ column.
 ``pointnet_pool_train_ref`` is the whole forward in plain PyTorch, which
 autograd differentiates on its own.
 
+With a ``mesh`` (``parallel/mesh.py``) the batch's rows lie on the ranks of
+the data group and a layer's W may be this model rank's column shard (a W
+with fewer columns than its bias, which every rank holds whole):
+
+- forward: each layer (kernel or plain) hands back the column sums Σy and
+  Σy² in f64 where the data group has several ranks (``sums=True``); they
+  are all-reduced over it and mean and ``max(Σy²/n − mean², 0)`` formed
+  with the global n (``stats_from_sums``, the kernel's own formula). A
+  column shard launches the kernel on its columns, whose statistics are
+  then complete, and y, mean and var are all-gathered over the model group
+  before the next layer reads them; the pool runs at the gathered width;
+- backward: the cotangent of the pooled output (each model rank holds a
+  part, ``parallel/mesh.py``) is summed over the model group first, so
+  every rank of it works on the whole; ``g_gamma``, ``g_beta`` and the row
+  count in ``g_y`` are the global batch's (all-reduced over the data
+  group); a column shard's dgrad is all-reduced over the model group; a
+  replicated leaf's gradient is this rank's share, 1/MP of what its model
+  group computes alike, a shard's its own, and both are then summed over
+  their ranks by ``parallel/mesh.py::reduce_grads``.
+
 ``store_dtype=torch.bfloat16`` is the JAX package's bf16 training path
 (``store_dtype`` of ``pointnet_pool_train``, ``pointnet_train.py:61-105,
 207-236, 270-333``):
@@ -57,6 +77,7 @@ autograd differentiates on its own.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional, Sequence, Tuple
 
@@ -64,6 +85,7 @@ import torch
 import torch.nn.functional as F
 
 from opensetgaitrecognition_pcaa_tpu_torch.ops._build import load_library
+from opensetgaitrecognition_pcaa_tpu_torch.parallel.mesh import Mesh, all_gather, all_reduce
 
 _KERNEL = "pointnet_train"
 _EPS = 1e-5
@@ -95,14 +117,27 @@ def mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mm(a, b, out_dtype=torch.float32)
 
 
+def stats_from_sums(sums: torch.Tensor, rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(2, C)`` f64 column sums of y and y² over ``rows`` rows → (mean,
+    biased var) f32: ``mean = Σy/n``, ``var = max(Σy²/n − mean², 0)`` in
+    f64, the stats kernel's formula."""
+    mean = sums[0] / rows
+    var = torch.clamp(sums[1] / rows - mean * mean, min=0.0)
+    return mean.float(), var.float()
+
+
 def fused_layer_ref(h: torch.Tensor, affine: Optional[torch.Tensor], w: torch.Tensor,
-                    b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                    b: torch.Tensor, sums: bool = False):
     """Plain version of one layer: ``(R, C_in) → (y (R, C_out), mean, var)``;
-    y has h's dtype, f32 or bf16 (the module docstring)."""
+    y has h's dtype, f32 or bf16 (the module docstring). With ``sums``:
+    ``(y, (2, C_out) f64 column sums of y and y²)``."""
     a = _activate(h.float(), affine)
     if h.dtype == BF16:
         a, w = a.to(BF16).float(), w.to(BF16).float()
     y = torch.matmul(a, w) + b
+    if sums:
+        y64 = y.double()
+        return y.to(h.dtype), torch.stack([torch.sum(y64, dim=0), torch.sum(y64 * y64, dim=0)])
     n = y.shape[0]
     mean = torch.sum(y, dim=0) / n
     var = torch.clamp(torch.sum(y * y, dim=0) / n - mean * mean, min=0.0)
@@ -117,7 +152,7 @@ def fused_pool_ref(y: torch.Tensor, affine: torch.Tensor) -> torch.Tensor:
 def _library() -> ctypes.CDLL:
     lib = load_library(_KERNEL)
     layer = lib.pointnet_train_layer_f32
-    layer.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    layer.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     layer.restype = ctypes.c_int
     lib.pointnet_train_layer_bf16.argtypes = layer.argtypes
     lib.pointnet_train_layer_bf16.restype = ctypes.c_int
@@ -197,12 +232,15 @@ def pad_layer(h: torch.Tensor, affine: Optional[torch.Tensor], w: torch.Tensor,
 
 
 def fused_layer(h: torch.Tensor, affine: Optional[torch.Tensor], w: torch.Tensor,
-                b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                b: torch.Tensor, sums: bool = False):
     """One train-mode layer: the previous BatchNorm + ELU applied on read
     (``affine`` from ``bn_affine``; None for layer 0), ``y = h @ W + b``,
     and y's batch mean and biased variance → ``(y, mean, var)``. h and y
     are f32, or both bf16 (W rounded to bf16, f32 accumulation, the
     statistics from the unrounded y); W, b, affine and the statistics f32.
+    With ``sums`` → ``(y, (2, C_out) f64 column sums of y and y²)``: the
+    same kernel, whose statistics pass writes the sums in place of mean
+    and var (data parallelism, the module docstring).
 
     A CPU tensor takes ``fused_layer_ref``; a CUDA tensor launches the
     layer kernel of its dtype and the fixed-order reduction, or raises.
@@ -212,7 +250,7 @@ def fused_layer(h: torch.Tensor, affine: Optional[torch.Tensor], w: torch.Tensor
     6784; a wider C_in raises.
     """
     if h.device.type == "cpu":
-        return fused_layer_ref(h, affine, w, b)
+        return fused_layer_ref(h, affine, w, b, sums)
     if h.device.type != "cuda":
         raise ValueError(f"no kernel for device {h.device}")
     rows, _, c_real = _check_layer_args(h, affine, w, b)
@@ -224,8 +262,13 @@ def fused_layer(h: torch.Tensor, affine: Optional[torch.Tensor], w: torch.Tensor
     y = torch.empty((rows, c_out), dtype=h.dtype, device=h.device)
     partials = torch.empty((-(-rows // row_tile), 2, c_out), dtype=torch.float32,
                            device=h.device)
-    mean = torch.empty(c_out, dtype=torch.float32, device=h.device)
-    var = torch.empty(c_out, dtype=torch.float32, device=h.device)
+    if sums:
+        mean = var = None
+        s12 = torch.empty((2, c_out), dtype=torch.float64, device=h.device)
+    else:
+        mean = torch.empty(c_out, dtype=torch.float32, device=h.device)
+        var = torch.empty(c_out, dtype=torch.float32, device=h.device)
+        s12 = None
     fn = lib.pointnet_train_layer_bf16 if bf16 else lib.pointnet_train_layer_f32
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
@@ -236,17 +279,23 @@ def fused_layer(h: torch.Tensor, affine: Optional[torch.Tensor], w: torch.Tensor
                 if t is not None:
                     check_aligned(name, t)
         err = fn(h.data_ptr(), None if affine is None else affine.data_ptr(), wt.data_ptr(),
-                 b.data_ptr(), y.data_ptr(), partials.data_ptr(), mean.data_ptr(),
-                 var.data_ptr(), rows, c_in, c_out, stream)
+                 b.data_ptr(), y.data_ptr(), partials.data_ptr(),
+                 None if sums else mean.data_ptr(), None if sums else var.data_ptr(),
+                 s12.data_ptr() if sums else None, rows, c_in, c_out, stream)
     if err != 0:
         raise RuntimeError(f"pointnet_train layer kernel launch failed: cudaError {err}")
     if bf16:
         fused_layer.launches_bf16 += 1
     else:
         fused_layer.launches += 1
+    fused_layer.widths[c_real] += 1
     if c_out != c_real:
-        y, mean, var = y[:, :c_real].contiguous(), mean[:c_real], var[:c_real]
-    return y, mean, var
+        y = y[:, :c_real].contiguous()
+        if sums:
+            s12 = s12[:, :c_real]
+        else:
+            mean, var = mean[:c_real], var[:c_real]
+    return (y, s12) if sums else (y, mean, var)
 
 
 def prologue_elu(x: torch.Tensor) -> torch.Tensor:
@@ -296,23 +345,56 @@ def fused_pool(y: torch.Tensor, affine: torch.Tensor) -> torch.Tensor:
     return out
 
 
-# Kernel launches since the last reset, per variant (f32, bf16); the plain
-# versions do not count.
+# Kernel launches since the last reset, per variant (f32, bf16), and the
+# layer's launches of both variants per output width; the plain versions do
+# not count.
 fused_layer.launches = 0
 fused_layer.launches_bf16 = 0
+fused_layer.widths = collections.Counter()
 fused_pool.launches = 0
 fused_pool.launches_bf16 = 0
 
 
+def _is_shard(w: torch.Tensor, bias: torch.Tensor, mesh: Optional[Mesh]) -> bool:
+    """Whether W is a model rank's column shard: fewer columns than its
+    (replicated) bias, 1/MP of them."""
+    if w.shape[1] == bias.shape[0]:
+        return False
+    if mesh is None or w.shape[1] * mesh.mp != bias.shape[0]:
+        raise ValueError(f"W has {w.shape[1]} columns and its bias {bias.shape[0]}: not a column "
+                         f"shard of the mesh's model group")
+    return True
+
+
+def _mesh_layer(layer_fn, h, affine, w, bias, mesh: Mesh):
+    """``layer_fn`` on this rank's rows and W (whole or its column shard) →
+    the global batch's ``(y, mean, var)`` at the layer's full width."""
+    shard = _is_shard(w, bias, mesh)
+    if shard:
+        cols = w.shape[1]
+        bias = bias[mesh.model_rank * cols:(mesh.model_rank + 1) * cols].contiguous()
+    if mesh.dp > 1:
+        y, sums = layer_fn(h, affine, w, bias, sums=True)
+        mean, var = stats_from_sums(all_reduce(sums, mesh.data_group), h.shape[0] * mesh.dp)
+    else:
+        y, mean, var = layer_fn(h, affine, w, bias)
+    if shard:
+        y, mean, var = (all_gather(v, -1, mesh.model_group) for v in (y, mean, var))
+    return y, mean, var
+
+
 def _forward(x: torch.Tensor, params: Sequence[Layer], layer_fn, pool_fn,
-             store_dtype: torch.dtype = torch.float32):
+             store_dtype: torch.dtype = torch.float32, mesh: Optional[Mesh] = None):
     """→ (pooled (B, T, D), raw outputs ys in ``store_dtype``, means, vars)."""
     b, t, n, c = x.shape
     h = x.reshape(b * t * n, c).to(store_dtype)
     affine = None
     ys, means, variances = [], [], []
     for w, bias, gamma, beta in params:
-        y, mean, var = layer_fn(h, affine, w, bias)
+        if mesh is None:
+            y, mean, var = layer_fn(h, affine, w, bias)
+        else:
+            y, mean, var = _mesh_layer(layer_fn, h, affine, w, bias, mesh)
         ys.append(y)
         means.append(mean)
         variances.append(var)
@@ -333,14 +415,15 @@ def pointnet_pool_train_ref(x: torch.Tensor, params: Sequence[Layer],
 
 class _PointNetPoolTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, store_dtype, *flat):
+    def forward(ctx, x, store_dtype, mesh, *flat):
         params = [tuple(p.contiguous() for p in flat[i:i + 4]) for i in range(0, len(flat), 4)]
         pooled, ys, means, variances = _forward(x.contiguous(), params, fused_layer, fused_pool,
-                                                store_dtype)
+                                                store_dtype, mesh)
         ctx.save_for_backward(x, *(p for layer in params for p in layer), *ys, *means,
                               *variances)
         ctx.n_layers = len(params)
         ctx.bf16 = store_dtype == BF16
+        ctx.mesh = mesh
         ctx.mark_non_differentiable(*means, *variances)
         return (pooled, *means, *variances)
 
@@ -357,6 +440,11 @@ class _PointNetPoolTrain(torch.autograd.Function):
         variances = saved[1 + 6 * k:1 + 7 * k]
         b, t, n, c = x.shape
         rows = b * t * n
+        mesh = ctx.mesh
+        dp, mp = (1, 1) if mesh is None else (mesh.dp, mesh.mp)
+        if mp > 1:  # the model group's parts of the cotangent: the whole on each rank
+            g_pooled = all_reduce(g_pooled.contiguous(), mesh.model_group)
+        n_rows = rows * dp  # the global batch's rows
 
         # mean-pool backward: the same share to each of a frame's points
         d = ys[-1].shape[1]
@@ -366,39 +454,55 @@ class _PointNetPoolTrain(torch.autograd.Function):
         # wgrad and dgrad: f32, or bf16 operands with f32 accumulation
         mm = mm_bf16 if ctx.bf16 else torch.matmul
         for li in range(k - 1, -1, -1):
-            w, _, gamma, beta = params[li]
+            w, bias, gamma, beta = params[li]
             inv = torch.rsqrt(variances[li] + _EPS)
             x_hat = (ys[li].float() - means[li]) * inv
             bn_out = x_hat * gamma + beta
             g_bn = g_h * torch.where(bn_out > 0, 1.0, torch.exp(torch.clamp(bn_out, max=0.0)))
             g_gamma = torch.sum(g_bn * x_hat, dim=0)
             g_beta = torch.sum(g_bn, dim=0)
+            sum_gamma, sum_beta = g_gamma, g_beta
+            if dp > 1:  # the global batch's column sums
+                sum_gamma, sum_beta = all_reduce(torch.stack([g_gamma, g_beta]), mesh.data_group)
             # train-mode BatchNorm: the batch mean and variance depend on y
-            g_y = inv * gamma * (g_bn - g_beta / rows - x_hat * (g_gamma / rows))
+            g_y = inv * gamma * (g_bn - sum_beta / n_rows - x_hat * (sum_gamma / n_rows))
+            shard = _is_shard(w, bias, mesh)
+            if shard:  # this rank's columns
+                cols = w.shape[1]
+                g_y_w = g_y[:, mesh.model_rank * cols:(mesh.model_rank + 1) * cols]
+            else:
+                g_y_w = g_y
             if li == 0:
                 h_prev = x.reshape(rows, c)
             else:
-                w_p, _, gamma_p, beta_p = params[li - 1]
+                w_p, b_p, gamma_p, beta_p = params[li - 1]
                 h_prev = _activate(ys[li - 1].float(),
                                    bn_affine(means[li - 1], variances[li - 1], gamma_p, beta_p))
-            grads[4 * li:4 * li + 4] = [mm(h_prev.t(), g_y), torch.sum(g_y, dim=0),
-                                        g_gamma, g_beta]
-            if li > 0:
-                g_h = mm(g_y, w.t())
-            elif ctx.needs_input_grad[0]:
-                g_x = mm(g_y, w.t()).reshape(x.shape)
-        return (g_x, None, *grads)
+            layer = [mm(h_prev.t(), g_y_w), torch.sum(g_y, dim=0), g_gamma, g_beta]
+            if mp > 1:  # a replicated leaf's share of what the model group computes alike
+                layer = [g if i == 0 and shard else g / mp for i, g in enumerate(layer)]
+            grads[4 * li:4 * li + 4] = layer
+            if li > 0 or ctx.needs_input_grad[0]:
+                g_h = mm(g_y_w, w.t())
+                if shard:
+                    g_h = all_reduce(g_h, mesh.model_group)
+            if li == 0 and ctx.needs_input_grad[0]:
+                g_x = (g_h / mp if mp > 1 else g_h).reshape(x.shape)
+        return (g_x, None, None, *grads)
 
 
 def pointnet_pool_train(x: torch.Tensor, params: Sequence[Layer],
-                        store_dtype: torch.dtype = torch.float32):
+                        store_dtype: torch.dtype = torch.float32, mesh: Optional[Mesh] = None):
     """Train-mode PointNet stack + mean pool: ``(B, T, N, C) → (B, T, D)``.
 
     :param params: 4 layers ``(W (C_in, C_out), b, γ, β)``, W in the JAX
-        package's ``(in, out)`` layout.
+        package's ``(in, out)`` layout; with a ``mesh``, W may be this model
+        rank's column shard ``(C_in, C_out / MP)``.
     :param store_dtype: f32, or bf16 for the JAX package's bf16 training
         (the module docstring): the stored activations and the matmul
         operands in bf16, everything else f32.
+    :param mesh: x holds this data rank's rows of the batch (the module
+        docstring); the statistics are the global batch's.
     :returns: ``(pooled, means, vars)``: the batch means and biased
         variances of each layer's raw output, for the caller to fold into
         the running statistics. Differentiable with respect to x and params.
@@ -406,6 +510,6 @@ def pointnet_pool_train(x: torch.Tensor, params: Sequence[Layer],
     flat = [p for layer in params for p in layer]
     if store_dtype not in (torch.float32, BF16):
         raise ValueError(f"store_dtype must be float32 or bfloat16, got {store_dtype}")
-    out = _PointNetPoolTrain.apply(x.float(), store_dtype, *flat)
+    out = _PointNetPoolTrain.apply(x.float(), store_dtype, mesh, *flat)
     k = len(params)
     return out[0], tuple(out[1:1 + k]), tuple(out[1 + k:])

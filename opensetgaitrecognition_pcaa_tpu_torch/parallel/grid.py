@@ -1,4 +1,5 @@
-"""Run-level ("grid") training: the runs of one grid cell on one device.
+"""Run-level ("grid") training: the runs of one grid cell on one device, or
+spread over a list of devices.
 
 Port of ``opensetgaitrecognition_pcaa_tpu/parallel/grid.py``. The JAX
 package vmaps one jitted train step over a run axis and steps the runs in
@@ -15,10 +16,18 @@ cannot reach, so the runs are not batched into one step. Grid run r is
 solo run r step for step: the same permutations, batches and noise, and on
 the CPU the same bits.
 
+A ``mesh`` is the JAX trainer's run axis sharded over devices: here a list
+of devices, run r of the chunk living on ``mesh[r % len(mesh)]`` with all
+its state, so that each device trains ``R / len(mesh)`` runs in turn. It
+spreads memory, not time: one thread steps every run in turn and a step is
+bound by the host's launches, so an epoch of 4 V4 runs over 4 H100s took
+as long as on one (1518 against 1548 ms, each card busy 0.22 of it against
+0.87, peak memory a card 7.1 against 15.0 GB; ``chip_smoke.py
+--grid-cards``, H100 80GB HBM3 at 700 W).
+
 Shared with the JAX module: the per-run fields a grid may vary
 (``_PER_RUN_FIELDS``) and its check, ``mesh_chunks`` and ``pad_datasets``,
-numpy copies with the same behaviour and messages. A ``mesh`` (the run
-axis sharded over devices) is not ported: ROADMAP.md Queue 1 item 11b.
+numpy copies with the same behaviour and messages.
 """
 
 from __future__ import annotations
@@ -127,20 +136,22 @@ class _GridBase:
     subclass fills ``mods``, ``states`` and ``_train_epochs`` (each run's
     solo ``train_epoch``)."""
 
-    def __init__(self, cfgs, train_sets, valid_sets, mesh, device: Device):
+    def __init__(self, cfgs, train_sets, valid_sets, mesh: Optional[Sequence[Device]],
+                 device: Device):
         assert len(cfgs) == len(train_sets) >= 1
         # a mismatched NMAX/BATCH_SIZE pair would otherwise fail deep inside
         # a step, and a mismatched LR/EPOCHS/loss weight would silently
         # train under cfgs[0]'s values
         _assert_lockstep_compatible(cfgs)
         assert len({c.n_classes for c in cfgs}) == 1, "mismatched n_classes"
-        if mesh is not None:
-            raise NotImplementedError(
-                "a grid sharded over a device mesh is not ported (ROADMAP.md Queue 1 item 11b)")
         self.cfgs = list(cfgs)
         self.cfg = cfgs[0]
         self.R = len(cfgs)
-        self.device = torch.device(device)
+        if mesh is not None and len(mesh) == 0:
+            raise ValueError("a grid's mesh is a list of devices; it is empty")
+        devices = [torch.device(d) for d in (mesh if mesh is not None else [device])]
+        # run r and all of its state on devices[r % len(devices)]
+        self.run_devices = [devices[r % len(devices)] for r in range(self.R)]
 
         x, y, self.n_real = pad_datasets(train_sets)
         # a run with no full batch would take no step: the solo trainer
@@ -149,7 +160,7 @@ class _GridBase:
             f"train split sizes {self.n_real.tolist()} must be >= "
             f"BATCH_SIZE={self.cfg.BATCH_SIZE} (drop_last batching)"
         )
-        self.x, self.y = (torch.as_tensor(a).to(self.device) for a in (x, y))
+        self.x, self.y = self._per_run(x), self._per_run(y)
         if valid_sets is not None:
             xv, yv, self.nv_real = pad_datasets(valid_sets)
             # a valid split smaller than one batch would give vsteps=0 →
@@ -158,7 +169,7 @@ class _GridBase:
                 f"valid split sizes {self.nv_real.tolist()} must be >= "
                 f"BATCH_SIZE={self.cfg.BATCH_SIZE} (drop_last batching)"
             )
-            self.xv, self.yv = (torch.as_tensor(a).to(self.device) for a in (xv, yv))
+            self.xv, self.yv = self._per_run(xv), self._per_run(yv)
         else:
             self.xv = None
         self._host_rngs = [np.random.default_rng(c.SEED) for c in cfgs]
@@ -169,6 +180,10 @@ class _GridBase:
         self.mods: list = []
         self.states: list = []
         self._train_epochs: list = []
+
+    def _per_run(self, stacked: np.ndarray) -> List[torch.Tensor]:
+        """Run r's slice of a padded ``(R, ...)`` stack, on its device."""
+        return [torch.as_tensor(a).to(d) for a, d in zip(stacked, self.run_devices)]
 
     def _train_runs(self, *args, sup_keys=()) -> Dict[str, np.ndarray]:
         """One epoch of every run in turn: the run's permutation drawn from
@@ -226,6 +241,8 @@ class GridPCAATrainer(_GridBase):
     Usage::
 
         trainer = GridPCAATrainer(cfgs, VARIATION.V4, train_sets, valid_sets, device="cuda")
+        # or spread over cards, run r on mesh[r % len(mesh)]:
+        # GridPCAATrainer(cfgs, VARIATION.V4, train_sets, valid_sets, mesh=["cuda:0", "cuda:1"])
         for epoch in range(cfgs[0].EPOCHS):
             metrics = trainer.run_epoch(epoch)   # dict of (R,) arrays
         payloads = trainer.best_run_payloads()   # for checkpointing
@@ -248,8 +265,8 @@ class GridPCAATrainer(_GridBase):
     ):
         super().__init__(cfgs, train_sets, valid_sets, mesh, device)
         spec = VARIANTS[variation]
-        for c in self.cfgs:
-            mods, state = build_pcaa(c, spec, device=self.device)
+        for c, d in zip(self.cfgs, self.run_devices):
+            mods, state = build_pcaa(c, spec, device=d)
             self.mods.append(mods)
             self.states.append(state)
             self._train_epochs.append(make_epoch_fns(mods, self.cfg)[0])
@@ -271,7 +288,7 @@ class GridPCAATrainer(_GridBase):
         accs = []
         for mods, xv, yv, n in zip(self.mods, self.xv, self.yv, self.nv_real):
             perm = torch.as_tensor(epoch_batch_indices(int(n), B, shuffle=False),
-                                   device=self.device).long()
+                                   device=xv.device).long()
             encoder = mods.g["encoder"]
             encoder.eval()
             try:
@@ -308,8 +325,8 @@ class GridORCEDTrainer(_GridBase):
         super().__init__(cfgs, train_sets, valid_sets, mesh, device)
         self._validated: Optional[Tuple[int, np.ndarray]] = None
         self._valid_epochs = []
-        for c in self.cfgs:
-            mods, state = build_orced(c, device=self.device)
+        for c, d in zip(self.cfgs, self.run_devices):
+            mods, state = build_orced(c, device=d)
             self.mods.append(mods)
             self.states.append(state)
             train_epoch, valid_epoch = make_orced_epoch_fns(mods, self.cfg)

@@ -1,5 +1,5 @@
 """OR-CED baseline grid: openness levels × class subsets, one run after
-another or (``--grid``) as a grid of runs on one device.
+another or (``--grid``) as grids of runs on the cards.
 
 Port of the sequential mode of ``scripts/run_orced.py`` (``main``,
 ``:159-260``): for each number of training classes, draw ``--n-tests``
@@ -15,13 +15,15 @@ skipped before its splits are written.
 
 ``--grid`` is the port of the JAX driver's grid mode (``run_grid_mode``
 and ``_run_orced_chunk``, ``:29-156``): the splits of each openness level
-train as one grid on the one device
-(``parallel/grid.py::GridORCEDTrainer``), ``--grid-runs-per-device`` runs a
-chunk, into the per-split directories ``<gen>_orcedgrid<n_tr>_<i>``, with
+train as grids (``parallel/grid.py::GridORCEDTrainer``) of
+``--grid-runs-per-device`` runs per device, spread over the cards as
+``run_pcaa_ablation --grid`` does, into the per-split directories
+``<gen>_orcedgrid<n_tr>_<i>``, with
 ``NOTES`` "Grid-parallel ORCED run", four metrics logged per epoch, the
 best weights by validation accuracy every ``CHECKPOINT_FREQUENCY`` epochs
 and a ``run_complete.json`` that holds only ``best_valid_accuracy``.
-Completed splits are skipped before any split is written.
+Completed splits are skipped before any split is written. As there,
+spreading a chunk over the cards buys memory, not speed.
 
 The flags are the JAX driver's, plus ``--device`` (default ``cuda``).
 ``--compute-dtype bfloat16`` and ``--bf16-adam-nu`` train as the JAX
@@ -45,6 +47,7 @@ from opensetgaitrecognition_pcaa_tpu_torch.parallel.grid import GridORCEDTrainer
 from opensetgaitrecognition_pcaa_tpu_torch.scripts.run_pcaa_ablation import (
     apply_precision_flags,
     check_ported,
+    grid_devices,
     open_run_folders,
     unique_class_subsets,
 )
@@ -65,7 +68,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--no-skip-completed", action="store_true",
                    help="retrain runs whose folder already has a completion marker")
     p.add_argument("--grid", action="store_true",
-                   help="train all splits of an openness level as one grid on the device "
+                   help="train all splits of an openness level as grids over the cards "
                    "(parallel/grid.py) instead of one after another")
     p.add_argument("--grid-runs-per-device", type=int, default=2,
                    help="runs per grid chunk in --grid mode; splits beyond it train "
@@ -85,6 +88,7 @@ def run_grid_mode(args: argparse.Namespace, base_cfg) -> None:
     split is written, write and load the others, then train them in
     grid chunks of ``--grid-runs-per-device`` runs."""
     rng = np.random.default_rng(0)
+    devices = grid_devices(args.device)
     for n_tr in args.n_training_classes:
         subsets = unique_class_subsets(n_tr, args.n_tests, rng)
         gen_dirs = [f"{args.gen_data_path}_orcedgrid{n_tr}_{i}" for i in range(args.n_tests)]
@@ -112,23 +116,24 @@ def run_grid_mode(args: argparse.Namespace, base_cfg) -> None:
                             nsteps=base_cfg.NSTEPS, crop_step=base_cfg.CROP_STEP, verbose=False)
             data[i] = tuple(RadarCropDataset(split, gen_dirs[i]).load_all()
                             for split in (SPLIT.TRAIN, SPLIT.VALID))
-        # one device: every chunk is unsharded
-        for chunk, _ in mesh_chunks(todo, args.grid_runs_per_device, 1):
-            print(f"=== grid-training ORCED n_tr={n_tr} "
-                  f"(splits {[i + 1 for i in chunk]} lockstep, unsharded) ===")
+        cap = args.grid_runs_per_device * len(devices)
+        for chunk, use_mesh in mesh_chunks(todo, cap, len(devices)):
+            print(f"=== grid-training ORCED n_tr={n_tr} (splits {[i + 1 for i in chunk]} "
+                  f"lockstep{'' if use_mesh else ', unsharded'}) ===")
             # one call per chunk: its trainer is freed before the next is built
             _run_orced_chunk(base_cfg, [all_cfgs[i] for i in chunk], [data[i] for i in chunk],
-                             args.device)
+                             args.device, devices if use_mesh else None)
         del data
 
 
-def _run_orced_chunk(base_cfg, cfgs, chunk_data, device) -> None:
-    """Train one chunk of splits through the grid trainer and write each
-    run's folder: ``config.json``, ``metrics.jsonl``, the best E, G and ML
+def _run_orced_chunk(base_cfg, cfgs, chunk_data, device, mesh=None) -> None:
+    """Train one chunk of splits through the grid trainer (its runs spread
+    over the devices of ``mesh``, else on ``device``) and write each run's
+    folder: ``config.json``, ``metrics.jsonl``, the best E, G and ML
     files by validation accuracy (checked every ``CHECKPOINT_FREQUENCY``
     epochs) and ``run_complete.json``."""
     trainer = GridORCEDTrainer(cfgs, train_sets=[d[0] for d in chunk_data],
-                               valid_sets=[d[1] for d in chunk_data], device=device)
+                               valid_sets=[d[1] for d in chunk_data], mesh=mesh, device=device)
     loggers = open_run_folders(cfgs)
 
     for epoch in range(base_cfg.EPOCHS):

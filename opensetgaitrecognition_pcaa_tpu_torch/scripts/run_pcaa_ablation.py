@@ -1,5 +1,5 @@
 """PCAA ablation: openness levels × splits × variants, one run after
-another or (``--grid``) as a grid of runs on one device.
+another or (``--grid``) as grids of runs on the cards.
 
 Port of the sequential mode of ``scripts/run_pcaa_ablation.py`` (``main``,
 ``:226-337``, and ``unique_class_subsets``, ``:33-41``): for each number
@@ -18,14 +18,20 @@ configuration saves one (``SAVE_RESUME_STATE``).
 
 ``--grid`` is the port of the JAX driver's grid mode (``run_grid_mode``
 and ``run_grid_chunk``, ``:43-223``): the splits of each (variant,
-openness) cell train as one grid on the one device
-(``parallel/grid.py::GridPCAATrainer``), ``--grid-runs-per-device`` runs a
-chunk, into the per-split directories ``<gen>_grid<n_tr>_<i>``; the runs
-are the sequential mode's (names, ``SEED``, class subsets), with
-``NOTES`` "Grid-parallel ablation run, Variant N", three metrics logged per
-epoch, validation on checkpoint epochs, and a ``run_complete.json`` that
-holds only ``best_valid_accuracy``. Completed splits are skipped before
-any split is written; the grid writes no resume state.
+openness) cell train as grids (``parallel/grid.py::GridPCAATrainer``) of
+``--grid-runs-per-device`` runs per device, over every card with a CUDA
+``--device`` (a chunk whose run count the cards divide spreads its runs
+over them, ``mesh_chunks``; a ragged tail trains on ``--device``) and on
+the one device otherwise, into the per-split directories
+``<gen>_grid<n_tr>_<i>``; the runs are the sequential mode's (names,
+``SEED``, class subsets), with ``NOTES`` "Grid-parallel ablation run,
+Variant N", three metrics logged per epoch, validation on checkpoint
+epochs, and a ``run_complete.json`` that holds only
+``best_valid_accuracy``. Completed splits are skipped before
+any split is written; the grid writes no resume state. Spreading a chunk
+over the cards buys memory, not speed: one thread steps its runs in turn
+(``parallel/grid.py``), so n cards hold n times the runs of one in about
+the time one card takes for them.
 
     python -m opensetgaitrecognition_pcaa_tpu_torch.scripts.run_pcaa_ablation \\
         --data-path RAW_TRACKS --grid [--grid-runs-per-device 2] [--device cuda]
@@ -47,6 +53,7 @@ import os
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from opensetgaitrecognition_pcaa_tpu_torch.config import (
     N_SUBJECTS,
@@ -101,8 +108,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--bf16-weight-cache", action="store_true",
                    help="bf16 copies of the decoder kernels (not ported)")
     p.add_argument("--grid", action="store_true",
-                   help="train all splits of a (variant, openness) cell as one grid on the "
-                   "device (parallel/grid.py) instead of one after another")
+                   help="train all splits of a (variant, openness) cell as grids over the "
+                   "cards (parallel/grid.py) instead of one after another")
     p.add_argument("--device", default="cuda", help="torch device to train on")
     return p
 
@@ -127,6 +134,14 @@ def apply_precision_flags(cfg, args: argparse.Namespace):
     return cfg
 
 
+def grid_devices(device: str) -> List[str]:
+    """The devices a grid spreads its runs over: every card for a CUDA
+    ``device`` (JAX's ``jax.devices()``), else ``device`` alone."""
+    if torch.device(device).type == "cuda":
+        return [f"cuda:{i}" for i in range(torch.cuda.device_count())] or [device]
+    return [device]
+
+
 def open_run_folders(cfgs) -> List[MetricLogger]:
     """Each run's folder with its ``config.json`` → its metric logger."""
     loggers = []
@@ -143,6 +158,7 @@ def run_grid_mode(args: argparse.Namespace, base_cfg) -> None:
     splits, then train each variant's splits in grid chunks of
     ``--grid-runs-per-device`` runs."""
     rng = np.random.default_rng(0)
+    devices = grid_devices(args.device)
     for n_tr in args.n_training_classes:
         subsets = unique_class_subsets(n_tr, args.n_tests, rng)
         gen_dirs = [f"{args.gen_data_path}_grid{n_tr}_{i}" for i in range(args.n_tests)]
@@ -179,26 +195,30 @@ def run_grid_mode(args: argparse.Namespace, base_cfg) -> None:
             if len(todo) < args.n_tests:
                 done = sorted(set(range(args.n_tests)) - set(todo))
                 print(f"    skipping completed splits {[i + 1 for i in done]}")
-            # one device: every chunk is unsharded
-            for chunk, _ in mesh_chunks(todo, args.grid_runs_per_device, 1):
-                print(f"=== grid-training {v} n_tr={n_tr} "
-                      f"(splits {[i + 1 for i in chunk]} lockstep, unsharded) ===")
+            # chunks of runs_per_device × n_dev runs; a chunk the devices
+            # do not divide trains its tail on one (parallel.grid.mesh_chunks)
+            cap = args.grid_runs_per_device * len(devices)
+            for chunk, use_mesh in mesh_chunks(todo, cap, len(devices)):
+                print(f"=== grid-training {v} n_tr={n_tr} (splits {[i + 1 for i in chunk]} "
+                      f"lockstep{'' if use_mesh else ', unsharded'}) ===")
                 # one call per chunk: its trainer (a few GB of weights and
                 # moments per run on the card) is freed before the next is built
                 run_grid_chunk(args, [cfgs_by_variant[v][i] for i in chunk], VARIATION(v),
-                               [data[i] for i in chunk], base_cfg)
+                               [data[i] for i in chunk], base_cfg,
+                               devices if use_mesh else None)
         del data
 
 
 def run_grid_chunk(args: argparse.Namespace, cfgs, variation: VARIATION, data,
-                   base_cfg) -> None:
-    """Train one chunk of splits through the grid trainer and write each
+                   base_cfg, mesh: Optional[List[str]] = None) -> None:
+    """Train one chunk of splits through the grid trainer (its runs spread
+    over the devices of ``mesh``, else on ``--device``) and write each
     run's folder: ``config.json``, ``metrics.jsonl``, the best weights by
     validation accuracy (checked every ``CHECKPOINT_FREQUENCY`` epochs) in
     the variant's module files, ``discriminator_means.npy`` and
     ``run_complete.json``."""
     trainer = GridPCAATrainer(cfgs, variation, train_sets=[d[0] for d in data],
-                              valid_sets=[d[1] for d in data], device=args.device)
+                              valid_sets=[d[1] for d in data], mesh=mesh, device=args.device)
     loggers = open_run_folders(cfgs)
 
     for epoch in range(base_cfg.EPOCHS):

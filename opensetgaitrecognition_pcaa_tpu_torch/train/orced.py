@@ -40,11 +40,18 @@ semantics of the JAX trainer:
   ``build_orced``'s optimizer: ``optax.adam(mu_dtype)`` without
   ``BF16_ADAM_NU``, ``adam_lowmem`` with it, both with ``b2 = B1``.
 
+- ``DP_DEVICES × MP_DEVICES > 1`` trains one run over that many ranks,
+  as ``train/pcaa.py`` does and JAX ``train_orced`` (``:429-486``): each
+  data rank takes its rows of every batch, the reparametrization's eps is
+  drawn at the global shape and sliced, the triplet loss mines the global
+  pair grid of the all-gathered embeddings (``ops/losses.py``), the wide
+  kernels are sharded after any resume restore, and rank 0 writes the run
+  folder from gathered full trees.
+
 Modules, parameters, running statistics and Adam moments are updated in
 place. ``FUSED_ADAM`` and ``DEFERRED_DECODER_UPDATE`` are PCAA-only and
-raise ``ValueError`` as in the JAX package; ``FACTORED_ADAM_NU``,
-``BF16_WEIGHT_CACHE`` and data/tensor parallelism are not ported yet and
-raise ``NotImplementedError``.
+raise ``ValueError`` as in the JAX package; ``FACTORED_ADAM_NU`` and
+``BF16_WEIGHT_CACHE`` are TPU-only and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -76,15 +83,22 @@ from opensetgaitrecognition_pcaa_tpu_torch.ops.losses import (
 )
 from opensetgaitrecognition_pcaa_tpu_torch.train.metrics import MetricLogger
 from opensetgaitrecognition_pcaa_tpu_torch.train.optim import AdamState, adam_init, adam_update_
+from opensetgaitrecognition_pcaa_tpu_torch.parallel.mesh import Mesh, module_specs
 from opensetgaitrecognition_pcaa_tpu_torch.train.pcaa import (
-    _ckpt_payload,
+    _draw,
     _payload_from_arrays,
     _stack,
     adam_dtypes,
     check_unported,
     compute_dtype,
+    full_payload,
+    full_resume_tree,
+    global_metrics,
+    mesh_grads,
+    place_state,
     restore_resume_tree,
-    resume_tree,
+    rows_of,
+    run_mesh,
 )
 from opensetgaitrecognition_pcaa_tpu_torch.train.run_folder import (
     load_best_payload,
@@ -140,11 +154,13 @@ def build_orced(cfg: Config, *, device: Device = "cuda") -> Tuple[ORCEDModules, 
     return mods, ORCEDState(opt=opt, generator=noise)
 
 
-def make_orced_train_step(mods: ORCEDModules, cfg: Config):
-    """→ ``step(state, pcs, labels, kl_mult, eps=None) → (state, metrics)``."""
+def make_orced_train_step(mods: ORCEDModules, cfg: Config, mesh: Optional[Mesh] = None):
+    """→ ``step(state, pcs, labels, kl_mult, eps=None) → (state, metrics)``;
+    with ``mesh``, as ``train/pcaa.py::make_train_step`` takes it."""
     ieee_f32()
     n = cfg.n_classes
     params = dict(mods.named_parameters())
+    specs = None if mesh is None else module_specs(mods)
     # reference quirk: betas=(B1, B1)
     adam = dict(lr=cfg.LR, b1=cfg.B1, b2=cfg.B1)
 
@@ -152,6 +168,8 @@ def make_orced_train_step(mods: ORCEDModules, cfg: Config):
              eps: Optional[torch.Tensor] = None):
         mods.train()
         oh = F.one_hot(labels.long(), n).float()
+        if eps is None and mesh is not None:
+            eps = _draw(state.generator, (pcs.shape[0], cfg.SUP_LATENT_DIM), pcs.device, mesh)
         logits, z, mu, logvar = mods.encoder(pcs, eps=eps, generator=state.generator)
         rec = mods.decoder(z)
         mu_gts = mods.mean_learner(oh)
@@ -160,13 +178,11 @@ def make_orced_train_step(mods: ORCEDModules, cfg: Config):
         sup_loss = cfg.CE_W * cross_entropy(logits, labels)
         z_norm = z / torch.linalg.norm(z, dim=1, keepdim=True)
         trip_loss = cfg.TRIPLET_W * triplet_loss_with_ms_miner(
-            z_norm, labels, margin=cfg.TRIPLET_MARGIN
+            z_norm, labels, margin=cfg.TRIPLET_MARGIN, mesh=mesh
         )
         kl_loss = cfg.KL_W * cg_kl_divergence(mu, logvar, mu_gts) * kl_mult
         tot_loss = rec_loss + sup_loss + trip_loss + kl_loss
-        grads = torch.autograd.grad(tot_loss, list(params.values()), allow_unused=True,
-                                    materialize_grads=True)
-        adam_update_(state.opt, params, dict(zip(params, grads)), **adam)
+        adam_update_(state.opt, params, mesh_grads(tot_loss, params, specs, mesh), **adam)
         metrics = {
             "rec_loss": rec_loss.detach(),
             "sup_loss": sup_loss.detach(),
@@ -175,20 +191,23 @@ def make_orced_train_step(mods: ORCEDModules, cfg: Config):
             "tot_loss": tot_loss.detach(),
             "n_correct": torch.sum(torch.argmax(logits, dim=1) == labels).float(),
         }
-        return state, metrics
+        return state, global_metrics(metrics, mesh)
 
     return step
 
 
-def make_orced_epoch_fns(mods: ORCEDModules, cfg: Config):
+def make_orced_epoch_fns(mods: ORCEDModules, cfg: Config, mesh: Optional[Mesh] = None):
     """→ ``(train_epoch, valid_epoch)``: Python loops over the batches that
     a ``(steps, B)`` index matrix picks from device-resident splits.
     ``noise`` (optional, both): ``eps`` of shape ``(steps, B, latent)``
-    replayed instead of fresh draws."""
-    train_step = make_orced_train_step(mods, cfg)
+    replayed instead of fresh draws. With ``mesh`` each rank takes its rows
+    of every batch and of the noise, and the metrics are global."""
+    train_step = make_orced_train_step(mods, cfg, mesh)
 
     def train_epoch(state: ORCEDState, x_all, y_all, perm, kl_mult: float, noise=None):
-        perm = torch.as_tensor(perm, device=x_all.device).long()
+        perm = rows_of(torch.as_tensor(perm, device=x_all.device).long(), mesh)
+        if noise is not None:
+            noise = rows_of(torch.as_tensor(noise), mesh)
         out = []
         for i in range(perm.shape[0]):
             idx = perm[i]
@@ -199,7 +218,9 @@ def make_orced_epoch_fns(mods: ORCEDModules, cfg: Config):
 
     @torch.no_grad()
     def valid_epoch(state: ORCEDState, x_all, y_all, perm, noise=None):
-        perm = torch.as_tensor(perm, device=x_all.device).long()
+        perm = rows_of(torch.as_tensor(perm, device=x_all.device).long(), mesh)
+        if noise is not None:
+            noise = rows_of(torch.as_tensor(noise), mesh)
         mods.eval()
         try:
             out = []
@@ -207,13 +228,16 @@ def make_orced_epoch_fns(mods: ORCEDModules, cfg: Config):
                 idx = perm[i]
                 pcs, labels = x_all[idx], y_all[idx]
                 eps = None if noise is None else noise[i]
+                if eps is None and mesh is not None:
+                    eps = _draw(state.generator, (pcs.shape[0], cfg.SUP_LATENT_DIM), pcs.device,
+                                mesh)
                 # eval mode still samples the reparametrization noise
                 logits, z, _, _ = mods.encoder(pcs, eps=eps, generator=state.generator)
-                out.append({
+                out.append(global_metrics({
                     "rec_loss": cfg.REC_W * seq_chamfer(mods.decoder(z), pcs),
                     "ce_loss": cfg.CE_W * cross_entropy(logits, labels),
                     "n_correct": torch.sum(torch.argmax(logits, dim=1) == labels).float(),
-                })
+                }, mesh))
         finally:
             mods.train()
         return _stack(out)
@@ -248,16 +272,21 @@ def train_orced(
     :param resume: continue from the run folder's ``train_state.msgpack``
         if the port wrote one (``ValueError`` if another program did).
     :param device: the CUDA card unless the caller asks for the CPU.
+
+    With ``DP_DEVICES × MP_DEVICES > 1``, as ``train_pcaa``.
     """
     ieee_f32()
     _check_supported(cfg)
+    mesh = run_mesh(cfg)
+    lead = mesh is None or mesh.rank == 0  # the rank that writes the run folder
     run_dir = cfg.run_dir()
     device = torch.device(device)
     # read first: a state the port cannot resume raises before anything is written
     ckpt_path = os.path.join(run_dir, "train_state.msgpack")
     restored = load_train_state(ckpt_path) if resume else None
-    os.makedirs(run_dir, exist_ok=True)
-    cfg.save(os.path.join(run_dir, "config.json"))
+    if lead:
+        os.makedirs(run_dir, exist_ok=True)
+        cfg.save(os.path.join(run_dir, "config.json"))
     name = cfg.MODEL_NAME
 
     if datasets is None:
@@ -272,25 +301,26 @@ def train_orced(
     )
 
     mods, state = build_orced(cfg, device=device)
-    train_epoch, valid_epoch = make_orced_epoch_fns(mods, cfg)
-    logger = MetricLogger(run_dir, cfg.to_dict(), mode=wandb_mode)
+    logger = MetricLogger(run_dir, cfg.to_dict(), mode=wandb_mode) if lead else None
     host_rng = np.random.default_rng(cfg.SEED)
-    opts = {"opt": state.opt}
+    opts = {"opt": (state.opt, "")}  # the Adam state, its parameters' key prefix in mods
 
     best_valid_acc = 0.0
     best_payload = None
     start_epoch = 0
     if restored is not None:
         tree, start_epoch, meta = restored
-        restore_resume_tree(tree, mods, opts, state.generator)
+        restore_resume_tree(tree, mods, {"opt": state.opt}, state.generator)
         del restored, tree  # the host copy: 2.6 GB at the published widths
         host_rng.bit_generator.state = meta["host_rng_state"]
         best_valid_acc = meta.get("best_valid_acc", 0.0)
         best = load_best_payload(ckpt_path)
         if best is not None:
             best_payload = _payload_from_arrays(best, mods)
-        if verbose:
+        if verbose and lead:
             print(f"[{name}] resuming from epoch {start_epoch}")
+    specs = place_state(mods, opts, mesh, cfg.MP_MIN_DIM)
+    train_epoch, valid_epoch = make_orced_epoch_fns(mods, cfg, mesh)
 
     n_train = x_train.shape[0]
     steps = n_train // cfg.BATCH_SIZE
@@ -321,8 +351,9 @@ def train_orced(
             "Train Accuracy": train_acc,
             "Valid Accuracy": valid_acc,
         }
-        logger.log(epoch_metrics, step=epoch)
-        if verbose:
+        if lead:
+            logger.log(epoch_metrics, step=epoch)
+        if verbose and lead:
             print(
                 f"[{name}] epoch {epoch + 1}/{cfg.EPOCHS} "
                 f"rec={epoch_metrics['Reconstruction Loss Train']:.4f} "
@@ -334,21 +365,26 @@ def train_orced(
             improved = valid_acc > best_valid_acc
             if improved:
                 best_valid_acc = valid_acc
-                best_payload = _ckpt_payload(mods)
+                best_payload = full_payload(mods, mesh, specs)
             if cfg.SAVE_RESUME_STATE:
-                save_train_state(resume_tree(mods, opts, state.generator), epoch,
-                                 host_rng.bit_generator.state, ckpt_path,
-                                 extra={"best_valid_acc": best_valid_acc})
-                if improved:
-                    save_best_payload(best_payload, ckpt_path)
+                tree = full_resume_tree(mods, opts, state.generator, mesh, specs)
+                if lead:
+                    save_train_state(tree, epoch, host_rng.bit_generator.state, ckpt_path,
+                                     extra={"best_valid_acc": best_valid_acc})
+                    if improved:
+                        save_best_payload(best_payload, ckpt_path)
+                del tree
+            if not lead and best_payload is not None:
+                best_payload = {}  # only rank 0 writes it
         out = dict(epoch_metrics)
 
     elapsed = time.time() - t_start
     out["windows_per_sec"] = total_windows / max(elapsed, 1e-9)
     out["best_valid_accuracy"] = best_valid_acc
-    logger.finish()
     # the final state if no checkpoint epoch improved the valid accuracy
-    write_orced_checkpoint(run_dir, name, best_payload if best_payload is not None
-                           else _ckpt_payload(mods))
-    mark_run_completed(run_dir, out)
+    final = best_payload if best_payload is not None else full_payload(mods, mesh, specs)
+    if lead:
+        logger.finish()
+        write_orced_checkpoint(run_dir, name, final)
+        mark_run_completed(run_dir, out)
     return out

@@ -45,16 +45,26 @@ loop runs an eager step. Kept semantics of the JAX step:
   ``BF16_ADAM_NU`` or ``FUSED_ADAM``, ``adam_lowmem`` with either
   (``train/optim.py``).
 
+- ``DP_DEVICES × MP_DEVICES > 1`` trains one run over that many ranks
+  of ``torch.distributed`` (``parallel/mesh.py``; start them with its
+  ``launch``), as JAX ``make_epoch_fns(mesh=...)`` and ``shard_state``
+  do: each data rank takes its rows of every global batch, the noise is
+  drawn at the global shape from the same generator on every rank and
+  sliced, so that it equals the single-device draws; the gradients are
+  of each rank's share of the global loss (``mesh_grads``) and the metrics
+  are reduced to their global values; with ``MP_DEVICES > 1`` the wide kernels are sharded on
+  their output axis after any resume restore. Rank 0 alone writes the run
+  folder, from gathered full trees, so its files are a single-device
+  run's.
+
 Modules, parameters, running statistics and Adam moments are updated in
-place. Not ported yet, and raising ``NotImplementedError``: data/tensor
-parallelism and three TPU-only options (``FACTORED_ADAM_NU``,
-``DEFERRED_DECODER_UPDATE``, ``BF16_WEIGHT_CACHE``; ROADMAP.md Queue 1
-item 14).
+place. Three TPU-only options raise ``NotImplementedError``
+(``FACTORED_ADAM_NU``, ``DEFERRED_DECODER_UPDATE``,
+``BF16_WEIGHT_CACHE``; ROADMAP.md Queue 1 item 14).
 """
 
 from __future__ import annotations
 
-import copy
 import dataclasses
 import os
 import time
@@ -84,6 +94,17 @@ from opensetgaitrecognition_pcaa_tpu_torch.ops.centroids import sample_distant_p
 from opensetgaitrecognition_pcaa_tpu_torch.ops.chamfer import seq_chamfer
 from opensetgaitrecognition_pcaa_tpu_torch.ops.gp import gradient_penalty
 from opensetgaitrecognition_pcaa_tpu_torch.ops.losses import cross_entropy
+from opensetgaitrecognition_pcaa_tpu_torch.parallel.mesh import (
+    Mesh,
+    batch_sharding,
+    create_mesh,
+    gather_state,
+    global_shapes,
+    module_specs,
+    reduce_grads,
+    shard_modules,
+    sub_specs,
+)
 from opensetgaitrecognition_pcaa_tpu_torch.train.fused_encoder import fused_train_encoder_apply
 from opensetgaitrecognition_pcaa_tpu_torch.train.metrics import MetricLogger
 from opensetgaitrecognition_pcaa_tpu_torch.train.optim import (
@@ -130,15 +151,45 @@ VARIANTS: Dict[VARIATION, VariantSpec] = {
 
 
 def check_unported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` on the options that neither trainer of
-    the port has yet: two TPU-only optimizer and weight options and
-    data/tensor parallelism."""
+    """Raise ``NotImplementedError`` on the two TPU-only optimizer and
+    weight options, which neither trainer of the port has."""
     for flag in ("FACTORED_ADAM_NU", "BF16_WEIGHT_CACHE"):
         if getattr(cfg, flag):
             raise NotImplementedError(f"{flag} is not ported (ROADMAP.md Queue 1 item 14)")
-    if cfg.DP_DEVICES * cfg.MP_DEVICES > 1:
-        raise NotImplementedError(
-            "data and tensor parallelism are not ported yet (ROADMAP.md Queue 1 item 11b)")
+
+
+def run_mesh(cfg: Config) -> Optional[Mesh]:
+    """The mesh of ``DP_DEVICES × MP_DEVICES`` ranks where that is above
+    one (JAX ``train_pcaa``/``train_orced``), else None."""
+    if cfg.DP_DEVICES * cfg.MP_DEVICES == 1:
+        return None
+    if cfg.BATCH_SIZE % cfg.DP_DEVICES:
+        raise ValueError(f"BATCH_SIZE {cfg.BATCH_SIZE} does not split over DP_DEVICES "
+                         f"{cfg.DP_DEVICES}")
+    return create_mesh(cfg.DP_DEVICES * cfg.MP_DEVICES, model_parallel=cfg.MP_DEVICES)
+
+
+def global_metrics(metrics: Dict[str, torch.Tensor],
+                   mesh: Optional[Mesh]) -> Dict[str, torch.Tensor]:
+    """A step's metrics on this data rank's rows, a loss (a mean over its
+    rows, or a value of the global batch) or a count (``n_...``) → their
+    global values: the losses averaged over the data group, the counts
+    summed. The ranks of a model group hold the same ones."""
+    if mesh is None:
+        return metrics
+    keys = list(metrics)
+    total = mesh.sum_data(torch.stack([metrics[k].detach().float() for k in keys]))
+    return {k: v if k.startswith("n_") else v / mesh.dp for k, v in zip(keys, total)}
+
+
+def gather_opts(opts: Dict[str, Tuple[AdamState, str]], specs: Dict, mesh: Mesh
+                ) -> Dict[str, AdamState]:
+    """Each ``(Adam state, key prefix of its parameters)`` with its moments
+    gathered whole (``gather_state``; every rank calls it)."""
+    return {name: dataclasses.replace(
+        opt, mu=gather_state(opt.mu, sub_specs(specs, prefix), mesh),
+        nu=gather_state(opt.nu, sub_specs(specs, prefix), mesh))
+        for name, (opt, prefix) in opts.items()}
 
 
 def compute_dtype(cfg: Config) -> torch.dtype:
@@ -243,8 +294,44 @@ def _rec_loss(mods: PCAAModules, fv: torch.Tensor, pcs: torch.Tensor) -> torch.T
     return seq_chamfer(mods.g["decoder"](h), pcs)
 
 
-def make_train_step(mods: PCAAModules, cfg: Config):
-    """→ ``step(state, pcs, labels, step_idx, inject=None) → (state, metrics)``."""
+def _draw(generator: torch.Generator, shape: Tuple[int, ...], device, mesh: Optional[Mesh],
+          draw=torch.randn) -> torch.Tensor:
+    """Noise of ``shape`` (rows first) for this rank's rows: drawn at the
+    global batch's shape and sliced, so that every rank draws what one
+    device would."""
+    if mesh is None:
+        return draw(shape, generator=generator, device=device)
+    full = draw((shape[0] * mesh.dp,) + tuple(shape[1:]), generator=generator, device=device)
+    return full[batch_sharding(mesh, full.shape[0])]
+
+
+def mesh_grads(loss: torch.Tensor, params: Dict[str, torch.Tensor], specs,
+               mesh: Optional[Mesh]) -> Dict[str, torch.Tensor]:
+    """The gradients of a rank's ``loss`` w.r.t. ``params`` by name, zeros
+    where it does not reach. With a mesh, ``loss`` is the rank's estimate
+    of the global loss (its rows' means, values of the global batch), and
+    the gradients are of its share, 1/(DP × MP) of it: the shares of the
+    ranks sum to the global loss (``parallel/mesh.py``). They are then
+    summed over the ranks that hold each leaf (``reduce_grads`` with
+    ``specs``)."""
+    if mesh is not None:
+        loss = loss / (mesh.dp * mesh.mp)
+    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True,
+                                materialize_grads=True)
+    grads = dict(zip(params, grads))
+    if mesh is not None:
+        reduce_grads(grads, specs, mesh)
+    return grads
+
+
+def make_train_step(mods: PCAAModules, cfg: Config, mesh: Optional[Mesh] = None):
+    """→ ``step(state, pcs, labels, step_idx, inject=None) → (state, metrics)``.
+
+    With ``mesh`` (the modules placed by ``parallel/mesh.py::
+    shard_modules``), ``pcs``, ``labels`` and an ``inject`` hold this data
+    rank's rows of the global batch, the gradients are of the rank's share
+    of the loss (``mesh_grads``), summed over the ranks that hold each leaf,
+    and the metrics are global."""
     ieee_f32()
     spec = mods.spec
     n = cfg.n_classes
@@ -257,6 +344,11 @@ def make_train_step(mods: PCAAModules, cfg: Config):
     d_params = dict(mods.d.named_parameters())
     adam = dict(lr=cfg.LR, b1=cfg.B1, b2=cfg.B2)
     store_dtype = compute_dtype(cfg)
+    g_specs = d_specs = g_shapes = None
+    if mesh is not None:
+        specs = module_specs(mods)
+        g_specs, d_specs = sub_specs(specs, "g."), sub_specs(specs, "d.")
+        g_shapes = global_shapes(g_params, g_specs, mesh)
 
     def step(state: PCAAState, pcs: torch.Tensor, labels: torch.Tensor, step_idx: int,
              inject: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
@@ -266,7 +358,7 @@ def make_train_step(mods: PCAAModules, cfg: Config):
 
         # --- ONE train-mode encoder forward for the whole step -------------
         if cfg.FUSED_POINTNET:
-            logits, fv = fused_train_encoder_apply(encoder, pcs, store_dtype)
+            logits, fv = fused_train_encoder_apply(encoder, pcs, store_dtype, mesh)
         else:
             logits, fv = encoder(pcs)
         fv_detached = fv.detach()
@@ -278,8 +370,8 @@ def make_train_step(mods: PCAAModules, cfg: Config):
         else:
             mus = oh @ state.centroids
         if inject is None:
-            z0 = torch.randn((batch, latent), generator=state.generator, device=pcs.device)
-            alphas = torch.rand((batch, 1), generator=state.generator, device=pcs.device)
+            z0 = _draw(state.generator, (batch, latent), pcs.device, mesh)
+            alphas = _draw(state.generator, (batch, 1), pcs.device, mesh, torch.rand)
         else:
             z0, alphas = inject
         z = (z0 + mus).detach()
@@ -294,14 +386,11 @@ def make_train_step(mods: PCAAModules, cfg: Config):
                 fake = disc_head(fv_detached)
         real_logits = critic(z)
         fake_logits = critic(fake)
-        gp = gradient_penalty(critic, z, fake, alphas)
+        gp = gradient_penalty(critic, z, fake, alphas, mesh)
         d_loss = torch.mean(fake_logits) - torch.mean(real_logits) + cfg.GP_WEIGHT * gp
         # the DPH gets no gradient (every path into it is detached): zeros,
         # which Adam steps with, so it stays at its init, as in the JAX package
-        d_grads = torch.autograd.grad(
-            d_loss, list(d_params.values()), allow_unused=True, materialize_grads=True
-        )
-        adam_update_(state.opt_d, d_params, dict(zip(d_params, d_grads)), **adam)
+        adam_update_(state.opt_d, d_params, mesh_grads(d_loss, d_params, d_specs, mesh), **adam)
 
         # --- generator step: critic with the updated D parameters -----------
         rec_loss = _rec_loss(mods, fv, pcs)
@@ -312,14 +401,11 @@ def make_train_step(mods: PCAAModules, cfg: Config):
             tot_loss = tot_loss + sup_loss
         # the classifier head gets no gradient on unsupervised batches:
         # zeros, which Adam still steps with, as in the JAX package
-        g_grads = torch.autograd.grad(
-            tot_loss, list(g_params.values()), allow_unused=True, materialize_grads=True
-        )
-        g_grads = dict(zip(g_params, g_grads))
+        g_grads = mesh_grads(tot_loss, g_params, g_specs, mesh)
         if cfg.FUSED_ADAM:
             opt = state.opt_g
             opt.count = fused_adam_tree_update(g_grads, opt.count, opt.mu, opt.nu, g_params,
-                                               **adam)
+                                               global_shapes=g_shapes, **adam)
         else:
             adam_update_(state.opt_g, g_params, g_grads, **adam)
 
@@ -330,7 +416,7 @@ def make_train_step(mods: PCAAModules, cfg: Config):
             "tot_loss": tot_loss.detach(),
             "n_correct": torch.sum(torch.argmax(logits, dim=1) == labels).float(),
         }
-        return state, metrics
+        return state, global_metrics(metrics, mesh)
 
     return step
 
@@ -339,16 +425,26 @@ def _stack(metrics: list) -> Dict[str, torch.Tensor]:
     return {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
 
 
-def make_epoch_fns(mods: PCAAModules, cfg: Config):
+def rows_of(perm: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """A ``(steps, B)`` index matrix cut to this data rank's rows of each
+    batch (JAX ``with_sharding_constraint(..., P("data"))``)."""
+    return perm if mesh is None else perm[:, batch_sharding(mesh, perm.shape[1])]
+
+
+def make_epoch_fns(mods: PCAAModules, cfg: Config, mesh: Optional[Mesh] = None):
     """→ ``(train_epoch, valid_epoch)``: Python loops over the batches that
-    a ``(steps, B)`` index matrix picks from device-resident splits."""
-    train_step = make_train_step(mods, cfg)
+    a ``(steps, B)`` index matrix picks from device-resident splits. With
+    ``mesh`` each rank takes its rows of every batch (and of replayed
+    noise) and the metrics are global (``make_train_step``)."""
+    train_step = make_train_step(mods, cfg, mesh)
     encoder = mods.g["encoder"]
 
     def train_epoch(state: PCAAState, x_all, y_all, perm, noise=None):
         """``noise`` (optional): ``(z0 (steps, B, latent), alphas (steps, B, 1))``
         replayed instead of fresh draws."""
-        perm = torch.as_tensor(perm, device=x_all.device).long()
+        perm = rows_of(torch.as_tensor(perm, device=x_all.device).long(), mesh)
+        if noise is not None:
+            noise = tuple(rows_of(torch.as_tensor(a), mesh) for a in noise)
         out = []
         for i in range(perm.shape[0]):
             idx = perm[i]
@@ -359,18 +455,18 @@ def make_epoch_fns(mods: PCAAModules, cfg: Config):
 
     @torch.no_grad()
     def valid_epoch(state: PCAAState, x_all, y_all, perm):
-        perm = torch.as_tensor(perm, device=x_all.device).long()
+        perm = rows_of(torch.as_tensor(perm, device=x_all.device).long(), mesh)
         mods.eval()
         try:
             out = []
             for idx in perm:
                 pcs, labels = x_all[idx], y_all[idx]
                 logits, fv = encoder(pcs)
-                out.append({
+                out.append(global_metrics({
                     "rec_loss": _rec_loss(mods, fv, pcs),
                     "ce_loss": cross_entropy(logits, labels),
                     "n_correct": torch.sum(torch.argmax(logits, dim=1) == labels).float(),
-                })
+                }, mesh))
         finally:
             mods.train()
         return _stack(out)
@@ -384,12 +480,14 @@ def _ckpt_payload(mods: nn.Module) -> Dict[str, torch.Tensor]:
     return {k: v.detach().clone() for k, v in mods.state_dict().items()}
 
 
-def resume_tree(mods: nn.Module, opts: Dict[str, AdamState], generator: torch.Generator,
-                **tensors: torch.Tensor) -> Dict:
-    """The resume file's tree of a trainer: ``modules`` (the state_dict),
+def resume_tree(mods: Union[nn.Module, Dict[str, torch.Tensor]], opts: Dict[str, AdamState],
+                generator: torch.Generator, **tensors: torch.Tensor) -> Dict:
+    """The resume file's tree of a trainer: ``modules`` (the state_dict, or
+    ``mods`` where it is one already: a sharded run's gathered state),
     each Adam state of ``opts`` under its name, the noise ``generator``'s
     state and the named ``tensors``, all numpy on the host."""
-    tree = {"modules": {k: v.detach().cpu().numpy() for k, v in mods.state_dict().items()},
+    state_dict = mods.state_dict() if isinstance(mods, nn.Module) else mods
+    tree = {"modules": {k: v.detach().cpu().numpy() for k, v in state_dict.items()},
             "generator": generator.get_state().numpy()}
     tree.update({name: adam_state_tree(opt) for name, opt in opts.items()})
     tree.update({name: t.detach().cpu().numpy() for name, t in tensors.items()})
@@ -420,13 +518,46 @@ def learned_means(mods: PCAAModules, payload: Dict[str, torch.Tensor]) -> np.nda
     under no grad (reference ``PCAA_ablation.py:369-376``). Train-mode
     BatchNorm moves the running statistics; the JAX package throws that
     update away (``mutable=["batch_stats"]``), and so does the port, by
-    running a copy of the module: neither ``mods`` nor ``payload`` moves."""
-    ml = copy.deepcopy(mods.ml["mean_learner"]).train()
+    running a module of its own, whole and on this rank alone: neither
+    ``mods`` nor ``payload`` moves."""
     prefix = "ml.mean_learner."
-    ml.load_state_dict({k[len(prefix):]: v for k, v in payload.items() if k.startswith(prefix)})
-    n = ml.dense[0].in_features
+    weights = {k[len(prefix):]: v for k, v in payload.items() if k.startswith(prefix)}
+    n, latent = weights["dense.0.weight"].shape[1], weights["dense.3.weight"].shape[0]
+    device = weights["dense.0.weight"].device
+    ml = GaussianMeanLearner(n, latent, torch.Generator().manual_seed(0)).to(device).train()
+    ml.load_state_dict(weights)
     with torch.no_grad():
-        return ml(torch.eye(n, device=ml.dense[0].weight.device)).cpu().numpy()
+        return ml(torch.eye(n, device=device)).cpu().numpy()
+
+
+def place_state(mods: nn.Module, opts: Dict[str, Tuple[AdamState, str]], mesh: Optional[Mesh],
+                min_dim: int) -> Optional[Dict[str, Optional[int]]]:
+    """Put a run's full modules and the moments of its Adam states (each
+    with the key prefix of its parameters in ``mods``) on ``mesh``
+    (``shard_modules``) → the specs of the modules' state_dict; None and
+    nothing moved without a mesh."""
+    if mesh is None:
+        return None
+    moments = [(m, prefix) for opt, prefix in opts.values() for m in (opt.mu, opt.nu)]
+    return shard_modules(mods, moments, mesh, min_dim=min_dim)
+
+
+def full_payload(mods: nn.Module, mesh: Optional[Mesh], specs) -> Dict[str, torch.Tensor]:
+    """``_ckpt_payload`` of the whole modules: gathered over the model group
+    where the run is sharded (every rank calls it)."""
+    payload = _ckpt_payload(mods)
+    return payload if mesh is None else gather_state(payload, specs, mesh)
+
+
+def full_resume_tree(mods: nn.Module, opts: Dict[str, Tuple[AdamState, str]],
+                     generator: torch.Generator, mesh: Optional[Mesh], specs,
+                     **tensors: torch.Tensor) -> Dict:
+    """``resume_tree`` of the whole state, a single-device run's (every rank
+    calls it)."""
+    if mesh is None:
+        return resume_tree(mods, {k: opt for k, (opt, _) in opts.items()}, generator, **tensors)
+    return resume_tree(full_payload(mods, mesh, specs), gather_opts(opts, specs, mesh), generator,
+                       **tensors)
 
 
 # (module key in the payload's module_variables, file tag), in the JAX order
@@ -471,20 +602,28 @@ def train_pcaa(
     :param resume: continue from the run folder's ``train_state.msgpack``
         if the port wrote one (``ValueError`` if another program did).
     :param device: the CUDA card unless the caller asks for the CPU.
+
+    With ``DP_DEVICES × MP_DEVICES > 1`` every rank of an initialised
+    ``torch.distributed`` world of that size calls it (``parallel/mesh.py::
+    launch``); ``BATCH_SIZE`` must split over ``DP_DEVICES``. Rank 0 writes
+    the run folder; every rank returns the same metrics.
     """
     ieee_f32()
     spec = VARIANTS[variation]
     if variation == VARIATION.V4 and proj_head_on_discriminator:
         spec = dataclasses.replace(spec, use_disc_head=True)
     _check_supported(cfg, spec)
+    mesh = run_mesh(cfg)
+    lead = mesh is None or mesh.rank == 0  # the rank that writes the run folder
     run_dir = cfg.run_dir()
     device = torch.device(device)
     # read first: a state the port cannot resume raises before anything is written
     ckpt_path = os.path.join(run_dir, "train_state.msgpack")
     restored = load_train_state(ckpt_path) if resume else None
 
-    os.makedirs(run_dir, exist_ok=True)
-    cfg.save(os.path.join(run_dir, "config.json"))
+    if lead:
+        os.makedirs(run_dir, exist_ok=True)
+        cfg.save(os.path.join(run_dir, "config.json"))
     name = cfg.MODEL_NAME
 
     if datasets is None:
@@ -499,20 +638,21 @@ def train_pcaa(
     )
 
     mods, state = build_pcaa(cfg, spec, device=device)
-    if not spec.learned_centroids:
+    if lead and not spec.learned_centroids:
         save_array(state.centroids.cpu().numpy(), os.path.join(run_dir, "discriminator_means.npy"))
 
-    train_epoch, valid_epoch = make_epoch_fns(mods, cfg)
-    logger = MetricLogger(run_dir, cfg.to_dict(), mode=wandb_mode)
+    logger = MetricLogger(run_dir, cfg.to_dict(), mode=wandb_mode) if lead else None
     host_rng = np.random.default_rng(cfg.SEED)
-    opts = {"opt_g": state.opt_g, "opt_d": state.opt_d}
+    # each Adam state with the key prefix of its parameters in mods
+    opts = {"opt_g": (state.opt_g, "g."), "opt_d": (state.opt_d, "d.")}
 
     best_valid_acc = 0.0
     best_payload = None
     start_epoch = 0
     if restored is not None:
         tree, start_epoch, meta = restored
-        restore_resume_tree(tree, mods, opts, state.generator, centroids=state.centroids)
+        restore_resume_tree(tree, mods, {k: opt for k, (opt, _) in opts.items()},
+                            state.generator, centroids=state.centroids)
         del restored, tree  # the host copy: 2.6 GB at the published widths
         host_rng.bit_generator.state = meta["host_rng_state"]
         best_valid_acc = meta.get("best_valid_acc", 0.0)
@@ -521,8 +661,11 @@ def train_pcaa(
         best = load_best_payload(ckpt_path)
         if best is not None:
             best_payload = _payload_from_arrays(best, mods)
-        if verbose:
+        if verbose and lead:
             print(f"[{name}] resuming from epoch {start_epoch}")
+    # JAX shards after the restore too (train/pcaa.py:904-911)
+    specs = place_state(mods, opts, mesh, cfg.MP_MIN_DIM)
+    train_epoch, valid_epoch = make_epoch_fns(mods, cfg, mesh)
 
     n_train = x_train.shape[0]
     steps = n_train // cfg.BATCH_SIZE
@@ -553,8 +696,9 @@ def train_pcaa(
             "Train Accuracy": train_acc,
             "Valid Accuracy": valid_acc,
         }
-        logger.log(epoch_metrics, step=epoch)
-        if verbose:
+        if lead:
+            logger.log(epoch_metrics, step=epoch)
+        if verbose and lead:
             print(
                 f"[{name}] epoch {epoch + 1}/{cfg.EPOCHS} "
                 f"rec={epoch_metrics['Reconstruction Loss Train']:.4f} "
@@ -568,23 +712,27 @@ def train_pcaa(
             improved = valid_acc > best_valid_acc
             if improved:
                 best_valid_acc = valid_acc
-                best_payload = _ckpt_payload(mods)
+                best_payload = full_payload(mods, mesh, specs)
             if cfg.SAVE_RESUME_STATE:
-                save_train_state(
-                    resume_tree(mods, opts, state.generator, centroids=state.centroids),
-                    epoch, host_rng.bit_generator.state, ckpt_path,
-                    extra={"best_valid_acc": best_valid_acc},
-                )
-                if improved:
-                    save_best_payload(best_payload, ckpt_path)
+                tree = full_resume_tree(mods, opts, state.generator, mesh, specs,
+                                        centroids=state.centroids)
+                if lead:
+                    save_train_state(tree, epoch, host_rng.bit_generator.state, ckpt_path,
+                                     extra={"best_valid_acc": best_valid_acc})
+                    if improved:
+                        save_best_payload(best_payload, ckpt_path)
+                del tree
+            if not lead and best_payload is not None:
+                best_payload = {}  # only rank 0 writes it
         out = dict(epoch_metrics)
 
     elapsed = time.time() - t_start
     out["windows_per_sec"] = total_windows / max(elapsed, 1e-9)
     out["best_valid_accuracy"] = best_valid_acc
-    logger.finish()
     # the final state if no checkpoint epoch improved the valid accuracy
-    _checkpoint(run_dir, name, mods,
-                best_payload if best_payload is not None else _ckpt_payload(mods))
-    mark_run_completed(run_dir, out)
+    final = best_payload if best_payload is not None else full_payload(mods, mesh, specs)
+    if lead:
+        logger.finish()
+        _checkpoint(run_dir, name, mods, final)
+        mark_run_completed(run_dir, out)
     return out

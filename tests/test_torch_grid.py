@@ -157,7 +157,7 @@ def test_lockstep_check_raises_the_jax_message(tmp_path, field, value):
 @pytest.mark.parametrize("trainer", ["pcaa", "orced"])
 def test_trainers_check_before_building(tmp_path, arrays, trainer):
     """Mismatched shapes and hyperparameters, a valid split below one batch,
-    a mesh and DEFERRED_DECODER_UPDATE raise, as
+    an empty mesh (a list of devices) and DEFERRED_DECODER_UPDATE raise, as
     tests/test_grid.py::test_orced_grid_rejects_mismatched_shapes holds the
     JAX trainers."""
     x_t, y_t, x_v, y_v = arrays
@@ -176,8 +176,8 @@ def test_trainers_check_before_building(tmp_path, arrays, trainer):
         make([cfgs[0], cfgs[1].replace(TRAIN_CLASSES=(0, 1))])
     with pytest.raises(AssertionError, match=r"must be >= BATCH_SIZE=8"):
         make(cfgs, valid_sets=[(x_v, y_v), (x_v[:7], y_v[:7])])
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        make(cfgs, mesh=object())
+    with pytest.raises(ValueError, match="list of devices; it is empty"):
+        make(cfgs, mesh=[])
     if trainer == "pcaa":
         with pytest.raises(NotImplementedError, match="DEFERRED_DECODER_UPDATE.*item 14"):
             make([c.replace(DEFERRED_DECODER_UPDATE=True) for c in cfgs])
@@ -249,6 +249,23 @@ def test_pcaa_grid_run_is_the_solo_run(tmp_path, arrays, variation, uneven):
         np.testing.assert_allclose(m["d_loss"][r], s["d_loss"].mean(), rtol=1e-6)
         assert all(np.isfinite(v[r]) for v in m.values())
     assert abs(epochs[0]["tot_loss"][0] - epochs[0]["tot_loss"][1]) > 1e-6  # distinct seeds
+
+
+def test_pcaa_grid_over_a_device_list_is_the_solo_runs(tmp_path, arrays):
+    """A ``mesh`` of devices (JAX's run axis sharded over them): run r and
+    all of its state on ``mesh[r % len(mesh)]``, each still its own solo
+    run, bit for bit; three runs over two devices."""
+    x_t, y_t, x_v, y_v = arrays
+    cfgs = _cfgs(tmp_path, "L", n=3)
+    trainer = GridPCAATrainer(cfgs, VARIATION.V4, [(x_t, y_t)] * 3, [(x_v, y_v)] * 3,
+                              mesh=["cpu", "cpu"])
+    assert [str(d) for d in trainer.run_devices] == ["cpu", "cpu", "cpu"]
+    trainer.run_epoch(0)
+    accs = trainer.valid_accuracy()
+    for r, cfg in enumerate(cfgs):
+        mods, state, _, n_correct = _solo_pcaa(cfg, VARIATION.V4, x_t, y_t, x_v, y_v, 1)
+        _assert_state_equal(*trainer.per_run_states()[r], mods, state)
+        assert accs[r] * (len(x_v) // cfg.BATCH_SIZE) * cfg.BATCH_SIZE == n_correct
 
 
 def test_pcaa_grid_keeps_the_best_payload_per_run(tmp_path, arrays):

@@ -39,11 +39,12 @@ print(",".join(names))
 print(",".join(sorted({m.split(".")[0] for m in sys.modules})))
 """
 # the serving artifact's loader, the command-line drivers, the grid
-# trainers, the reference run-folder import and export and the plotting,
-# each imported by the walk over the port
+# trainers, data and tensor parallelism, the reference run-folder import and
+# export and the plotting, each imported by the walk over the port
 _ENTRY_MODULES = tuple(
     "opensetgaitrecognition_pcaa_tpu_torch." + m for m in (
-        "infer.serving", "parallel.grid", "scripts.run_pcaa_ablation", "scripts.run_orced",
+        "infer.serving", "parallel.grid", "parallel.mesh", "scripts.run_pcaa_ablation",
+        "scripts.run_orced",
         "scripts.run_pointsubsampling", "scripts.run_inference_scenarios",
         "scripts.export_serving", "scripts.collect_results", "scripts.import_reference_run",
         "scripts.export_reference_run", "utils.plotting",
@@ -70,7 +71,7 @@ def _loaded(script: str, min_modules: int, required=()) -> set:
 
 
 def test_port_imports_no_jax_stack():
-    loaded = _loaded(_PORT, 54, _ENTRY_MODULES)
+    loaded = _loaded(_PORT, 55, _ENTRY_MODULES)
     assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))
 
 

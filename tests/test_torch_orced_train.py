@@ -331,7 +331,8 @@ def test_port_trained_run_folder_scores_in_jax(trained):
         ({"DEFERRED_DECODER_UPDATE": True}, ValueError, "PCAA-only"),
         ({"FACTORED_ADAM_NU": True}, NotImplementedError, "FACTORED_ADAM_NU.*item 14"),
         ({"BF16_WEIGHT_CACHE": True}, NotImplementedError, "BF16_WEIGHT_CACHE.*item 14"),
-        ({"DP_DEVICES": 2}, NotImplementedError, "parallelism.*item 11"),
+        # ported: a run over 2 ranks needs them started (parallel/mesh.py::launch)
+        ({"DP_DEVICES": 2}, RuntimeError, "one process per rank.*launch"),
     ],
     ids=["fused_adam", "deferred", "factored_nu", "bf16_cache", "data_parallel"],
 )

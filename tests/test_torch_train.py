@@ -317,22 +317,27 @@ def test_port_trained_run_folder_scores_in_jax(trained):
 
 
 @pytest.mark.parametrize(
-    "variation,overrides,kwargs,match",
+    "variation,overrides,kwargs,error,match",
     [
-        (VARIATION.V4, {"FACTORED_ADAM_NU": True}, {}, "FACTORED_ADAM_NU.*item 14"),
-        (VARIATION.V4, {"DEFERRED_DECODER_UPDATE": True}, {}, "DEFERRED_DECODER_UPDATE.*item 14"),
-        (VARIATION.V4, {"BF16_WEIGHT_CACHE": True}, {}, "BF16_WEIGHT_CACHE.*item 14"),
-        (VARIATION.V4, {"DP_DEVICES": 2}, {}, "parallelism.*item 11"),
+        (VARIATION.V4, {"FACTORED_ADAM_NU": True}, {}, NotImplementedError,
+         "FACTORED_ADAM_NU.*item 14"),
+        (VARIATION.V4, {"DEFERRED_DECODER_UPDATE": True}, {}, NotImplementedError,
+         "DEFERRED_DECODER_UPDATE.*item 14"),
+        (VARIATION.V4, {"BF16_WEIGHT_CACHE": True}, {}, NotImplementedError,
+         "BF16_WEIGHT_CACHE.*item 14"),
+        # ported: a run over 2 ranks needs them started (parallel/mesh.py::launch)
+        (VARIATION.V4, {"DP_DEVICES": 2}, {}, RuntimeError, "one process per rank.*launch"),
     ],
     ids=["factored_nu", "deferred", "bf16_cache", "data_parallel"],
 )
-def test_unported_options_raise(tmp_path, variation, overrides, kwargs, match):
+def test_unported_options_raise(tmp_path, variation, overrides, kwargs, error, match):
     cfg = Config(MODELS_PATH=str(tmp_path), MODEL_NAME="X_V4", EPOCHS=1, **{**DIMS, **overrides})
     rng = np.random.default_rng(0)
     x = rng.normal(size=(8, cfg.NSTEPS, cfg.NMAX, 4)).astype(np.float32)
     y = np.zeros(8, np.int32)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         train_pcaa(cfg, variation, datasets=(x, y, x, y), verbose=False, device="cpu", **kwargs)
+    assert not os.path.exists(cfg.run_dir())  # refused before anything is written
 
 
 @pytest.mark.parametrize(
