@@ -177,7 +177,33 @@ with seeded random weights and seeded crop files. Phases:
    b. V4 at MP 2 (the layer kernel on column shards of 256 and 512, the
       Adam kernel on the decoder's sharded leaves; launches per width and
       leaf printed);
-   c. OR-CED at DP 2 (the triplet loss over the all-gathered pair grid).
+   c. OR-CED at DP 2 (the triplet loss over the all-gathered pair grid);
+15. the training options ``BF16_WEIGHT_CACHE``, ``DEFERRED_DECODER_UPDATE``
+   and ``FACTORED_ADAM_NU`` at the same width, B = 16, each run from one
+   seeded state on phase 6's train crops with injected noise, cuDNN
+   deterministic on both sides of every comparison:
+   a. the Adam kernel writing the bf16 copy of w (m bf16; m and v bf16)
+      against its plain version on the 9000 x 18000 leaf and a ragged one:
+      w, m, v and the copy bitwise equal; timed plain, kernel, kernel,
+      plain;
+   b. the V4 step at bf16 and at bf16 + nu16 (FUSED_POINTNET, FUSED_ADAM),
+      CACHE_STEPS steps with the cache on and CACHE_STEPS with it off:
+      losses and every parameter, statistic and moment bitwise equal (where
+      not, no wider than two runs with the cache off); ms per step on the
+      host clock, device time by kind (the elementwise passes among them)
+      over 3 traced steps, peak memory;
+   c. the ORCED step at bf16, the same;
+   d. V4 with ``DEFERRED_DECODER_UPDATE`` against the plain schedule over
+      one epoch of CACHE_STEPS batches and its flush: at f32 bitwise equal;
+      at bf16 + nu16 + cache losses within rtol 0.05, atol 0.05, correct
+      counts within 2, Adam counts equal;
+   e. V4 and ORCED with ``FACTORED_ADAM_NU`` at f32 and bf16: the factored
+      update of the 9000 x 18000 leaf after step 1 against an f64
+      evaluation of its formulas (rtol 1e-5), the second moments' bytes
+      against full f32 nu, ms per step;
+   f. ``run_pcaa_ablation --variants V4 --compute-dtype bfloat16
+      --bf16-weight-cache`` (kernels on) against the same call without the
+      flag: the module files under 15b's gate.
 
 It exits non-zero, with no result line, when there is no CUDA card or a
 phase fails. The line before the last is the per-kernel JSON record (its
@@ -188,7 +214,8 @@ fresh process's requests, the sequential scripts' scoring) for the PointNet
 inference kernel (and 11c, 13c and 13d), 6b's kernel steps, 6c, 9a's first kernel
 steps, 9b's training, 9c's PCAA runs, 10d's training, 12a-b's driver
 calls and 14a-b's ranks for the f32 training kernels, 11b's kernel steps and 11c's training
-for their bf16 variants, 12b's grid for the Adam kernel with v bf16, 7c,
+for their bf16 variants, 12b's grid for the Adam kernel with v bf16, 15b's
+cache-on steps and 15f's training for the Adam kernel with the bf16 copy, 7c,
 7d, 8c, 10b and 13d for the Chamfer kernel; the Chamfer kernel's ``ms`` is its device
 time per launch at (64, 30, 150, 4) from the CUDA graph, every other
 ``ms`` CUDA events around calls of the wrapper; ``bound_ms`` is the
@@ -311,12 +338,29 @@ GRID_PROFILE_STEPS = 3
 # --precision-gate: V4 on a synthetic split, paired seeds (tools/
 # gate_optimizer_quality.py's method), f32 against the two bf16 tiers
 GATE_SEEDS, GATE_EPOCHS = 3, 4
+# phase 15: steps of each cache on/off, deferred and factored run (on the
+# host clock; the cache runs then 3 more under torch.profiler)
+CACHE_STEPS = 3
 GATE_CONFIGS = {"f32": {}, "bf16": {"COMPUTE_DTYPE": "bfloat16"},
                 "bf16+nu16": {"COMPUTE_DTYPE": "bfloat16", "BF16_ADAM_NU": True}}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms within the block (its default
+    backward-filter is not repeatable: PERF.md §7), restored after it."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -433,23 +477,31 @@ def knife_edge(cal) -> tuple:
 
 def compare_decisions(cal_a, cal_b, dir_a: str, dir_b: str) -> int:
     """Assert equal decisions for every k except in windows that hold a
-    knife-edge crop in either run; return the number of such windows."""
+    knife-edge crop in either run; return the number of such windows. A
+    window that differs is logged first: its crops' scores and predicted
+    classes in both runs, and both thresholds."""
     for key in ("test_labels", "unseen_labels", "is_val"):
         np.testing.assert_array_equal(cal_a[key], cal_b[key])
     edge_test, edge_unseen = (a | b for a, b in zip(knife_edge(cal_a), knife_edge(cal_b)))
     exempt_total = 0
     for k in KS:
-        edge = [edge_test[s:s + k].any() for s in window_starts(cal_a["test_labels"], k)]
-        edge += [
-            edge_unseen[s:s + k].any()
-            for s in window_starts(cal_a["unseen_labels"], k, ~cal_a["is_val"])
-        ]
-        edge = np.array(edge, bool)
+        windows = [("test", s) for s in window_starts(cal_a["test_labels"], k)]
+        windows += [("unseen", s)
+                    for s in window_starts(cal_a["unseen_labels"], k, ~cal_a["is_val"])]
+        edge = np.array([(edge_test if split == "test" else edge_unseen)[s:s + k].any()
+                         for split, s in windows], bool)
         for stem in ("final_preds", "final_labels"):
             a = np.load(os.path.join(dir_a, f"{stem}_{k}.npy"))
             b = np.load(os.path.join(dir_b, f"{stem}_{k}.npy"))
             assert a.shape == b.shape == edge.shape, (stem, k, a.shape, b.shape, edge.shape)
             bad = (a != b) & ~edge
+            for i in np.flatnonzero(bad):
+                split, s = windows[i]
+                crops = {side: {f: cal[f"{split}_{f}"][s:s + k].tolist() for f in ("ll", "preds")}
+                         for side, cal in (("a", cal_a), ("b", cal_b))}
+                log(f"{stem}_{k}: window {i} ({split} crops {s}..{s + k - 1}) decided "
+                    f"{a[i]} vs {b[i]}; thresholds {float(cal_a['log_threshold'])!r} vs "
+                    f"{float(cal_b['log_threshold'])!r}; crops {crops}")
             assert not bad.any(), f"{stem}_{k}: {int(bad.sum())} windows differ"
         exempt_total += int(edge.sum())
     return exempt_total
@@ -1555,8 +1607,9 @@ def variant_steps(card: str, gen: str) -> tuple:
 
 def ablation_driver(card: str, raw: str) -> dict:
     """Phase 9b: the port's sequential ablation driver trains V1-V4 for one
-    epoch on a 6-class subset of phase 8's raw tracks with the kernels on,
-    then a second call skips every run and writes no splits; each folder is
+    epoch on a 6-class subset of phase 8's raw tracks with the kernels on
+    (cuDNN deterministic), then a second call skips every run and writes no
+    splits; each folder is
     scored by ``pcaa_inference`` through the inference kernel and then plain
     → launches of the training kernels and of the inference kernel."""
 
@@ -1596,7 +1649,10 @@ def ablation_driver(card: str, raw: str) -> dict:
             buf = io.StringIO()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with contextlib.redirect_stdout(buf):
+            # repeatable folders: a 1-epoch V1 is near-degenerate (its Youden
+            # threshold at its top test score), and cuDNN's default
+            # backward-filter made some runs' folders score apart
+            with contextlib.redirect_stdout(buf), cudnn_deterministic():
                 rpa.main(argv)
             torch.cuda.synchronize()
             out[call] = dict(s=time.perf_counter() - t0, text=buf.getvalue(),
@@ -2234,6 +2290,14 @@ def bf16_counts() -> tuple:
             adam.adam_update_.launches_m16, adam.adam_update_.launches_mv16)
 
 
+def copy_counts() -> tuple:
+    """Launches of the Adam kernel writing the bf16 copy of w: m bf16; m
+    and v bf16."""
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import adam
+
+    return adam.adam_update_.launches_m16_w16, adam.adam_update_.launches_mv16_w16
+
+
 def reset_bf16_counts() -> None:
     from opensetgaitrecognition_pcaa_tpu_torch.ops import adam
     from opensetgaitrecognition_pcaa_tpu_torch.ops import pointnet_train as pt
@@ -2241,6 +2305,7 @@ def reset_bf16_counts() -> None:
     pt.fused_layer.launches_bf16 = pt.fused_pool.launches_bf16 = 0
     adam.adam_update_.launches_m16 = adam.adam_update_.launches_mv16 = 0
     adam.adam_update_.launches_v16 = 0
+    adam.adam_update_.launches_m16_w16 = adam.adam_update_.launches_mv16_w16 = 0
 
 
 def ptxas_report(log: str, needle: str) -> list:
@@ -2559,30 +2624,47 @@ def check_bf16_kernels(card: str) -> dict:
     return out
 
 
+def _moments(v, fn):
+    """``fn`` over a second moment: a tensor, or a factored leaf's dict."""
+    return {k: fn(t) for k, t in v.items()} if isinstance(v, dict) else fn(v)
+
+
 def _snapshot(mods, opts) -> tuple:
     """A copy of the modules' state and of the Adam states ``opts``."""
     return ({k: v.clone() for k, v in mods.state_dict().items()},
             [(o.count, {k: v.clone() for k, v in o.mu.items()},
-              {k: v.clone() for k, v in o.nu.items()}) for o in opts])
+              {k: _moments(v, lambda t: t.clone()) for k, v in o.nu.items()}) for o in opts])
 
 
-def _restore(mods, opts, snap: tuple) -> None:
-    """Put ``_snapshot``'s copy back, in place."""
+def _restore(mods, opts, snap: tuple, caches=()) -> None:
+    """Put ``_snapshot``'s copy back, in place, and refresh the bf16
+    weight caches ``caches`` (each ``(cache, parameters by name)``)."""
+    from opensetgaitrecognition_pcaa_tpu_torch.train.pcaa import refresh_cache_
+
     mods.load_state_dict(snap[0])
     for o, (count, mu, nu) in zip(opts, snap[1]):
         o.count = count
         for k in mu:
             o.mu[k].copy_(mu[k])
-            o.nu[k].copy_(nu[k])
+            if isinstance(nu[k], dict):
+                for f in nu[k]:
+                    o.nu[k][f].copy_(nu[k][f])
+            else:
+                o.nu[k].copy_(nu[k])
+    for cache, params in caches:
+        refresh_cache_(cache, params)
 
 
-def _timed_and_profiled(step_fn, n_timed: int, mods, opts, label: str) -> dict:
+def _timed_and_profiled(step_fn, n_timed: int, mods, opts, label: str, caches=(),
+                        keep_snapshot: bool = False) -> dict:
     """``n_timed`` steps on the host clock (the first pays set-up), then 3
     under torch.profiler, from a snapshot of ``mods`` and the Adam states
-    ``opts`` that every trace restarts from (``traced_until_whole``) → ms
-    per step, losses, launch counts (f32 layer, pool, Adam; bf16 layer,
-    pool, Adam m16, Adam mv16) per step, device ms a step and by kind, peak
-    memory over the timed steps."""
+    ``opts`` that every trace restarts from (``traced_until_whole``; the
+    weight caches ``caches`` refreshed from it) → ms per step, losses,
+    launch counts (f32 layer, pool, Adam; bf16 layer, pool, Adam m16, Adam
+    mv16; Adam m16 and mv16 with the bf16 copy of w) per step, device ms a
+    step and by kind, peak memory over the timed steps, and with
+    ``keep_snapshot`` the snapshot (the state after the timed steps)."""
     import torch
 
     r = dict(ms=[], losses=[], counts=[])
@@ -2595,7 +2677,7 @@ def _timed_and_profiled(step_fn, n_timed: int, mods, opts, label: str) -> dict:
         m = step_fn(i)
         torch.cuda.synchronize()
         rec["ms"].append(1e3 * (time.perf_counter() - t0))
-        rec["counts"].append(train_counts() + bf16_counts())
+        rec["counts"].append(train_counts() + bf16_counts() + copy_counts())
         rec["losses"].append({k: float(v) for k, v in m.items()})
 
     torch.cuda.synchronize()
@@ -2606,7 +2688,7 @@ def _timed_and_profiled(step_fn, n_timed: int, mods, opts, label: str) -> dict:
     snap = _snapshot(mods, opts)
 
     def traced() -> dict:
-        _restore(mods, opts, snap)
+        _restore(mods, opts, snap, caches)
         rec = dict(ms=[], losses=[], counts=[])
         for i in range(n_timed, n_timed + 3):
             run(i, rec)
@@ -2614,9 +2696,11 @@ def _timed_and_profiled(step_fn, n_timed: int, mods, opts, label: str) -> dict:
 
     def counted(rec) -> tuple:  # (layer, pool, Adam) over the traced steps, f32 and bf16
         c = [sum(col) for col in zip(*rec["counts"])]
-        return c[0] + c[3], c[1] + c[4], c[2] + c[5] + c[6]
+        return c[0] + c[3], c[1] + c[4], c[2] + sum(c[5:])
 
     events, rec = traced_until_whole(traced, counted, label)
+    if keep_snapshot:
+        r["snapshot"] = snap
     del snap
     for key in ("ms", "losses", "counts"):
         r[key] += rec[key]
@@ -2662,9 +2746,10 @@ def bf16_steps(card: str, gen: str) -> list:
     eps = torch.from_numpy(rng.normal(size=(n, TRAIN_B, 32)).astype(np.float32)).cuda()
     bf16 = dict(COMPUTE_DTYPE="bfloat16")
     nu16 = dict(COMPUTE_DTYPE="bfloat16", BF16_ADAM_NU=True)
-    # (f32 layer, pool, Adam; bf16 layer, pool, Adam m16, Adam mv16) per step
-    want = {"f32": (4, 1, 4, 0, 0, 0, 0), "bf16": (0, 0, 0, 4, 1, 4, 0),
-            "bf16+nu16": (0, 0, 0, 4, 1, 0, 4), "bf16+nu16 plain": (0,) * 7}
+    # (f32 layer, pool, Adam; bf16 layer, pool, Adam m16, Adam mv16; Adam
+    # m16 and mv16 with the copy of w) per step
+    want = {"f32": (4, 1, 4, 0, 0, 0, 0, 0, 0), "bf16": (0, 0, 0, 4, 1, 4, 0, 0, 0),
+            "bf16+nu16": (0, 0, 0, 4, 1, 0, 4, 0, 0), "bf16+nu16 plain": (0,) * 9}
     runs = {}
     for name, flags, fused in (("f32", {}, True), ("bf16", bf16, True), ("bf16+nu16", nu16, True),
                                ("bf16+nu16 plain", nu16, False)):
@@ -2705,7 +2790,7 @@ def bf16_steps(card: str, gen: str) -> list:
     launches = [0, 0, 0, 0]
     for name in ("bf16", "bf16+nu16"):
         for c in runs[name]["counts"]:
-            launches = [a + b for a, b in zip(launches, c[3:])]
+            launches = [a + b for a, b in zip(launches, c[3:7])]
 
     for name, flags in (("ORCED f32", {}), ("ORCED bf16+nu16", nu16)):
         cfg = full_width(**flags)
@@ -2717,7 +2802,7 @@ def bf16_steps(card: str, gen: str) -> list:
 
         r = runs[name] = _timed_and_profiled(step_fn, BF16_TIMED_STEPS, mods, (state.opt,),
                                              f"phase 11b: {name}")
-        assert all(c == (0,) * 7 for c in r["counts"]), (name, r["counts"])
+        assert all(c == (0,) * 9 for c in r["counts"]), (name, r["counts"])
         for m in r["losses"]:
             assert all(np.isfinite(v) for v in m.values()), (name, m)
         busy, groups = r["busy"]
@@ -3660,6 +3745,497 @@ def mesh_phase(card: str) -> tuple:
     assert not faults, faults
     log(f"phase 14: {time.perf_counter() - t_phase:.1f} s [{card}]")
     return totals, err
+# --- phase 15: BF16_WEIGHT_CACHE, DEFERRED_DECODER_UPDATE, FACTORED_ADAM_NU ---------
+
+
+def check_adam_copy(card: str) -> dict:
+    """Phase 15a: the Adam kernel writing the bf16 copy of w, with m bf16
+    and with m and v bf16, against its plain version on the 9000 x 18000
+    decoder leaf and on a ragged one (2047 x 1025, n % 4 == 3): w, m, v and
+    the copy bitwise equal; timed on the big leaf in the order plain,
+    kernel, kernel, plain → each variant's record entry."""
+    import torch
+
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import adam
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    bf16 = torch.bfloat16
+    s1, s2 = adam.adam_scalars(3, 1e-4, 0.9, 0.99)
+    coeffs = dict(s1=s1, s2=s2, b1=0.9, b2=0.99, eps=1e-8)
+    out = {}
+    for variant in ("m16", "mv16"):
+        counter = f"launches_{variant}_w16"
+        for shape in ((2047, 1025), (9000, 18000)):
+            leaf = [torch.randn(shape, device="cuda", generator=g) * 1e-2,
+                    torch.randn(shape, device="cuda", generator=g),
+                    (torch.randn(shape, device="cuda", generator=g) * 1e-3).to(bf16),
+                    torch.rand(shape, device="cuda", generator=g) * 1e-4,
+                    torch.zeros(shape, device="cuda", dtype=bf16)]
+            if variant == "mv16":
+                leaf[3] = leaf[3].to(bf16)
+            ref = [t.clone() for t in leaf]
+            before = getattr(adam.adam_update_, counter)
+            adam.adam_update_(*leaf[:4], w16=leaf[4], **coeffs)
+            torch.cuda.synchronize()
+            assert getattr(adam.adam_update_, counter) == before + 1, variant
+            adam.adam_update_ref_(*ref[:4], w16=ref[4], **coeffs)
+            for name, u, v in zip(("w", "m", "v", "w16"), leaf[1:], ref[1:]):
+                assert u.dtype == v.dtype and torch.equal(u, v), (variant, shape, name)
+            assert torch.equal(leaf[4], leaf[1].to(bf16)), (variant, shape)
+            log(f"phase 15a: Adam ({variant}) with the bf16 copy of w, kernel vs plain on a "
+                f"{shape} leaf: w, m, v and the copy bitwise equal")
+        t = alternate({"kernel": lambda: adam.adam_update_(*leaf[:4], w16=leaf[4], **coeffs),
+                       "plain": lambda: adam.adam_update_ref_(*ref[:4], w16=ref[4], **coeffs)},
+                      ("plain", "kernel", "kernel", "plain"), reps=5)
+        # per element 13 operations; reads g, w, m, v and writes w, m, v and the copy
+        moved = nbytes(*leaf[:4]) + nbytes(*leaf[1:])
+        bms, by = bound(13 * leaf[0].numel(), moved)
+        out[variant] = dict(err=0.0, ms=t["kernel"], plain_ms=t["plain"], bound_ms=bms,
+                            bound_by=by, bound_route="f32", library_ms=None)
+        log(f"phase 15a: Adam ({variant}) + bf16 copy on the 9000 x 18000 leaf: kernel "
+            f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms (bitwise); bound {bms:.4f} ms by "
+            f"{by} ({moved / 1e9:.3f} GB, {moved / leaf[0].numel():.0f} B an element; "
+            f"{100 * bms / t['kernel']:.1f}% of the kernel's time) [{card}]")
+        del leaf, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_data(gen: str, n: int) -> dict:
+    """Phase 6's train crops on the card, the first ``n`` batches of one
+    seeded shuffle, and injected noise for them (z0, alphas, ORCED eps)."""
+    import torch
+
+    from opensetgaitrecognition_pcaa_tpu_torch.config import SPLIT
+    from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import (
+        RadarCropDataset,
+        epoch_batch_indices,
+    )
+
+    x_np, y_np = RadarCropDataset(SPLIT.TRAIN, gen).load_all()
+    perm = epoch_batch_indices(len(x_np), TRAIN_B, shuffle=True, rng=np.random.default_rng(SEED))
+    assert len(perm) >= n, (len(perm), n)
+    rng = np.random.default_rng(SEED + 15)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+    return dict(x=dev(x_np), y=dev(y_np), perm=dev(perm[:n]).long(),
+                z0=dev(rng.normal(size=(n, TRAIN_B, 32)).astype(np.float32)),
+                alphas=dev(rng.uniform(size=(n, TRAIN_B, 1)).astype(np.float32)),
+                eps=dev(rng.normal(size=(n, TRAIN_B, 32)).astype(np.float32)))
+
+
+def _state_diff(a: tuple, b: tuple) -> tuple:
+    """Two ``_snapshot``s → (the largest |difference| of any parameter,
+    running statistic or moment, the names of the leaves that differ)."""
+    def flat(snap):
+        out = {f"modules.{k}": v for k, v in snap[0].items()}
+        for i, (count, mu, nu) in enumerate(snap[1]):
+            out[f"opt{i}.count"] = count
+            out.update({f"opt{i}.mu.{k}": v for k, v in mu.items()})
+            for k, v in nu.items():
+                items = v.items() if isinstance(v, dict) else [("", v)]
+                out.update({f"opt{i}.nu.{k}.{f}".rstrip("."): t for f, t in items})
+        return out
+
+    fa, fb = flat(a), flat(b)
+    assert fa.keys() == fb.keys()
+    worst, differ = 0.0, []
+    for k in fa:
+        u, v = fa[k], fb[k]
+        if isinstance(u, int):
+            same, gap = u == v, float(abs(u - v))
+        else:
+            same = u.dtype == v.dtype and bool((u == v).all())
+            gap = 0.0 if same else float((u.float() - v.float()).abs().max())
+        if not same:
+            differ.append(k)
+            worst = max(worst, gap)
+    return worst, differ
+
+
+def _loss_gap(a: list, b: list) -> float:
+    return max(abs(x[k] - y[k]) for x, y in zip(a, b) for k in x)
+
+
+def _cache_gate(label: str, on: dict, off: dict, rerun_off) -> str:
+    """Cache on against off: losses and every parameter, running statistic
+    and moment equal bitwise; where not, no wider than two runs with the
+    cache off (``rerun_off()`` runs the second), naming what differs."""
+    loss_gap = _loss_gap(on["losses"], off["losses"])
+    worst, differ = _state_diff(on["snapshot"], off["snapshot"])
+    if loss_gap == 0.0 and not differ:
+        return "losses and every parameter, statistic and moment bitwise equal"
+    again = rerun_off()
+    base_loss = _loss_gap(again["losses"], off["losses"])
+    base, base_differ = _state_diff(again["snapshot"], off["snapshot"])
+    assert loss_gap <= base_loss and worst <= base, (
+        label, loss_gap, base_loss, worst, base, differ[:8], base_differ[:8])
+    return (f"not bitwise: losses {loss_gap:.3e} apart, state {worst:.3e} in {len(differ)} "
+            f"leaves ({differ[:4]}), no wider than two runs with the cache off (losses "
+            f"{base_loss:.3e}, state {base:.3e} in {len(base_differ)} leaves: {base_differ[:4]})")
+
+
+def _step_run(kind: str, cfg, data: dict, label: str) -> dict:
+    """One seeded V4 (``kind`` "pcaa") or ORCED state at ``cfg``:
+    CACHE_STEPS steps on the host clock, then 3 under torch.profiler
+    (``_timed_and_profiled``) → its record, with the snapshot after the
+    CACHE_STEPS steps, the parameter count and the run's own peak memory
+    (``peak_gb`` less what was allocated before the run was built: the
+    data, and the snapshots of the runs it is compared with)."""
+    import torch
+
+    held = torch.cuda.memory_allocated()
+
+    from opensetgaitrecognition_pcaa_tpu_torch.config import VARIATION
+    from opensetgaitrecognition_pcaa_tpu_torch.train.orced import (
+        build_orced,
+        make_orced_train_step,
+    )
+    from opensetgaitrecognition_pcaa_tpu_torch.train.pcaa import (
+        VARIANTS,
+        build_pcaa,
+        make_train_step,
+    )
+
+    x, y, perm = data["x"], data["y"], data["perm"]
+    if kind == "pcaa":
+        mods, state = build_pcaa(cfg, VARIANTS[VARIATION.V4], device="cuda")
+        step = make_train_step(mods, cfg)
+        opts, cache = (state.opt_g, state.opt_d), (state.cast_g, dict(mods.g.named_parameters()))
+
+        def step_fn(i):
+            return step(state, x[perm[i]], y[perm[i]], i, (data["z0"][i], data["alphas"][i]))[1]
+    else:
+        mods, state = build_orced(cfg, device="cuda")
+        step = make_orced_train_step(mods, cfg)
+        opts, cache = (state.opt,), (state.cast, dict(mods.named_parameters()))
+
+        def step_fn(i):
+            return step(state, x[perm[i]], y[perm[i]], 0.5, data["eps"][i])[1]
+
+    r = _timed_and_profiled(step_fn, CACHE_STEPS, mods, opts, label, caches=(cache,),
+                            keep_snapshot=True)
+    r["peak_gb"] -= held / 1e9
+    r["n_params"] = sum(p.numel() for p in mods.parameters())
+    r["cache_mb"] = sum(t.numel() * t.element_size() for t in cache[0].values()) / 1e6
+    for m in r["losses"]:
+        assert all(np.isfinite(v) for v in m.values()), (label, m)
+    r["losses"] = r["losses"][:CACHE_STEPS]
+    del mods, state, step, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
+def _report_step(label: str, r: dict, card: str) -> None:
+    busy, groups = r["busy"]
+    log(f"{label}: ms per step {[round(t, 2) for t in r['ms'][:CACHE_STEPS]]}, warm mean "
+        f"{r['warm_ms']:.2f} ms (host clock); device time {busy:.2f} ms a step "
+        f"(torch.profiler, 3 warm steps), elementwise {groups.get('elementwise', 0.0):.2f} ms, "
+        f"by kind " + ", ".join(f"{k} {v:.2f}" for k, v in sorted(groups.items(),
+                                                                  key=lambda g: -g[1]))
+        + f"; peak memory {r['peak_gb']:.3f} GB above what was held before; cache {r['cache_mb']:.1f} MB; launches per "
+        f"step {r['counts'][0]} [{card}]")
+
+
+def cache_steps(card: str, data: dict) -> dict:
+    """Phase 15b-c: the full-width V4 step at bf16 and at bf16 + nu16 with
+    FUSED_POINTNET and FUSED_ADAM on, and the ORCED step at bf16, each from
+    one seeded state for CACHE_STEPS steps with BF16_WEIGHT_CACHE on and
+    with it off: the gate (``_cache_gate``), ms per step (host clock and
+    device time), the elementwise passes' device time and peak memory → the
+    Adam kernel's launches with the copy on the cache-on runs' timed
+    steps (m16, mv16)."""
+    launches = [0, 0]
+    bf16 = dict(COMPUTE_DTYPE="bfloat16")
+    nu16 = dict(COMPUTE_DTYPE="bfloat16", BF16_ADAM_NU=True)
+    # (f32 layer, pool, Adam; bf16 layer, pool, Adam m16, mv16; with the copy m16, mv16)
+    want = {("bf16", False): (0, 0, 0, 4, 1, 4, 0, 0, 0), ("bf16", True): (0, 0, 0, 4, 1, 0, 0, 4, 0),
+            ("bf16+nu16", False): (0, 0, 0, 4, 1, 0, 4, 0, 0),
+            ("bf16+nu16", True): (0, 0, 0, 4, 1, 0, 0, 0, 4)}
+    for kind, name, flags, phase in (("pcaa", "bf16", bf16, "15b"), ("pcaa", "bf16+nu16", nu16, "15b"),
+                                     ("orced", "bf16", bf16, "15c")):
+        fused = dict(FUSED_POINTNET=True, FUSED_ADAM=True) if kind == "pcaa" else {}
+        runs = {}
+        for cache in (False, True):
+            cfg = full_width(BF16_WEIGHT_CACHE=cache, **fused, **flags)
+            label = f"phase {phase}: {'V4' if kind == 'pcaa' else 'ORCED'} step {name}, cache " \
+                    f"{'on' if cache else 'off'}"
+            r = runs[cache] = _step_run(kind, cfg, data, label)
+            if kind == "pcaa":
+                assert all(c == want[(name, cache)] for c in r["counts"]), (label, r["counts"])
+            else:
+                assert all(c == (0,) * 9 for c in r["counts"]), (label, r["counts"])
+            if cache:
+                for c in r["counts"]:
+                    launches[0] += c[7]
+                    launches[1] += c[8]
+            _report_step(label, r, card)
+        verdict = _cache_gate(
+            f"phase {phase} {name}", runs[True], runs[False],
+            lambda: _step_run(kind, full_width(**fused, **flags), data, f"phase {phase}: rerun"))
+        on, off = runs[True], runs[False]
+        log(f"phase {phase}: {'V4' if kind == 'pcaa' else 'ORCED'} {name}, cache on vs off over "
+            f"{CACHE_STEPS} steps: {verdict}; warm ms {on['warm_ms']:.2f} vs {off['warm_ms']:.2f} "
+            f"(host clock), device {on['busy'][0]:.2f} vs {off['busy'][0]:.2f} ms, elementwise "
+            f"{on['busy'][1].get('elementwise', 0.0):.2f} vs "
+            f"{off['busy'][1].get('elementwise', 0.0):.2f} ms, peak "
+            f"{on['peak_gb']:.3f} vs {off['peak_gb']:.3f} GB [{card}]")
+    return dict(m16=launches[0], mv16=launches[1])
+
+
+def deferred_steps(card: str, data: dict) -> None:
+    """Phase 15d: V4 with DEFERRED_DECODER_UPDATE against the plain schedule
+    from one seeded state, one epoch of CACHE_STEPS batches (the flush at
+    its end): at f32 (FUSED_POINTNET on) losses and the whole state bitwise
+    equal; at bf16 + nu16 + cache losses within rtol 0.05, atol 0.05, the
+    correct counts within 2 and the Adam counts equal (JAX's bounds)."""
+    import torch
+
+    from opensetgaitrecognition_pcaa_tpu_torch.config import VARIATION
+    from opensetgaitrecognition_pcaa_tpu_torch.train.pcaa import (
+        VARIANTS,
+        build_pcaa,
+        make_epoch_fns,
+    )
+
+    perm = data["perm"][:CACHE_STEPS]
+    noise = (data["z0"][:CACHE_STEPS], data["alphas"][:CACHE_STEPS])
+    nu16 = dict(COMPUTE_DTYPE="bfloat16", BF16_ADAM_NU=True, BF16_WEIGHT_CACHE=True)
+    for name, flags in (("f32", {}), ("bf16+nu16+cache", nu16)):
+        out = {}
+        for deferred in (False, True):
+            cfg = full_width(FUSED_POINTNET=True, DEFERRED_DECODER_UPDATE=deferred, **flags)
+            mods, state = build_pcaa(cfg, VARIANTS[VARIATION.V4], device="cuda")
+            train_epoch, _ = make_epoch_fns(mods, cfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = train_epoch(state, data["x"], data["y"], perm, noise)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            out[deferred] = dict(
+                metrics={k: v.cpu().numpy() for k, v in m.items()}, seconds=seconds,
+                snapshot=_snapshot(mods, (state.opt_g, state.opt_d)))
+            del mods, state, train_epoch
+            gc.collect()
+            torch.cuda.empty_cache()
+        a, b = out[False], out[True]
+        losses = [k for k in a["metrics"] if k != "n_correct"]
+        gap = max(float(np.abs(a["metrics"][k] - b["metrics"][k]).max()) for k in losses)
+        worst, differ = _state_diff(a["snapshot"], b["snapshot"])
+        counts = [c for c, _, _ in a["snapshot"][1]], [c for c, _, _ in b["snapshot"][1]]
+        if name == "f32":
+            equal = gap == 0.0 and not differ and np.array_equal(a["metrics"]["n_correct"],
+                                                                 b["metrics"]["n_correct"])
+            assert equal, (gap, worst, differ[:8])
+            verdict = "losses and every parameter, statistic and moment bitwise equal"
+        else:
+            for k in losses:
+                np.testing.assert_allclose(b["metrics"][k], a["metrics"][k], rtol=0.05, atol=0.05,
+                                           err_msg=k)
+            np.testing.assert_allclose(b["metrics"]["n_correct"], a["metrics"]["n_correct"],
+                                       atol=2.0)
+            assert counts[0] == counts[1], counts
+            verdict = (f"losses within {gap:.3e} (rtol 0.05, atol 0.05), Adam counts {counts[1]} "
+                       f"equal, state {worst:.3e} apart")
+        log(f"phase 15d: V4 {name} deferred vs plain schedule, {CACHE_STEPS} steps and the "
+            f"flush: {verdict}; epoch {b['seconds']:.2f} s deferred, {a['seconds']:.2f} s plain "
+            f"(host clock, first steps pay set-up) [{card}]")
+
+
+def factored_steps(card: str, data: dict) -> None:
+    """Phase 15e: V4 (FUSED_POINTNET on) and ORCED with FACTORED_ADAM_NU at
+    f32 and at bf16: the factored update of the 9000 x 18000 decoder leaf
+    after step 1 held to an f64 evaluation of the same formulas from the
+    gradient the step handed Adam (r and c within rtol 1e-5; the weight's
+    step within rtol 1e-5 of it plus the f32 rounding of the stored
+    weight); the optimizer state's drop against full f32 nu; ms per step
+    over CACHE_STEPS steps (host clock, synchronized)."""
+    import torch
+
+    from opensetgaitrecognition_pcaa_tpu_torch.config import VARIATION
+    from opensetgaitrecognition_pcaa_tpu_torch.train import orced as orced_mod
+    from opensetgaitrecognition_pcaa_tpu_torch.train import pcaa as pcaa_mod
+
+    leaf = "decoder.dense.4.weight"  # the (18000, 9000) decoder matrix
+    for kind, name, flags in (("pcaa", "f32", {}), ("pcaa", "bf16", dict(COMPUTE_DTYPE="bfloat16")),
+                              ("orced", "f32", {}), ("orced", "bf16", dict(COMPUTE_DTYPE="bfloat16"))):
+        module = pcaa_mod if kind == "pcaa" else orced_mod
+        fused = dict(FUSED_POINTNET=True) if kind == "pcaa" else {}
+        cfg = full_width(FACTORED_ADAM_NU=True, **fused, **flags)
+        b2 = cfg.B2 if kind == "pcaa" else cfg.B1  # ORCED's betas=(B1, B1)
+        if kind == "pcaa":
+            mods, state = pcaa_mod.build_pcaa(cfg, pcaa_mod.VARIANTS[VARIATION.V4], device="cuda")
+            step = pcaa_mod.make_train_step(mods, cfg)
+            opt, params = state.opt_g, dict(mods.g.named_parameters())
+
+            def step_fn(i):
+                return step(state, data["x"][data["perm"][i]], data["y"][data["perm"][i]], i,
+                            (data["z0"][i], data["alphas"][i]))[1]
+        else:
+            mods, state = orced_mod.build_orced(cfg, device="cuda")
+            step = orced_mod.make_orced_train_step(mods, cfg)
+            opt, params = state.opt, dict(mods.named_parameters())
+
+            def step_fn(i):
+                return step(state, data["x"][data["perm"][i]], data["y"][data["perm"][i]], 0.5,
+                            data["eps"][i])[1]
+        assert isinstance(opt.nu[leaf], dict)
+        full_nu = sum(p.numel() * 4 for p in params.values())
+        kept_nu = sum(sum(t.numel() * t.element_size() for t in
+                          (v.values() if isinstance(v, dict) else [v])) for v in opt.nu.values())
+        n_factored = sum(isinstance(v, dict) for v in opt.nu.values())
+        captured = {}
+        update = module.adam_update_
+
+        def capture(st, ps, grads, **kw):  # the gradient Adam is handed at step 1
+            if st is opt and not captured:
+                captured.update(g=grads[leaf].clone(), w0=ps[leaf].detach().clone())
+            return update(st, ps, grads, **kw)
+
+        module.adam_update_ = capture
+        try:
+            ms = []
+            for i in range(CACHE_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = step_fn(i)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+                assert all(np.isfinite(float(v)) for v in m.values()), m
+                if i == 0:
+                    w1 = params[leaf].detach().clone()
+                    r1, c1_ = opt.nu[leaf]["r"].clone(), opt.nu[leaf]["c"].clone()
+        finally:
+            module.adam_update_ = update
+        # the same formulas in f64 (train/optim.py; JAX scale_by_adam_factored), count 1
+        g = captured["g"].double()
+        sq = g * g + 1e-30
+        r = (1 - b2) * sq.sum(dim=0)
+        c = (1 - b2) * sq.sum(dim=1)
+        bc1, bc2 = 1 - cfg.B1, 1 - b2
+        vhat = (r[None, :] / (bc2 * r.sum())) * c[:, None]
+        delta = -cfg.LR * (((1 - cfg.B1) * g / bc1) / (torch.sqrt(vhat) + 1e-8))
+        got = w1.double() - captured["w0"].double()
+        spacing = torch.abs(torch.nextafter(w1, torch.full_like(w1, float("inf"))) - w1).double()
+        step_err = float(((got - delta).abs() - 1e-5 * delta.abs() - spacing).max())
+        rc_err = max(float(((r1.double() - r).abs() / r.abs()).max()),
+                     float(((c1_.double() - c).abs() / c.abs()).max()))
+        assert rc_err <= 1e-5, (kind, name, rc_err)
+        assert step_err <= 0.0, (kind, name, step_err)
+        log(f"phase 15e: {'V4' if kind == 'pcaa' else 'ORCED'} {name} with FACTORED_ADAM_NU: "
+            f"the (18000, 9000) leaf after step 1 against f64: r and c within {rc_err:.3e} "
+            f"relative (rtol 1e-5), the weight's step within rtol 1e-5 plus the stored weight's "
+            f"f32 spacing (worst margin {step_err:.3e}); {n_factored} leaves factored, second "
+            f"moments {kept_nu / 1e6:.1f} MB against {full_nu / 1e6:.1f} MB of full f32 nu "
+            f"({(full_nu - kept_nu) / 1e6:.1f} MB less); ms per step "
+            f"{[round(t, 2) for t in ms]} (host clock) [{card}]")
+        del mods, state, step, step_fn, opt, params, captured, g, sq, vhat, delta, got
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _checkpoint_gap(dir_a: str, dir_b: str, name: str) -> tuple:
+    """Two run folders' module files → (largest |difference|, the leaves
+    that differ)."""
+    from opensetgaitrecognition_pcaa_tpu_torch.train.run_folder import load_params
+
+    def leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, f"{prefix}{k}/")
+        else:
+            yield prefix.rstrip("/"), np.asarray(tree)
+
+    worst, differ = 0.0, []
+    for tag in ("E", "D", "G", "GPH"):
+        a = dict(leaves(load_params(os.path.join(dir_a, name, f"{name}_{tag}.msgpack"))))
+        b = dict(leaves(load_params(os.path.join(dir_b, name, f"{name}_{tag}.msgpack"))))
+        assert a.keys() == b.keys(), tag
+        for k in a:
+            if not np.array_equal(a[k], b[k]):
+                differ.append(f"{tag}:{k}")
+                worst = max(worst, float(np.abs(a[k].astype(np.float64) - b[k]).max()))
+    return worst, differ
+
+
+def cache_driver(card: str, raw: str) -> dict:
+    """Phase 15f: ``run_pcaa_ablation --variants V4 --compute-dtype bfloat16
+    --bf16-weight-cache --n-training-classes 6 --n-tests 1 --epochs 1``
+    (kernels on) against the same call without the flag: the module files
+    under the 15b gate → the Adam kernel's launches with the copy (m16)."""
+    import torch
+
+    from opensetgaitrecognition_pcaa_tpu_torch import config as port_config
+    from opensetgaitrecognition_pcaa_tpu_torch.config import Config
+    from opensetgaitrecognition_pcaa_tpu_torch.scripts import run_pcaa_ablation as rpa
+
+    base = "SMOKE_CACHE_"
+    name = f"{base}V4.{N_SEEN}.1"
+    gen = os.path.join(WORK, "gen_cache")
+    rpa.default_config = lambda **kw: port_config.default_config(
+        FUSED_POINTNET=True, FUSED_ADAM=True, **kw)
+
+    def call(tag: str, flags: list) -> tuple:
+        models = os.path.join(WORK, f"models_cache_{tag}")
+        shutil.rmtree(models, ignore_errors=True)
+        reset_train_counts()
+        reset_bf16_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rpa.main(["--data-path", raw, "--gen-data-path", gen, "--models-path", models,
+                      "--model-name-base", base, "--n-training-classes", str(N_SEEN),
+                      "--n-tests", "1", "--variants", "V4", "--epochs", "1",
+                      "--compute-dtype", "bfloat16", *flags])
+        torch.cuda.synchronize()
+        return models, time.perf_counter() - t0, bf16_counts() + copy_counts()
+
+    try:
+        off, s_off, c_off = call("off", [])
+        on, s_on, c_on = call("on", ["--bf16-weight-cache"])
+        worst, differ = _checkpoint_gap(on, off, name)
+        if differ:
+            again, _, _ = call("off2", [])
+            base_worst, base_differ = _checkpoint_gap(again, off, name)
+            assert worst <= base_worst, (worst, base_worst, differ[:8], base_differ[:8])
+            verdict = (f"not bitwise: {len(differ)} leaves within {worst:.3e}, no wider than two "
+                       f"calls without the flag ({base_worst:.3e}, {len(base_differ)} leaves)")
+        else:
+            verdict = "the module files' leaves bitwise equal"
+    finally:
+        rpa.default_config = port_config.default_config
+    cfg = Config.load(os.path.join(on, name, "config.json"))
+    assert cfg.BF16_WEIGHT_CACHE and cfg.COMPUTE_DTYPE == "bfloat16"
+    # (bf16 layer, pool, Adam m16, mv16, with the copy m16, mv16)
+    assert c_on[0] > 0 and c_on[2] == 0 and c_on[4] == c_off[2] > 0 and c_on[5] == 0, (c_on, c_off)
+    log(f"phase 15f: run_pcaa_ablation --compute-dtype bfloat16 --bf16-weight-cache (kernels on) "
+        f"vs without the flag: {verdict}; {s_on:.2f} s vs {s_off:.2f} s with the splits' write; "
+        f"launches (bf16 layer, pool, Adam m16, mv16, with the copy m16, mv16) {c_on} vs {c_off} "
+        f"[{card}]")
+    return dict(m16=c_on[4], mv16=c_on[5])
+
+
+def options_phase(card: str, gen: str, raw: str) -> tuple:
+    """Phase 15: the Adam kernel's bf16 copy (15a), BF16_WEIGHT_CACHE on the
+    V4 and ORCED steps (15b-c), DEFERRED_DECODER_UPDATE (15d),
+    FACTORED_ADAM_NU (15e) and ``--bf16-weight-cache`` in the driver (15f),
+    with cuDNN deterministic on both sides of every comparison → (15a's
+    checks, the copy's launches on the main paths of 15b and 15f)."""
+    t0 = time.perf_counter()
+    checks = check_adam_copy(card)
+    with cudnn_deterministic():
+        data = _train_data(gen, CACHE_STEPS + 3)
+        steps = cache_steps(card, data)
+        deferred_steps(card, data)
+        factored_steps(card, data)
+        del data
+        drv = cache_driver(card, raw)
+    launches = {k: steps[k] + drv[k] for k in ("m16", "mv16")}
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s [{card}]")
+    return checks, launches
 
 
 def mesh_nccl() -> int:
@@ -4179,6 +4755,9 @@ def main() -> int:
                  (bf16_checks["layer"], "layer_bf16")):
         c["err"] = max(c["err"], mesh_err[k])
 
+    # --- 15. the weight cache, the deferred decoder write, factored Adam ----------------
+    copy_checks, copy_launches = options_phase(card, gen, os.path.join(WORK, "raw"))
+
     checks["infer"] = dict(err=max_err, ms=pn_ms["kernel"], plain_ms=pn_ms["plain"],
                            library_ms=None, **pn_bound)
     src = "opensetgaitrecognition_pcaa_tpu_torch/csrc/"
@@ -4204,6 +4783,10 @@ def main() -> int:
          bf16_launches["adam_mv16"], bf16_checks["adam_mv16"]),
         ("fused_adam_tree_update/_adam_block_kernel (v bf16)", "adam.cu", "adam_kernel.py:60",
          grid_launches["adam_v16"], bf16_checks["adam_v16"]),
+        ("fused_adam_tree_update/_adam_block_kernel (m bf16) + bf16 copy of w", "adam.cu",
+         "adam_kernel.py:60", copy_launches["m16"], copy_checks["m16"]),
+        ("fused_adam_tree_update/_adam_block_kernel (m, v bf16) + bf16 copy of w", "adam.cu",
+         "adam_kernel.py:60", copy_launches["mv16"], copy_checks["mv16"]),
     ]
     for name, _, _, launches, _ in kernels:
         assert launches > 0, f"the main path never launched {name}"
@@ -4214,7 +4797,7 @@ def main() -> int:
          "bound_route": c["bound_route"]}
         for name, source, replaces, launches, c in kernels
     ]}
-    log(f"chip_smoke: phases 1-14 in {time.perf_counter() - t_start:.1f} s [{card}]")
+    log(f"chip_smoke: phases 1-15 in {time.perf_counter() - t_start:.1f} s [{card}]")
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -58,8 +58,9 @@ N_SUBJECTS = 10
 class Config:
     """Immutable hyperparameter set for one training/eval run; the JAX
     package's fields, in its order (see its ``config.py`` for each
-    framework-only knob; the port raises ``NotImplementedError`` on the
-    ones it does not run)."""
+    framework-only knob). The port runs them all, ``FACTORED_ADAM_NU``,
+    ``DEFERRED_DECODER_UPDATE`` and ``BF16_WEIGHT_CACHE`` included, and
+    refuses the combinations the JAX package refuses."""
 
     # shapes
     NMAX: int = 150

@@ -16,7 +16,10 @@ decoder, critic, heads and V1's mean learner (``E``, ``G``, ``D``,
   across as they are.
 
 Adam moments have their parameter's shape, so they map as the parameter
-does. Both directions are exact: values are copied, never recomputed. A
+does; a factored second moment (``FACTORED_ADAM_NU``, ``{"r", "c"}`` at
+the kernel's place in JAX ``adam_factored``'s tree) maps across as it is,
+its factors being named for the JAX layout (``train/optim.py``). Both
+directions are exact: values are copied, never recomputed. A
 bf16 leaf (the moments of a bf16 run; numpy holds it as
 ``ml_dtypes.bfloat16``, whose dtype name is "bfloat16") becomes a
 ``torch.bfloat16`` tensor of the same bits; going back, a bf16 tensor
@@ -302,13 +305,81 @@ def _side_tree(state_dict: Dict[str, torch.Tensor], table) -> Tuple[Dict, Dict]:
     return params, stats
 
 
+@torch.no_grad()
+def _refresh_copies(cache: Dict[str, torch.Tensor], modules) -> None:
+    """Round the loaded weights into a trainer's bf16 weight copies
+    (``BF16_WEIGHT_CACHE``), keyed by parameter name in ``modules``."""
+    for name, w16 in cache.items():
+        w16.copy_(modules.get_parameter(name))
+
+
+def _factored_paths(moments: Dict, table) -> Dict[str, Tuple[str, ...]]:
+    """Each factored second moment of ``moments`` (a dict at a dense
+    kernel's key) → its path in the JAX moment tree (module key, then the
+    kernel's path in the module's params)."""
+    out = {}
+    for name, _, _ in table:
+        sub = _sub(moments, f"{name}.")
+        if sub:
+            for path, key, _ in _MODULE_ENTRIES[name](sub):
+                if isinstance(sub.get(key), dict):
+                    out[f"{name}.{key}"] = (name,) + path[1:]
+    return out
+
+
+def _at(tree: Dict, path: Tuple[str, ...]):
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
+def _load_moments(moments: Dict, jax_tree: Dict, table, what: str) -> None:
+    """Copy a JAX moment tree into the port's moments in place, factored
+    leaves as their ``{"r", "c"}``."""
+    factored = _factored_paths(moments, table)
+    # a factored leaf converts through a stand-in of its kernel's shape
+    plain = {k: (v if k not in factored else None) for k, v in moments.items()}
+    jax_tree = _copy_tree(jax_tree)
+    for k, path in factored.items():
+        rc = _at(jax_tree, path[:-1])
+        r, c = (np.asarray(rc[path[-1]][f]) for f in ("r", "c"))
+        rc[path[-1]] = np.zeros((len(r), len(c)), np.float32)
+        moments[k]["r"].copy_(torch.from_numpy(np.array(r)).to(moments[k]["r"].device))
+        moments[k]["c"].copy_(torch.from_numpy(np.array(c)).to(moments[k]["c"].device))
+    sd = _side_state_dict(jax_tree, table)
+    if set(sd) != set(plain):
+        raise ValueError(f"{what} leaves differ from the port's parameters")
+    for name, value in sd.items():
+        if name not in factored:
+            moments[name].copy_(value.to(moments[name].device))
+
+
+def _copy_tree(tree):
+    return {k: _copy_tree(v) for k, v in tree.items()} if isinstance(tree, dict) else tree
+
+
+def _moment_tree(moments: Dict, table) -> Dict:
+    """The port's moments → the JAX moment tree, factored leaves as their
+    ``{"r", "c"}``."""
+    factored = _factored_paths(moments, table)
+    stand_in = {k: (torch.zeros(len(v["c"]), len(v["r"])) if k in factored else v)
+                for k, v in moments.items()}
+    tree = _side_tree(stand_in, table)[0]
+    for k, path in factored.items():
+        _at(tree, path[:-1])[path[-1]] = {f: moments[k][f].detach().cpu().numpy()
+                                          for f in ("r", "c")}
+    return tree
+
+
 def pcaa_state_from_jax(tree: Dict, mods, state) -> None:
     """Load a JAX ``PCAAState`` into the port's modules and optimizer
     state, in place, on the modules' device.
 
     ``tree`` has numpy leaves: ``params_g``, ``params_d``, ``batch_stats``,
     ``opt_g`` and ``opt_d`` (each ``{"count", "mu", "nu"}``, the Adam
-    state of ``opt[0]``), ``centroids`` and, for V1, ``ml_params``.
+    state of ``opt[0]``), ``centroids`` and, for V1, ``ml_params``. The
+    state's bf16 weight copies, if any, are refreshed from the loaded
+    weights.
     """
     g_sd = _side_state_dict(tree["params_g"], _GENERATOR, tree["batch_stats"])
     mods.g.load_state_dict(g_sd)
@@ -320,11 +391,8 @@ def pcaa_state_from_jax(tree: Dict, mods, state) -> None:
         t = tree[f"opt_{side}"]
         opt.count = int(np.asarray(t["count"]))
         for moments, key in ((opt.mu, "mu"), (opt.nu, "nu")):
-            sd = _side_state_dict(t[key], table)
-            if set(sd) != set(moments):
-                raise ValueError(f"opt_{side}.{key} leaves differ from the port's parameters")
-            for name, value in sd.items():
-                moments[name].copy_(value.to(device))
+            _load_moments(moments, t[key], table, f"opt_{side}.{key}")
+    _refresh_copies(state.cast_g, mods.g)
     state.centroids.copy_(torch.tensor(np.asarray(tree["centroids"]), device=device))
 
 
@@ -346,11 +414,8 @@ def orced_state_from_jax(tree: Dict, mods, state) -> None:
     opt = state.opt
     opt.count = int(np.asarray(tree["opt"]["count"]))
     for moments, key in ((opt.mu, "mu"), (opt.nu, "nu")):
-        sd = _side_state_dict(tree["opt"][key], _ORCED)
-        if set(sd) != set(moments):
-            raise ValueError(f"opt.{key} leaves differ from the port's parameters")
-        for name, value in sd.items():
-            moments[name].copy_(value.to(moments[name].device))
+        _load_moments(moments, tree["opt"][key], _ORCED, f"opt.{key}")
+    _refresh_copies(state.cast, mods)
 
 
 def orced_state_to_jax(mods, state) -> Dict:
@@ -361,7 +426,7 @@ def orced_state_to_jax(mods, state) -> Dict:
     return {"params": params, "batch_stats": stats, "opt": {
         "count": np.asarray(opt.count, np.int32),
         "mu": _side_tree(opt.mu, _ORCED)[0],
-        "nu": _side_tree(opt.nu, _ORCED)[0],
+        "nu": _moment_tree(opt.nu, _ORCED),
     }}
 
 
@@ -381,6 +446,6 @@ def pcaa_state_to_jax(mods, state) -> Dict:
         tree[f"opt_{side}"] = {
             "count": np.asarray(opt.count, np.int32),
             "mu": _side_tree(opt.mu, table)[0],
-            "nu": _side_tree(opt.nu, table)[0],
+            "nu": _moment_tree(opt.nu, table),
         }
     return tree

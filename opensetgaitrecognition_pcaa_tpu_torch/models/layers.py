@@ -20,11 +20,22 @@ stay f32 either way. At bf16:
   JAX's does; the backbone's two means are taken in f32.
 
 A product of two bf16 values is exact in f32, so "bf16 operands, f32
-accumulation" is computed as an f32 GEMM of bf16-rounded operands
-(``round_bf16``): the JAX package's arithmetic up to the order of the
-sums, on the CPU and the card alike (TF32 is off, ``infer/common.py::
-ieee_f32``). Autograd through the casts gives JAX's gradients too: the
-cotangent of a bf16 operand is rounded to bf16 and then upcast.
+accumulation" is the JAX package's arithmetic up to the order of the sums
+whichever GEMM computes it. A bf16 ``dense`` runs ``Bf16Dense``, whose
+GEMMs forward and backward are ``ops/pointnet_train.py::mm_bf16``'s
+(cuBLAS's bf16 GEMM with an f32 result on the card, so that the weights
+are read as bf16; an f32 GEMM of the bf16 values on the CPU), with JAX's
+roundings: the cotangent of a bf16 operand is rounded to bf16 and then
+upcast (``tests/test_torch_weight_cache.py`` holds it to autograd through
+``round_bf16`` casts).
+
+``TorchDense.weight_bf16`` (None unless a trainer sets it) is a bf16 copy
+of the layer's weight, the decoder's weight cache of
+``Config.BF16_WEIGHT_CACHE`` (JAX ``train/pcaa.py::_cache_tree``): a bf16
+layer then reads the copy instead of rounding its f32 weight, and the
+gradient lands on the copy, in bf16. Both paths round the same weight to
+the same bf16 values and take the same GEMM, so the copy changes the bytes
+moved and not one bit of the result.
 
 Under tensor parallelism (``mesh``, set by ``parallel/mesh.py::
 shard_modules`` on a layer whose kernel the model group shards) the
@@ -54,12 +65,49 @@ def round_bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).float()
 
 
+class Bf16Dense(torch.autograd.Function):
+    """``(x @ W^T + b)`` rounded to bf16, with bf16 operands and f32
+    accumulation: JAX ``TorchDense`` at bf16. ``weight`` is the f32 master or
+    its bf16 copy; its gradient comes back in its own dtype (the bf16
+    rounding of the f32 product, upcast for the master), the input's
+    likewise rounded to bf16 first, the bias's is the f32 sum of the
+    upcast cotangent, as JAX's transposes of the casts and the dot give
+    them. The GEMMs are ``mm_bf16``'s (on the CPU, f32 GEMMs of the bf16
+    values)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        from opensetgaitrecognition_pcaa_tpu_torch.ops.pointnet_train import mm_bf16
+
+        x16 = x.reshape(-1, x.shape[-1]).to(torch.bfloat16)
+        w16 = weight.to(torch.bfloat16)
+        ctx.save_for_backward(x16, w16)
+        ctx.dtypes, ctx.shape = (x.dtype, weight.dtype), x.shape
+        y = mm_bf16(x16, w16.t()) + bias
+        return y.to(torch.bfloat16).reshape(x.shape[:-1] + (weight.shape[0],))
+
+    @staticmethod
+    def backward(ctx, gy):
+        from opensetgaitrecognition_pcaa_tpu_torch.ops.pointnet_train import mm_bf16
+
+        x16, w16 = ctx.saved_tensors
+        x_dtype, w_dtype = ctx.dtypes
+        g16 = gy.reshape(-1, gy.shape[-1]).to(torch.bfloat16)
+        gx = mm_bf16(g16, w16).to(torch.bfloat16).to(x_dtype).reshape(ctx.shape)
+        gw = mm_bf16(g16.t(), x16).to(torch.bfloat16).to(w_dtype)
+        gb = g16.float().sum(dim=0)
+        return gx, gw, gb
+
+
 def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-          compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """JAX ``TorchDense`` at ``compute_dtype``; ``weight`` is ``(out, in)``."""
+          compute_dtype: torch.dtype = torch.float32,
+          weight_bf16: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """JAX ``TorchDense`` at ``compute_dtype``; ``weight`` is ``(out, in)``.
+    At bf16, ``weight_bf16`` (a bf16 copy of ``weight``) is read in its
+    place (the module docstring)."""
     if compute_dtype == torch.float32:
         return F.linear(x, weight, bias)
-    return F.linear(round_bf16(x), round_bf16(weight), bias).to(compute_dtype)
+    return Bf16Dense.apply(x, weight if weight_bf16 is None else weight_bf16, bias)
 
 
 def elu(x: torch.Tensor) -> torch.Tensor:
@@ -90,16 +138,15 @@ class TorchDense(nn.Linear):
         super().__init__(in_features, out_features)
         self.compute_dtype = compute_dtype
         self.mesh = None
+        self.weight_bf16: Optional[torch.Tensor] = None  # the module docstring
         gen = generator or torch.Generator().manual_seed(0)
         _uniform_(self.weight, in_features, gen)
         _uniform_(self.bias, in_features, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.mesh is None:
-            return dense(x, self.weight, self.bias, self.compute_dtype)
-        y = dense(x, self.weight, _shard_rows(self.bias, self.weight, self.mesh),
-                  self.compute_dtype)
-        return self.mesh.gather_model(y, dim=-1)
+        bias = self.bias if self.mesh is None else _shard_rows(self.bias, self.weight, self.mesh)
+        y = dense(x, self.weight, bias, self.compute_dtype, self.weight_bf16)
+        return y if self.mesh is None else self.mesh.gather_model(y, dim=-1)
 
 
 def _shard_rows(full: torch.Tensor, shard: torch.Tensor, mesh) -> torch.Tensor:

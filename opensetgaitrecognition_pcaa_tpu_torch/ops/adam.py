@@ -14,7 +14,12 @@ as the JAX function keeps it leaf by leaf): the arithmetic is f32, a bf16
 moment is upcast when read, and m' and v' are rounded to bf16 (nearest
 even) only when stored. The kernel has four variants: f32 moments, m
 bf16, m and v bf16, v bf16 (JAX ``build_pcaa``'s moments at f32 compute
-with ``BF16_ADAM_NU``).
+with ``BF16_ADAM_NU``). The two layouts of bf16 compute, m bf16 and m and v
+bf16, also take ``w16``: a bf16 tensor shaped like w into which the kernel
+writes the updated weight rounded to bf16 (``__float2bfloat16_rn``, nearest
+even), the decoder's weight cache of ``Config.BF16_WEIGHT_CACHE`` (JAX
+``train/pcaa.py::_cache_tree`` of the new parameters, which XLA fuses into
+the update).
 
 2-D leaves of at least ``min_kernel_elems`` elements (2²¹, the JAX
 package's own rule: the four big decoder matrices at the published widths;
@@ -22,7 +27,8 @@ counted on the leaf's global shape, so that a model rank's shard of such a
 leaf under tensor parallelism takes the kernel too) go through
 ``adam_update_``, which launches ``csrc/adam.cu`` for a CUDA
 tensor or raises; the other leaves, and CPU tensors, take the plain
-version with the same formula. Unlike the JAX function, which returns new
+version with the same formula (which writes a leaf's copy with
+``.copy_``, a cast to bf16). Unlike the JAX function, which returns new
 trees, this one **updates w, m and v in place** and returns the new count.
 """
 
@@ -46,6 +52,9 @@ _VARIANTS = {(_F32, _F32): ("adam_update_f32", "launches"),
              (_BF16, _F32): ("adam_update_m16", "launches_m16"),
              (_BF16, _BF16): ("adam_update_mv16", "launches_mv16"),
              (_F32, _BF16): ("adam_update_v16", "launches_v16")}
+# the same with the bf16 copy of w: the layouts of bf16 compute
+_COPY_VARIANTS = {(_BF16, _F32): ("adam_update_m16_w16", "launches_m16_w16"),
+                  (_BF16, _BF16): ("adam_update_mv16_w16", "launches_mv16_w16")}
 
 
 def adam_scalars(count: int, lr: float, b1: float, b2: float) -> Tuple[float, float]:
@@ -59,30 +68,42 @@ def adam_scalars(count: int, lr: float, b1: float, b2: float) -> Tuple[float, fl
 
 @torch.no_grad()
 def adam_update_ref_(g: torch.Tensor, w: torch.Tensor, m: torch.Tensor, v: torch.Tensor, *,
-                     s1: float, s2: float, b1: float, b2: float, eps: float) -> None:
+                     s1: float, s2: float, b1: float, b2: float, eps: float,
+                     w16: Optional[torch.Tensor] = None) -> None:
     """Plain version of one leaf's update, in place; bf16 moments are upcast
-    and rounded back when stored."""
+    and rounded back when stored; ``w16`` (optional) takes the new w
+    rounded to bf16."""
     m2 = b1 * m.float() + (1.0 - b1) * g
     v2 = b2 * v.float() + (1.0 - b2) * (g * g)
     w.copy_(w - (s1 * m2) / (torch.sqrt(v2 * s2) + eps))
     m.copy_(m2)
     v.copy_(v2)
+    if w16 is not None:
+        w16.copy_(w)
 
 
 def _library() -> ctypes.CDLL:
     lib = load_library(_KERNEL)
-    for entry, _ in _VARIANTS.values():
-        fn = getattr(lib, entry)
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_float] * 7
-                       + [ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    for variants, n_ptr in ((_VARIANTS, 4), (_COPY_VARIANTS, 5)):
+        for entry, _ in variants.values():
+            fn = getattr(lib, entry)
+            fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_longlong]
+                           + [ctypes.c_float] * 7 + [ctypes.c_int, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
     return lib
 
 
-def _check_cuda_args(g, w, m, v) -> None:
-    if (m.dtype, v.dtype) not in _VARIANTS:
-        raise ValueError(f"no kernel for moments m {m.dtype}, v {v.dtype}")
-    for name, t in (("g", g), ("w", w), ("m", m), ("v", v)):
+def _check_cuda_args(g, w, m, v, w16=None) -> None:
+    variants = _VARIANTS if w16 is None else _COPY_VARIANTS
+    if (m.dtype, v.dtype) not in variants:
+        raise ValueError(f"no kernel for moments m {m.dtype}, v {v.dtype}"
+                         + ("" if w16 is None else " with a bf16 copy of w"))
+    tensors = (("g", g), ("w", w), ("m", m), ("v", v))
+    if w16 is not None:
+        if w16.dtype != _BF16:
+            raise ValueError(f"w16 must be bfloat16, got {w16.dtype}")
+        tensors += (("w16", w16),)
+    for name, t in tensors:
         if t.device != w.device:
             raise ValueError(f"{name} is on {t.device}, w on {w.device}")
         if name in ("g", "w") and t.dtype != _F32:
@@ -99,23 +120,24 @@ def _check_cuda_args(g, w, m, v) -> None:
 
 @torch.no_grad()
 def adam_update_(g: torch.Tensor, w: torch.Tensor, m: torch.Tensor, v: torch.Tensor, *,
-                 s1: float, s2: float, b1: float, b2: float, eps: float) -> None:
+                 s1: float, s2: float, b1: float, b2: float, eps: float,
+                 w16: Optional[torch.Tensor] = None) -> None:
     """One leaf's update, in place: a CPU tensor takes ``adam_update_ref_``;
-    a CUDA tensor launches the kernel variant of the moments' dtypes, or
-    raises."""
+    a CUDA tensor launches the kernel variant of the moments' dtypes (with
+    the bf16 copy of w where ``w16`` is given), or raises."""
     if w.device.type == "cpu":
-        adam_update_ref_(g, w, m, v, s1=s1, s2=s2, b1=b1, b2=b2, eps=eps)
+        adam_update_ref_(g, w, m, v, s1=s1, s2=s2, b1=b1, b2=b2, eps=eps, w16=w16)
         return
     if w.device.type != "cuda":
         raise ValueError(f"no kernel for device {w.device}")
-    _check_cuda_args(g, w, m, v)
-    entry, counter = _VARIANTS[(m.dtype, v.dtype)]
+    _check_cuda_args(g, w, m, v, w16)
+    entry, counter = (_VARIANTS if w16 is None else _COPY_VARIANTS)[(m.dtype, v.dtype)]
     fn = getattr(_library(), entry)
     sms = torch.cuda.get_device_properties(w.device).multi_processor_count
+    ptrs = [t.data_ptr() for t in (g, w, m, v)] + ([] if w16 is None else [w16.data_ptr()])
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream(w.device).cuda_stream
-        err = fn(g.data_ptr(), w.data_ptr(), m.data_ptr(), v.data_ptr(), w.numel(),
-                 b1, 1.0 - b1, b2, 1.0 - b2, s1, s2, eps, sms, stream)
+        err = fn(*ptrs, w.numel(), b1, 1.0 - b1, b2, 1.0 - b2, s1, s2, eps, sms, stream)
     if err != 0:
         raise RuntimeError(f"adam kernel launch failed: cudaError {err}")
     setattr(adam_update_, counter, getattr(adam_update_, counter) + 1)
@@ -123,12 +145,15 @@ def adam_update_(g: torch.Tensor, w: torch.Tensor, m: torch.Tensor, v: torch.Ten
 
 
 # Kernel launches since the last reset, per variant (f32 moments; m bf16;
-# m and v bf16; v bf16), and of all variants per leaf shape; the plain
-# version does not count.
+# m and v bf16; v bf16; m bf16 with the copy of w; m and v bf16 with the
+# copy), and of all variants per leaf shape; the plain version does not
+# count.
 adam_update_.launches = 0
 adam_update_.launches_m16 = 0
 adam_update_.launches_mv16 = 0
 adam_update_.launches_v16 = 0
+adam_update_.launches_m16_w16 = 0
+adam_update_.launches_mv16_w16 = 0
 adam_update_.shapes = collections.Counter()
 
 
@@ -145,19 +170,23 @@ def fused_adam_tree_update(
     eps: float = 1e-8,
     min_kernel_elems: int = MIN_KERNEL_ELEMS,
     global_shapes: Optional[Dict[str, Tuple[int, ...]]] = None,
+    cache: Optional[Dict[str, torch.Tensor]] = None,
 ) -> int:
     """One Adam step over every leaf of ``params``; updates ``params``,
     ``mu`` and ``nu`` in place and returns ``count + 1``. ``global_shapes``
     (by name) are the leaves' shapes before tensor parallelism sharded
-    them, which choose kernel or plain; by default the leaves' own."""
+    them, which choose kernel or plain; by default the leaves' own.
+    ``cache`` (by name, optional) holds bf16 copies of some leaves, which
+    take the updated leaf rounded to bf16."""
     count2 = count + 1
     s1, s2 = adam_scalars(count2, lr, b1, b2)
     coeffs = dict(s1=s1, s2=s2, b1=b1, b2=b2, eps=eps)
+    cache = cache or {}
     for name, w in params.items():
-        g, m, v = grads[name], mu[name], nu[name]
+        g, m, v, w16 = grads[name], mu[name], nu[name], cache.get(name)
         shape = tuple(w.shape) if global_shapes is None else tuple(global_shapes[name])
         if len(shape) == 2 and math.prod(shape) >= min_kernel_elems:
-            adam_update_(g, w, m, v, **coeffs)
+            adam_update_(g, w, m, v, w16=w16, **coeffs)
         else:
-            adam_update_ref_(g, w, m, v, **coeffs)
+            adam_update_ref_(g, w, m, v, w16=w16, **coeffs)
     return count2

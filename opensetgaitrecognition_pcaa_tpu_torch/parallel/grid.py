@@ -250,7 +250,9 @@ class GridPCAATrainer(_GridBase):
     ``cfgs`` may differ only in per-run identity fields (TRAIN_CLASSES,
     SEED, MODEL_NAME, paths — see ``_PER_RUN_FIELDS``); every step-relevant
     field (shapes, LR, loss weights, flags) must agree (asserted).
-    ``DEFERRED_DECODER_UPDATE`` raises in ``build_pcaa`` (item 14).
+    ``DEFERRED_DECODER_UPDATE`` is refused, as the JAX grid refuses it;
+    ``BF16_WEIGHT_CACHE`` and ``FACTORED_ADAM_NU`` live in each run's solo
+    state (``build_pcaa``).
     """
 
     def __init__(
@@ -263,6 +265,11 @@ class GridPCAATrainer(_GridBase):
         *,
         device: Device = "cuda",
     ):
+        if any(c.DEFERRED_DECODER_UPDATE for c in cfgs):
+            raise AssertionError(
+                "DEFERRED_DECODER_UPDATE is a solo-trainer schedule: the grid trainer owns its "
+                "own epoch scan and has no post-scan flush, so validation would see stale "
+                "decoder params")
         super().__init__(cfgs, train_sets, valid_sets, mesh, device)
         spec = VARIANTS[variation]
         for c, d in zip(self.cfgs, self.run_devices):

@@ -23,6 +23,13 @@ single-device run up to the order of its sums:
 - **sharded leaves** over the data group only (``reduce_grads``).
 
 Adam then steps each rank's local leaf as the single-device Adam would.
+A factored second moment (``FACTORED_ADAM_NU``, ``train/optim.py``) of a
+sharded leaf is split as GSPMD splits it for JAX: its column factor ``c``
+(one value per output row) with the leaf, its row factor ``r`` replicated,
+made whole each step from the ranks' partial sums over the output axis
+(``train/pcaa.py::model_row_sum``), so that ``Σr`` is the whole leaf's.
+A ``BF16_WEIGHT_CACHE`` copy is made from the rank's shard, and Adam's
+write (deferred or not) is elementwise on the shards.
 
 Tensor parallelism shards the leaves that JAX ``state_shardings`` shards:
 a leaf of at least two axes whose JAX output axis (the last) divides by the
@@ -243,6 +250,12 @@ def state_shardings(tensors: Dict[str, Any], model_size: int, *,
     return specs
 
 
+def _factored_axis(axis: Optional[int]) -> Optional[int]:
+    """The axis of a factored moment's ``c`` where its leaf is sharded on
+    ``axis``: the leaf's output axis 0 is ``c``'s only one."""
+    return None if axis is None else 0
+
+
 def shard_tensor(t: torch.Tensor, axis: Optional[int], mesh: Mesh) -> torch.Tensor:
     """This model rank's block of ``t`` along ``axis`` as a contiguous
     tensor of its own (a copy: a view would keep the whole leaf alive and
@@ -265,16 +278,23 @@ def shard_state(tensors: Dict[str, torch.Tensor], specs: Dict[str, Optional[int]
 def gather_state(tensors: Dict[str, torch.Tensor], specs: Dict[str, Optional[int]],
                  mesh: Mesh) -> Dict[str, torch.Tensor]:
     """The inverse of ``shard_state``: each sharded leaf all-gathered over
-    the model group, in one order on every rank (every rank calls it)."""
+    the model group, in one order on every rank (every rank calls it); a
+    factored second moment's ``c`` gathered whole, its ``r`` as it is."""
+
+    def gather(t, axis):
+        if axis is None or mesh.model_group is None:
+            return t
+        parts = [torch.empty_like(t) for _ in range(mesh.mp)]
+        dist.all_gather(parts, t.contiguous(), group=mesh.model_group)
+        return torch.cat(parts, dim=axis)
+
     out = {}
     for k, t in tensors.items():
         axis = specs.get(k)
-        if axis is None or mesh.model_group is None:
-            out[k] = t
-            continue
-        parts = [torch.empty_like(t) for _ in range(mesh.mp)]
-        dist.all_gather(parts, t.contiguous(), group=mesh.model_group)
-        out[k] = torch.cat(parts, dim=axis)
+        if isinstance(t, dict):
+            out[k] = {"r": t["r"], "c": gather(t["c"], _factored_axis(axis))}
+        else:
+            out[k] = gather(t, axis)
     return out
 
 
@@ -339,7 +359,11 @@ def shard_modules(mods: torch.nn.Module, moments: Iterable[Tuple[Dict[str, torch
         p.data = shard_tensor(p.data, specs[name], mesh)
     for tensors, prefix in moments:
         for k in list(tensors):
-            tensors[k] = shard_tensor(tensors[k], specs[prefix + k], mesh)
+            t, axis = tensors[k], specs[prefix + k]
+            if isinstance(t, dict):  # a factored second moment (the module docstring)
+                tensors[k] = {"r": t["r"], "c": shard_tensor(t["c"], _factored_axis(axis), mesh)}
+            else:
+                tensors[k] = shard_tensor(t, axis, mesh)
     for key, layer in kernels.items():
         if specs[key] is not None:
             layer.mesh = mesh

@@ -26,9 +26,10 @@ Completed splits are skipped before any split is written. As there,
 spreading a chunk over the cards buys memory, not speed.
 
 The flags are the JAX driver's, plus ``--device`` (default ``cuda``).
-``--compute-dtype bfloat16`` and ``--bf16-adam-nu`` train as the JAX
-driver's do (bf16 compute, bf16 Adam moments), in both modes;
-``--bf16-weight-cache`` is not ported and raises ``NotImplementedError``.
+``--compute-dtype bfloat16``, ``--bf16-adam-nu`` and
+``--bf16-weight-cache`` train as the JAX driver's do (bf16 compute, bf16
+Adam moments, bf16 copies of the decoder's weights), in both modes; the
+last needs the first, or the build refuses the run, as in JAX.
 OR-CED trains through plain PyTorch, as the JAX trainer reaches no kernel.
 """
 
@@ -46,7 +47,6 @@ from opensetgaitrecognition_pcaa_tpu_torch.ops.openset import openness
 from opensetgaitrecognition_pcaa_tpu_torch.parallel.grid import GridORCEDTrainer, mesh_chunks
 from opensetgaitrecognition_pcaa_tpu_torch.scripts.run_pcaa_ablation import (
     apply_precision_flags,
-    check_ported,
     grid_devices,
     open_run_folders,
     unique_class_subsets,
@@ -78,7 +78,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--bf16-adam-nu", action="store_true",
                    help="store Adam second moments in bf16")
     p.add_argument("--bf16-weight-cache", action="store_true",
-                   help="bf16 copies of the decoder kernels (not ported)")
+                   help="bf16 copies of the decoder kernels, refreshed after the Adam step; "
+                   "the same bits as without it; requires --compute-dtype bfloat16")
     p.add_argument("--device", default="cuda", help="torch device to train on")
     return p
 
@@ -157,7 +158,6 @@ def _run_orced_chunk(base_cfg, cfgs, chunk_data, device, mesh=None) -> None:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = _parser().parse_args(argv)
-    check_ported(args)
     base_cfg = default_config(
         DATA_PATH=args.data_path,
         GEN_DATA_PATH=args.gen_data_path,

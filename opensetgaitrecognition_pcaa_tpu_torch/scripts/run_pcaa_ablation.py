@@ -37,10 +37,10 @@ the time one card takes for them.
         --data-path RAW_TRACKS --grid [--grid-runs-per-device 2] [--device cuda]
 
 The flags are the JAX driver's, plus ``--device`` (default ``cuda``).
-``--compute-dtype bfloat16`` and ``--bf16-adam-nu`` train as the JAX
-driver's do (bf16 compute, bf16 Adam moments), in both modes;
-``--bf16-weight-cache`` is not ported and raises ``NotImplementedError``.
-The CUDA training kernels are switched by the base configuration's
+``--compute-dtype bfloat16``, ``--bf16-adam-nu`` and
+``--bf16-weight-cache`` train as the JAX driver's do (bf16 compute, bf16
+Adam moments, bf16 copies of the decoder's weights), in both modes; the
+last needs the first, or the build refuses the run, as in JAX. The CUDA training kernels are switched by the base configuration's
 ``FUSED_POINTNET``/``FUSED_ADAM``, whose defaults are off as in the JAX
 package: a caller replaces this module's ``default_config`` to turn them
 on.
@@ -106,7 +106,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--bf16-adam-nu", action="store_true",
                    help="store Adam second moments in bf16")
     p.add_argument("--bf16-weight-cache", action="store_true",
-                   help="bf16 copies of the decoder kernels (not ported)")
+                   help="bf16 copies of the decoder kernels, refreshed by the Adam write; "
+                   "the same bits as without it; requires --compute-dtype bfloat16")
     p.add_argument("--grid", action="store_true",
                    help="train all splits of a (variant, openness) cell as grids over the "
                    "cards (parallel/grid.py) instead of one after another")
@@ -114,23 +115,15 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
-def check_ported(args: argparse.Namespace) -> None:
-    """Raise ``NotImplementedError`` for the JAX driver option that the
-    port does not have, ``--bf16-weight-cache``."""
-    if args.bf16_weight_cache:
-        raise NotImplementedError(
-            "--bf16-weight-cache is not ported: ROADMAP.md Queue 1 item 14 (bit-identical "
-            "to --compute-dtype bfloat16 without it)"
-        )
-
-
 def apply_precision_flags(cfg, args: argparse.Namespace):
-    """``cfg`` with ``--compute-dtype`` and ``--bf16-adam-nu`` applied, as
-    the JAX drivers apply them."""
+    """``cfg`` with ``--compute-dtype``, ``--bf16-adam-nu`` and
+    ``--bf16-weight-cache`` applied, as the JAX drivers apply them."""
     if args.compute_dtype:
         cfg = cfg.replace(COMPUTE_DTYPE=args.compute_dtype)
     if args.bf16_adam_nu:
         cfg = cfg.replace(BF16_ADAM_NU=True)
+    if args.bf16_weight_cache:
+        cfg = cfg.replace(BF16_WEIGHT_CACHE=True)
     return cfg
 
 
@@ -244,7 +237,6 @@ def run_grid_chunk(args: argparse.Namespace, cfgs, variation: VARIATION, data,
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = _parser().parse_args(argv)
-    check_ported(args)
     variations = [VARIATION(v) for v in args.variants]
 
     base_cfg = default_config(

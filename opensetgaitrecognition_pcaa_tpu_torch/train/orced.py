@@ -38,7 +38,12 @@ semantics of the JAX trainer:
   decoder in bf16 (``models/layers.py``) and stores Adam's first moments
   in bf16, ``BF16_ADAM_NU`` the second moments too, with JAX
   ``build_orced``'s optimizer: ``optax.adam(mu_dtype)`` without
-  ``BF16_ADAM_NU``, ``adam_lowmem`` with it, both with ``b2 = B1``.
+  ``BF16_ADAM_NU``, ``adam_lowmem`` with it, ``adam_factored`` with
+  ``FACTORED_ADAM_NU`` (``train/optim.py``), all with ``b2 = B1``;
+  ``BF16_WEIGHT_CACHE`` (bf16 compute only) runs the decoder on bf16
+  copies of its weights, refreshed after each Adam step and rebuilt after
+  a restore or sharding, as ``train/pcaa.py`` does: the same bits as
+  without it.
 
 - ``DP_DEVICES × MP_DEVICES > 1`` trains one run over that many ranks,
   as ``train/pcaa.py`` does and JAX ``train_orced`` (``:429-486``): each
@@ -50,8 +55,7 @@ semantics of the JAX trainer:
 
 Modules, parameters, running statistics and Adam moments are updated in
 place. ``FUSED_ADAM`` and ``DEFERRED_DECODER_UPDATE`` are PCAA-only and
-raise ``ValueError`` as in the JAX package; ``FACTORED_ADAM_NU`` and
-``BF16_WEIGHT_CACHE`` are TPU-only and raise ``NotImplementedError``.
+raise ``ValueError`` as in the JAX package.
 """
 
 from __future__ import annotations
@@ -89,16 +93,19 @@ from opensetgaitrecognition_pcaa_tpu_torch.train.pcaa import (
     _payload_from_arrays,
     _stack,
     adam_dtypes,
-    check_unported,
+    check_weight_cache,
     compute_dtype,
     full_payload,
     full_resume_tree,
     global_metrics,
     mesh_grads,
+    model_row_sum,
     place_state,
+    refresh_cache_,
     restore_resume_tree,
     rows_of,
     run_mesh,
+    weight_cache,
 )
 from opensetgaitrecognition_pcaa_tpu_torch.train.run_folder import (
     load_best_payload,
@@ -117,7 +124,7 @@ def _check_supported(cfg: Config) -> None:
     for flag in ("FUSED_ADAM", "DEFERRED_DECODER_UPDATE"):
         if getattr(cfg, flag):
             raise ValueError(f"Config.{flag} is PCAA-only; unset it for ORCED runs")
-    check_unported(cfg)
+    check_weight_cache(cfg)
 
 
 class ORCEDModules(nn.Module):
@@ -142,16 +149,21 @@ class ORCEDModules(nn.Module):
 class ORCEDState:
     opt: AdamState
     generator: torch.Generator  # the reparametrization noise when none is injected
+    # BF16_WEIGHT_CACHE: the decoder's bf16 weight copies by name in the
+    # modules (train/pcaa.py::weight_cache); empty when the option is off
+    cast: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
 
 def build_orced(cfg: Config, *, device: Device = "cuda") -> Tuple[ORCEDModules, ORCEDState]:
-    """Modules with torch's default init drawn from ``cfg.SEED`` and a zero
-    Adam state, on ``device``."""
+    """Modules with torch's default init drawn from ``cfg.SEED``, a zero
+    Adam state and, with ``BF16_WEIGHT_CACHE``, the decoder's weight
+    copies, on ``device``."""
     _check_supported(cfg)
     mods = ORCEDModules(cfg, torch.Generator().manual_seed(cfg.SEED)).to(device)
     noise = torch.Generator(device=device).manual_seed(cfg.SEED + 1)
     opt = adam_init(mods.named_parameters(), **adam_dtypes(cfg))
-    return mods, ORCEDState(opt=opt, generator=noise)
+    cast = weight_cache(mods) if cfg.BF16_WEIGHT_CACHE else {}
+    return mods, ORCEDState(opt=opt, generator=noise, cast=cast)
 
 
 def make_orced_train_step(mods: ORCEDModules, cfg: Config, mesh: Optional[Mesh] = None):
@@ -161,6 +173,7 @@ def make_orced_train_step(mods: ORCEDModules, cfg: Config, mesh: Optional[Mesh] 
     n = cfg.n_classes
     params = dict(mods.named_parameters())
     specs = None if mesh is None else module_specs(mods)
+    row_sum = model_row_sum(specs, mesh)
     # reference quirk: betas=(B1, B1)
     adam = dict(lr=cfg.LR, b1=cfg.B1, b2=cfg.B1)
 
@@ -182,7 +195,11 @@ def make_orced_train_step(mods: ORCEDModules, cfg: Config, mesh: Optional[Mesh] 
         )
         kl_loss = cfg.KL_W * cg_kl_divergence(mu, logvar, mu_gts) * kl_mult
         tot_loss = rec_loss + sup_loss + trip_loss + kl_loss
-        adam_update_(state.opt, params, mesh_grads(tot_loss, params, specs, mesh), **adam)
+        # a cached decoder weight takes its gradient through its bf16 copy
+        targets = {k: state.cast.get(k, p) for k, p in params.items()}
+        adam_update_(state.opt, params, mesh_grads(tot_loss, targets, specs, mesh), **adam,
+                     row_sum=row_sum)
+        refresh_cache_(state.cast, params)
         metrics = {
             "rec_loss": rec_loss.detach(),
             "sup_loss": sup_loss.detach(),
@@ -320,6 +337,8 @@ def train_orced(
         if verbose and lead:
             print(f"[{name}] resuming from epoch {start_epoch}")
     specs = place_state(mods, opts, mesh, cfg.MP_MIN_DIM)
+    if cfg.BF16_WEIGHT_CACHE:  # the copies of the restored, placed masters
+        state.cast = weight_cache(mods)
     train_epoch, valid_epoch = make_orced_epoch_fns(mods, cfg, mesh)
 
     n_train = x_train.shape[0]

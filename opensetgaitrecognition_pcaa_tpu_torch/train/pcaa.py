@@ -57,10 +57,30 @@ loop runs an eager step. Kept semantics of the JAX step:
   folder, from gathered full trees, so its files are a single-device
   run's.
 
+- ``FACTORED_ADAM_NU`` takes JAX ``adam_factored`` for both Adam states
+  (``train/optim.py``: a rank-1 second moment on 2-D leaves of at least
+  2^20 elements, mu in bf16 under bf16 compute, ``BF16_ADAM_NU`` not
+  read), and refuses ``FUSED_ADAM`` as JAX does.
+- ``DEFERRED_DECODER_UPDATE`` (JAX ``_deferred_decoder_write``): a step
+  updates the decoder's moments but not its parameters; the pending write
+  is applied from the stored moments at the top of the next step of the
+  epoch, and once more after the epoch's last step (the flush), so that
+  the state at each epoch's end, which validation, checkpoints and resume
+  see, is the plain schedule's. At f32 moments the parameters are the
+  plain schedule's bits; at bf16 moments the write reads the stored,
+  rounded moments, as in JAX. It needs a decoder, and excludes
+  ``FUSED_ADAM`` and ``FACTORED_ADAM_NU``, as in JAX.
+- ``BF16_WEIGHT_CACHE`` (bf16 compute only; JAX ``cast_g``): bf16 copies
+  of the decoder's 2-D weights (not its biases, not the decoder head),
+  which the decoder's bf16 layers read instead of rounding the f32
+  masters (``models/layers.py``), so that the G loss's gradients land on
+  the copies, in bf16, and are upcast; the copies are refreshed by the G
+  Adam write (``FUSED_ADAM``: by the kernel, ``ops/adam.py``) or by the
+  deferred write, and rebuilt from the masters after a resume restore and
+  after sharding. Cache on and off give the same bits.
+
 Modules, parameters, running statistics and Adam moments are updated in
-place. Three TPU-only options raise ``NotImplementedError``
-(``FACTORED_ADAM_NU``, ``DEFERRED_DECODER_UPDATE``,
-``BF16_WEIGHT_CACHE``; ROADMAP.md Queue 1 item 14).
+place.
 """
 
 from __future__ import annotations
@@ -82,6 +102,7 @@ from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import (
     epoch_batch_indices,
 )
 from opensetgaitrecognition_pcaa_tpu_torch.infer.common import ieee_f32
+from opensetgaitrecognition_pcaa_tpu_torch.models.layers import TorchDense
 from opensetgaitrecognition_pcaa_tpu_torch.models.mean_learner import GaussianMeanLearner
 from opensetgaitrecognition_pcaa_tpu_torch.models.pcaa import (
     CGDecoder,
@@ -108,10 +129,12 @@ from opensetgaitrecognition_pcaa_tpu_torch.parallel.mesh import (
 from opensetgaitrecognition_pcaa_tpu_torch.train.fused_encoder import fused_train_encoder_apply
 from opensetgaitrecognition_pcaa_tpu_torch.train.metrics import MetricLogger
 from opensetgaitrecognition_pcaa_tpu_torch.train.optim import (
+    FACTORED_MIN_ELEMS,
     AdamState,
     adam_init,
     adam_state_tree,
     adam_update_,
+    adam_write_,
     load_adam_state_tree,
     load_tensors_,
 )
@@ -150,12 +173,43 @@ VARIANTS: Dict[VARIATION, VariantSpec] = {
 }
 
 
-def check_unported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` on the two TPU-only optimizer and
-    weight options, which neither trainer of the port has."""
-    for flag in ("FACTORED_ADAM_NU", "BF16_WEIGHT_CACHE"):
-        if getattr(cfg, flag):
-            raise NotImplementedError(f"{flag} is not ported (ROADMAP.md Queue 1 item 14)")
+def check_weight_cache(cfg: Config) -> None:
+    """``ValueError`` with JAX's words where ``BF16_WEIGHT_CACHE`` meets
+    f32 compute."""
+    if cfg.BF16_WEIGHT_CACHE and cfg.COMPUTE_DTYPE != "bfloat16":
+        raise ValueError("BF16_WEIGHT_CACHE is a bf16-compute traffic optimization; under f32 "
+                         "compute it would CHANGE numerics, not just traffic")
+
+
+def weight_cache(modules: nn.Module) -> Dict[str, torch.Tensor]:
+    """``BF16_WEIGHT_CACHE``: a bf16 copy of the weight of each dense layer
+    of the ``decoder`` in ``modules`` (its 2-D weights; biases stay f32
+    masters), set as the layer's ``weight_bf16`` so that the layer reads it
+    (``models/layers.py``), taking gradients → the copies by parameter name
+    in ``modules``. Called again after the weights were restored or
+    sharded, it makes the copies anew from them."""
+    cache = {}
+    for name, layer in modules.named_modules():
+        if isinstance(layer, TorchDense) and name.startswith("decoder."):
+            layer.weight_bf16 = layer.weight.detach().to(torch.bfloat16).requires_grad_()
+            cache[name + ".weight"] = layer.weight_bf16
+    return cache
+
+
+@torch.no_grad()
+def refresh_cache_(cache: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor]) -> None:
+    """Round each parameter that ``cache`` copies into its copy, in place."""
+    for name, w16 in cache.items():
+        w16.copy_(params[name])
+
+
+def model_row_sum(specs: Optional[Dict], mesh: Optional[Mesh]):
+    """``adam_update_``'s ``row_sum`` for a run on ``mesh``: the partial
+    sums over the output axis of a factored leaf that the model group
+    shards, summed over that group; None without a mesh."""
+    if mesh is None:
+        return None
+    return lambda name, rows: rows if specs.get(name) is None else mesh.sum_model(rows)
 
 
 def run_mesh(cfg: Config) -> Optional[Mesh]:
@@ -203,19 +257,32 @@ def adam_dtypes(cfg: Config) -> Dict:
     ``build_pcaa``/``build_orced`` choose them: mu bf16 under bf16 compute,
     nu bf16 with ``BF16_ADAM_NU``, and ``optax.adam``'s b1 rounding where
     the JAX package takes ``optax.adam`` (neither ``BF16_ADAM_NU`` nor
-    ``FUSED_ADAM``)."""
+    ``FUSED_ADAM``); with ``FACTORED_ADAM_NU``, ``adam_factored``'s state
+    (mu bf16 under bf16 compute, nu f32 or factored)."""
+    if cfg.FACTORED_ADAM_NU:
+        return dict(mu_dtype=compute_dtype(cfg), factored_min_elems=FACTORED_MIN_ELEMS)
     return dict(mu_dtype=compute_dtype(cfg),
                 nu_dtype=torch.bfloat16 if cfg.BF16_ADAM_NU else torch.float32,
                 optax_mu=not (cfg.BF16_ADAM_NU or cfg.FUSED_ADAM))
 
 
 def _check_supported(cfg: Config, spec: VariantSpec) -> None:
+    """JAX ``build_pcaa``'s refusals, with its words."""
     if spec.use_disc_head and spec.name != "V4":
         raise ValueError(f"variant {spec.name}: the discriminator projection head is V4-only")
+    if cfg.FACTORED_ADAM_NU and cfg.FUSED_ADAM:
+        raise ValueError("FACTORED_ADAM_NU and FUSED_ADAM are exclusive")
     if cfg.DEFERRED_DECODER_UPDATE:
-        raise NotImplementedError(
-            "DEFERRED_DECODER_UPDATE is not ported (ROADMAP.md Queue 1 item 14)")
-    check_unported(cfg)
+        if not spec.use_decoder:
+            raise ValueError("DEFERRED_DECODER_UPDATE targets the decoder")
+        if cfg.FUSED_ADAM or cfg.FACTORED_ADAM_NU:
+            raise ValueError(
+                "DEFERRED_DECODER_UPDATE recomputes the write from the stored (count, mu, nu) "
+                "moments — the fused kernel writes params inside its own pass and the factored "
+                "state has no per-element nu to recompute from")
+    check_weight_cache(cfg)
+    if cfg.BF16_WEIGHT_CACHE and not spec.use_decoder:
+        raise ValueError("BF16_WEIGHT_CACHE targets the decoder")
 
 
 class PCAAModules(nn.Module):
@@ -263,12 +330,16 @@ class PCAAState:
     opt_d: AdamState
     centroids: torch.Tensor  # (n_classes, latent) fixed prior means; V1 ignores them
     generator: torch.Generator  # the step's noise when none is injected
+    # BF16_WEIGHT_CACHE: the decoder's bf16 weight copies by name in mods.g
+    # (weight_cache); empty when the option is off
+    cast_g: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
 
 def build_pcaa(cfg: Config, spec: VariantSpec, *,
                device: Device = "cuda") -> Tuple[PCAAModules, PCAAState]:
     """Modules with torch's default init drawn from ``cfg.SEED``, zero Adam
-    states and the fixed centroids, on ``device``."""
+    states, the fixed centroids and, with ``BF16_WEIGHT_CACHE``, the
+    decoder's weight copies, on ``device``."""
     _check_supported(cfg, spec)
     mods = PCAAModules(cfg, spec, torch.Generator().manual_seed(cfg.SEED)).to(device)
     # fixed prior centroids (reference utils.py:216-251, seed 42)
@@ -281,6 +352,7 @@ def build_pcaa(cfg: Config, spec: VariantSpec, *,
         opt_d=adam_init(mods.d.named_parameters(), **adam_dtypes(cfg)),
         centroids=torch.from_numpy(centroids).to(device),
         generator=noise,
+        cast_g=weight_cache(mods.g) if cfg.BF16_WEIGHT_CACHE else {},
     )
     return mods, state
 
@@ -313,15 +385,29 @@ def mesh_grads(loss: torch.Tensor, params: Dict[str, torch.Tensor], specs,
     the gradients are of its share, 1/(DP × MP) of it: the shares of the
     ranks sum to the global loss (``parallel/mesh.py``). They are then
     summed over the ranks that hold each leaf (``reduce_grads`` with
-    ``specs``)."""
+    ``specs``). The gradient of a bf16 leaf (a ``weight_cache`` copy) is
+    upcast to f32 first: its master's gradient."""
     if mesh is not None:
         loss = loss / (mesh.dp * mesh.mp)
     grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True,
                                 materialize_grads=True)
-    grads = dict(zip(params, grads))
+    grads = {k: g.float() for k, g in zip(params, grads)}
     if mesh is not None:
         reduce_grads(grads, specs, mesh)
     return grads
+
+
+def decoder_params(mods: PCAAModules) -> Dict[str, torch.Tensor]:
+    """The decoder's parameters by name in ``mods.g``."""
+    return {k: p for k, p in mods.g.named_parameters() if k.startswith("decoder.")}
+
+
+def deferred_write_(cfg: Config, dec_params: Dict[str, torch.Tensor], state: PCAAState) -> None:
+    """``DEFERRED_DECODER_UPDATE``: apply the pending decoder write from
+    the stored moments (``train/optim.py::adam_write_``) and refresh the
+    weight cache from it."""
+    adam_write_(state.opt_g, dec_params, lr=cfg.LR, b1=cfg.B1, b2=cfg.B2)
+    refresh_cache_(state.cast_g, dec_params)
 
 
 def make_train_step(mods: PCAAModules, cfg: Config, mesh: Optional[Mesh] = None):
@@ -331,7 +417,9 @@ def make_train_step(mods: PCAAModules, cfg: Config, mesh: Optional[Mesh] = None)
     shard_modules``), ``pcs``, ``labels`` and an ``inject`` hold this data
     rank's rows of the global batch, the gradients are of the rank's share
     of the loss (``mesh_grads``), summed over the ranks that hold each leaf,
-    and the metrics are global."""
+    and the metrics are global. With ``DEFERRED_DECODER_UPDATE`` a step
+    whose ``step_idx`` is above 0 first applies the previous step's decoder
+    write; the epoch's caller flushes the last one (``deferred_write_``)."""
     ieee_f32()
     spec = mods.spec
     n = cfg.n_classes
@@ -342,6 +430,8 @@ def make_train_step(mods: PCAAModules, cfg: Config, mesh: Optional[Mesh] = None)
     mean_learner = mods.ml["mean_learner"] if spec.learned_centroids else None
     g_params = dict(mods.g.named_parameters())
     d_params = dict(mods.d.named_parameters())
+    dec_params = decoder_params(mods)
+    deferred = cfg.DEFERRED_DECODER_UPDATE
     adam = dict(lr=cfg.LR, b1=cfg.B1, b2=cfg.B2)
     store_dtype = compute_dtype(cfg)
     g_specs = d_specs = g_shapes = None
@@ -349,12 +439,17 @@ def make_train_step(mods: PCAAModules, cfg: Config, mesh: Optional[Mesh] = None)
         specs = module_specs(mods)
         g_specs, d_specs = sub_specs(specs, "g."), sub_specs(specs, "d.")
         g_shapes = global_shapes(g_params, g_specs, mesh)
+    g_row_sum, d_row_sum = model_row_sum(g_specs, mesh), model_row_sum(d_specs, mesh)
 
     def step(state: PCAAState, pcs: torch.Tensor, labels: torch.Tensor, step_idx: int,
              inject: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
         mods.train()
         batch = pcs.shape[0]
         oh = F.one_hot(labels.long(), n).float()
+        if deferred and step_idx > 0:
+            # the previous step's decoder write; the epoch's first step has
+            # none pending (the flush after the last epoch's last step)
+            deferred_write_(cfg, dec_params, state)
 
         # --- ONE train-mode encoder forward for the whole step -------------
         if cfg.FUSED_POINTNET:
@@ -390,7 +485,8 @@ def make_train_step(mods: PCAAModules, cfg: Config, mesh: Optional[Mesh] = None)
         d_loss = torch.mean(fake_logits) - torch.mean(real_logits) + cfg.GP_WEIGHT * gp
         # the DPH gets no gradient (every path into it is detached): zeros,
         # which Adam steps with, so it stays at its init, as in the JAX package
-        adam_update_(state.opt_d, d_params, mesh_grads(d_loss, d_params, d_specs, mesh), **adam)
+        adam_update_(state.opt_d, d_params, mesh_grads(d_loss, d_params, d_specs, mesh), **adam,
+                     row_sum=d_row_sum)
 
         # --- generator step: critic with the updated D parameters -----------
         rec_loss = _rec_loss(mods, fv, pcs)
@@ -400,14 +496,20 @@ def make_train_step(mods: PCAAModules, cfg: Config, mesh: Optional[Mesh] = None)
         if step_idx % cfg.SUPERVISION_FREQUENCY == 0:
             tot_loss = tot_loss + sup_loss
         # the classifier head gets no gradient on unsupervised batches:
-        # zeros, which Adam still steps with, as in the JAX package
-        g_grads = mesh_grads(tot_loss, g_params, g_specs, mesh)
+        # zeros, which Adam still steps with, as in the JAX package; a cached
+        # decoder weight takes its gradient through its bf16 copy
+        targets = {k: state.cast_g.get(k, p) for k, p in g_params.items()}
+        g_grads = mesh_grads(tot_loss, targets, g_specs, mesh)
         if cfg.FUSED_ADAM:
             opt = state.opt_g
             opt.count = fused_adam_tree_update(g_grads, opt.count, opt.mu, opt.nu, g_params,
-                                               global_shapes=g_shapes, **adam)
+                                               global_shapes=g_shapes, cache=state.cast_g,
+                                               **adam)
         else:
-            adam_update_(state.opt_g, g_params, g_grads, **adam)
+            adam_update_(state.opt_g, g_params, g_grads, **adam, row_sum=g_row_sum,
+                         skip_write=dec_params if deferred else ())
+            if not deferred:  # deferred: the copies follow the write
+                refresh_cache_(state.cast_g, g_params)
 
         metrics = {
             "rec_loss": rec_loss.detach(),
@@ -435,9 +537,12 @@ def make_epoch_fns(mods: PCAAModules, cfg: Config, mesh: Optional[Mesh] = None):
     """→ ``(train_epoch, valid_epoch)``: Python loops over the batches that
     a ``(steps, B)`` index matrix picks from device-resident splits. With
     ``mesh`` each rank takes its rows of every batch (and of replayed
-    noise) and the metrics are global (``make_train_step``)."""
+    noise) and the metrics are global (``make_train_step``). With
+    ``DEFERRED_DECODER_UPDATE`` an epoch ends with the flush of the last
+    pending decoder write."""
     train_step = make_train_step(mods, cfg, mesh)
     encoder = mods.g["encoder"]
+    dec_params = decoder_params(mods)
 
     def train_epoch(state: PCAAState, x_all, y_all, perm, noise=None):
         """``noise`` (optional): ``(z0 (steps, B, latent), alphas (steps, B, 1))``
@@ -451,6 +556,8 @@ def make_epoch_fns(mods: PCAAModules, cfg: Config, mesh: Optional[Mesh] = None):
             inject = None if noise is None else (noise[0][i], noise[1][i])
             state, m = train_step(state, x_all[idx], y_all[idx], i, inject)
             out.append(m)
+        if cfg.DEFERRED_DECODER_UPDATE:
+            deferred_write_(cfg, dec_params, state)
         return state, _stack(out)
 
     @torch.no_grad()
@@ -665,6 +772,8 @@ def train_pcaa(
             print(f"[{name}] resuming from epoch {start_epoch}")
     # JAX shards after the restore too (train/pcaa.py:904-911)
     specs = place_state(mods, opts, mesh, cfg.MP_MIN_DIM)
+    if cfg.BF16_WEIGHT_CACHE:  # the copies of the restored, placed masters
+        state.cast_g = weight_cache(mods.g)
     train_epoch, valid_epoch = make_epoch_fns(mods, cfg, mesh)
 
     n_train = x_train.shape[0]

@@ -1,4 +1,4 @@
-"""Utilities; the JAX package's ``profiling`` and ``debug`` are TPU tools
-with no counterpart here."""
+"""Utilities: plotting, profiling (``profiling.trace``, ``StepTimer``) and
+debugging (``debug.enable_nan_checks``)."""
 
 from opensetgaitrecognition_pcaa_tpu_torch.utils.plotting import plot_pointcloud  # noqa: F401

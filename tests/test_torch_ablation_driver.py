@@ -5,9 +5,11 @@ mode of ``opensetgaitrecognition_pcaa_tpu_torch/scripts/run_pcaa_ablation.py``
 on the CPU: a fresh call trains V1-V4 on one 2-class subset of a
 10-subject synthetic raw set; a second call skips all four runs without
 writing the splits again, in under ``max(5 s, fresh / 5)``.
-``--bf16-weight-cache`` raises ``NotImplementedError`` in either mode
+``--bf16-weight-cache`` without ``--compute-dtype bfloat16`` fails on the
+build's bf16 requirement, as the JAX driver does, in either mode
 (``--grid`` is held against the JAX driver in
-``tests/test_torch_grid_drivers.py``).
+``tests/test_torch_grid_drivers.py``; the flag at bf16 trains in
+``tests/test_torch_bf16_drivers.py``).
 """
 
 import json
@@ -116,15 +118,23 @@ def test_class_subsets_equal_the_jax_driver_s():
 
 @pytest.mark.parametrize(
     "extra,match",
-    [(["--grid", "--bf16-weight-cache"], "item 14"), (["--bf16-weight-cache"], "item 14")],
+    [(["--grid", "--bf16-weight-cache"], "would CHANGE numerics"),
+     (["--bf16-weight-cache"], "would CHANGE numerics")],
     ids=["grid", "bf16_weight_cache"],
 )
-def test_unported_modes_raise(tmp_path, extra, match):
-    """``--bf16-weight-cache`` raises before any split is written, in the
-    sequential and the ``--grid`` mode."""
-    with pytest.raises(NotImplementedError, match=match):
-        rpa.main(_argv(str(tmp_path / "raw"), str(tmp_path), *extra))
-    assert not os.path.exists(tmp_path / "gen")
+def test_unported_modes_raise(raw10, tmp_path, monkeypatch, extra, match):
+    """``--bf16-weight-cache`` at f32 compute: the run fails on the build's
+    bf16 requirement (JAX ``build_pcaa``'s refusal), in the sequential and
+    the ``--grid`` mode, after the splits are written, as in JAX, and
+    before any run folder is."""
+    monkeypatch.setattr(rpa, "default_config", tiny_default_config)
+    with pytest.raises(ValueError, match=match):
+        rpa.main(_argv(raw10, str(tmp_path), "--variants", "V4", *extra))
+    gen = [d for d in os.listdir(tmp_path) if d.startswith("gen")]
+    assert gen and all(os.listdir(tmp_path / d) for d in gen)
+    models = tmp_path / "models"
+    assert not models.exists() or not any(
+        os.path.exists(models / run / "run_complete.json") for run in os.listdir(models))
 
 
 def test_runs_as_a_module():

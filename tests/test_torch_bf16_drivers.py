@@ -4,9 +4,10 @@ drivers' calls with the same flags, configurations included, and
 ``--grid`` hands ``run_grid_mode`` the configuration with the flags
 applied; a bf16 ablation trains end to end at tiny dims on the CPU and
 writes f32 module files that the port's inference reads;
-``--bf16-weight-cache`` still raises ``NotImplementedError`` (ROADMAP.md
-Queue 1 item 14) for both drivers, with and without ``--grid``, before any
-split is written.
+``--bf16-weight-cache`` with ``--compute-dtype bfloat16`` trains in both
+drivers and both modes, and its module files are bitwise those of the
+same call without the flag (the cache changes no bit), while without
+``--compute-dtype bfloat16`` the build refuses it, as in JAX.
 """
 
 import os
@@ -55,18 +56,59 @@ def test_bf16_flags_make_the_jax_driver_s_calls(driver, flags, tmp_path, monkeyp
                for c in configs)
 
 
-@pytest.mark.parametrize("extra,match", [(["--grid", "--bf16-weight-cache"], "item 14"),
-                                         (["--bf16-weight-cache"], "item 14"),
+def _module_files(models: str) -> dict:
+    """{run/file: bytes} of the module files under a models path."""
+    out = {}
+    for run in sorted(os.listdir(models)):
+        for f in sorted(os.listdir(os.path.join(models, run))):
+            if f.endswith(".msgpack"):
+                with open(os.path.join(models, run, f), "rb") as fh:
+                    out[f"{run}/{f}"] = fh.read()
+    return out
+
+
+@pytest.mark.parametrize("extra,match", [(["--grid", "--bf16-weight-cache"],
+                                          "would CHANGE numerics"),
+                                         (["--bf16-weight-cache"], "would CHANGE numerics"),
                                          (["--compute-dtype", "bfloat16", "--bf16-weight-cache"],
-                                          "item 14")],
-                         ids=["grid", "bf16_weight_cache", "bf16_with_cache"])
+                                          None),
+                                         (["--grid", "--compute-dtype", "bfloat16",
+                                           "--bf16-weight-cache"], None)],
+                         ids=["grid", "bf16_weight_cache", "bf16_with_cache", "grid_bf16_with_cache"])
 @pytest.mark.parametrize("driver", list(DRIVERS))
-def test_unported_modes_still_raise(driver, extra, match, tmp_path):
+def test_unported_modes_still_raise(driver, extra, match, raw10, tmp_path,  # noqa: F811
+                                    monkeypatch):
+    """``--bf16-weight-cache``: at f32 compute the build refuses it with JAX's
+    words (after the splits are written, as in JAX); at bf16 one V4 (or
+    ORCED) run of 1 epoch at tiny dims trains, sequentially or as a grid,
+    and its module files are bitwise those of the same call without the
+    flag."""
     module = DRIVERS[driver][1]
-    with pytest.raises(NotImplementedError, match=match):
-        module.main(["--data-path", str(tmp_path / "raw"), "--gen-data-path",
-                     str(tmp_path / "gen"), "--models-path", str(tmp_path / "m"), *extra])
-    assert not os.path.exists(tmp_path / "gen")
+    monkeypatch.setattr(module, "default_config",
+                        lambda **kw: Config(TRAIN_CLASSES=(0, 1), **{**TINY, **kw}))
+
+    def argv(models, flags):
+        out = ["--data-path", raw10, "--gen-data-path", str(tmp_path / "gen"),
+               "--models-path", str(tmp_path / models), "--n-training-classes", "2",
+               "--n-tests", "1", "--epochs", "1", "--device", "cpu", *flags]
+        return out + (["--variants", "V4"] if driver == "run_pcaa_ablation" else [])
+
+    if match is not None:
+        with pytest.raises(ValueError, match=match):
+            module.main(argv("m", extra))
+        assert not os.path.exists(tmp_path / "m") or not any(
+            os.path.exists(tmp_path / "m" / run / "run_complete.json")
+            for run in os.listdir(tmp_path / "m"))
+        return
+    module.main(argv("on", extra))
+    module.main(argv("off", [f for f in extra if f != "--bf16-weight-cache"]))
+    on, off = _module_files(str(tmp_path / "on")), _module_files(str(tmp_path / "off"))
+    assert on and on.keys() == off.keys()
+    for f in on:
+        assert on[f] == off[f], f
+    run = sorted(os.listdir(tmp_path / "on"))[0]
+    cfg = Config.load(os.path.join(tmp_path / "on", run, "config.json"))
+    assert cfg.BF16_WEIGHT_CACHE and cfg.COMPUTE_DTYPE == "bfloat16"
 
 
 @pytest.mark.parametrize("flags", [["--compute-dtype", "bfloat16", "--bf16-adam-nu"],

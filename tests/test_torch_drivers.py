@@ -353,15 +353,24 @@ def test_collect_results_equals_the_root_one(tmp_path):
 
 @pytest.mark.parametrize(
     "extra,match",
-    [(["--grid", "--bf16-weight-cache"], "item 14"), (["--bf16-weight-cache"], "item 14")],
+    [(["--grid", "--bf16-weight-cache"], "would CHANGE numerics"),
+     (["--bf16-weight-cache"], "would CHANGE numerics")],
     ids=["grid", "bf16_weight_cache"],
 )
-def test_run_orced_unported_modes_raise(tmp_path, extra, match):
-    """``--bf16-weight-cache`` raises before any split is written, in the
-    sequential and the ``--grid`` mode."""
-    with pytest.raises(NotImplementedError, match=match):
-        run_orced.main(_argv(str(tmp_path / "raw"), str(tmp_path), *extra))
-    assert not os.path.exists(tmp_path / "gen")
+def test_run_orced_unported_modes_raise(raw10, tmp_path, monkeypatch, extra, match):
+    """``--bf16-weight-cache`` at f32 compute: the run fails on the build's
+    bf16 requirement (JAX ``build_orced``'s refusal), in the sequential and
+    the ``--grid`` mode, after the splits are written, as in JAX, and
+    before any run folder is (the flag at bf16 trains in
+    ``tests/test_torch_bf16_drivers.py``)."""
+    monkeypatch.setattr(run_orced, "default_config", tiny_default_config)
+    with pytest.raises(ValueError, match=match):
+        run_orced.main(_argv(raw10, str(tmp_path), *extra))
+    gen = [d for d in os.listdir(tmp_path) if d.startswith("gen")]
+    assert gen and all(os.listdir(tmp_path / d) for d in gen)
+    models = tmp_path / "models"
+    assert not models.exists() or not any(
+        os.path.exists(models / run / "run_complete.json") for run in os.listdir(models))
 
 
 @pytest.mark.parametrize("module", ["run_orced", "run_pointsubsampling",

@@ -157,7 +157,8 @@ def test_lockstep_check_raises_the_jax_message(tmp_path, field, value):
 @pytest.mark.parametrize("trainer", ["pcaa", "orced"])
 def test_trainers_check_before_building(tmp_path, arrays, trainer):
     """Mismatched shapes and hyperparameters, a valid split below one batch,
-    an empty mesh (a list of devices) and DEFERRED_DECODER_UPDATE raise, as
+    an empty mesh (a list of devices) and DEFERRED_DECODER_UPDATE (with the
+    JAX grid's words: a solo-trainer schedule) raise, as
     tests/test_grid.py::test_orced_grid_rejects_mismatched_shapes holds the
     JAX trainers."""
     x_t, y_t, x_v, y_v = arrays
@@ -179,7 +180,8 @@ def test_trainers_check_before_building(tmp_path, arrays, trainer):
     with pytest.raises(ValueError, match="list of devices; it is empty"):
         make(cfgs, mesh=[])
     if trainer == "pcaa":
-        with pytest.raises(NotImplementedError, match="DEFERRED_DECODER_UPDATE.*item 14"):
+        with pytest.raises(AssertionError, match="DEFERRED_DECODER_UPDATE is a solo-trainer "
+                                                 "schedule"):
             make([c.replace(DEFERRED_DECODER_UPDATE=True) for c in cfgs])
 
 

@@ -574,6 +574,76 @@ def test_adam_raises_instead_of_falling_back():
         adam.adam_update_(g, w, m.cpu(), v, **coeffs)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("moments", ["m16", "mv16"])
+@pytest.mark.parametrize("shape", [(136, 648), (1001, 3), (2048, 1025)],
+                         ids=["leaf_136x648", "ragged_tail3", "big"])
+def test_adam_kernel_writes_the_bf16_copy_bitwise(moments, shape):
+    """The variants of bf16 compute with the copy of w
+    (``BF16_WEIGHT_CACHE``): w, m, v and the copy the plain version's bits,
+    the copy w rounded to bf16; each launch counted."""
+    _needs_card()
+    s1, s2 = adam.adam_scalars(3, 1e-4, 0.9, 0.99)
+    coeffs = dict(s1=s1, s2=s2, b1=0.9, b2=0.99, eps=1e-8)
+    got = _adam_leaf(np.random.default_rng(7), shape)
+    got[2] = got[2].to(BF16)
+    if moments == "mv16":
+        got[3] = got[3].to(BF16)
+    got.append(torch.zeros(shape, device="cuda", dtype=BF16))
+    want = [t.clone() for t in got]
+    counter = f"launches_{moments}_w16"
+    before = getattr(adam.adam_update_, counter)
+    for _ in range(3):
+        adam.adam_update_(*got[:4], w16=got[4], **coeffs)
+        adam.adam_update_ref_(*want[:4], w16=want[4], **coeffs)
+    torch.cuda.synchronize()
+    assert getattr(adam.adam_update_, counter) == before + 3
+    for g, wt in zip(got[1:], want[1:]):
+        assert g.dtype == wt.dtype and torch.equal(g, wt)
+    assert torch.equal(got[4], got[1].to(BF16))
+
+
+@pytest.mark.gpu
+def test_adam_copy_is_refused_where_no_kernel_writes_it():
+    """The copy needs bf16 m (the layouts of bf16 compute) and a bf16,
+    aligned tensor of w's shape: else the wrapper raises."""
+    _needs_card()
+    g, w, m, v = _adam_leaf(np.random.default_rng(9), (64, 64))
+    coeffs = dict(s1=1e-3, s2=10.0, b1=0.9, b2=0.99, eps=1e-8)
+    w16 = torch.zeros(64, 64, device="cuda", dtype=BF16)
+    with pytest.raises(ValueError, match="with a bf16 copy"):
+        adam.adam_update_(g, w, m, v, w16=w16, **coeffs)  # f32 moments
+    m16 = m.to(BF16)
+    with pytest.raises(ValueError, match="w16 must be bfloat16"):
+        adam.adam_update_(g, w, m16, v, w16=w16.float(), **coeffs)
+    with pytest.raises(ValueError, match="shape"):
+        adam.adam_update_(g, w, m16, v, w16=w16[:32], **coeffs)
+    with pytest.raises(ValueError, match="aligned"):
+        flat = torch.zeros(64 * 64 + 1, device="cuda", dtype=BF16)
+        adam.adam_update_(g, w, m16, v, w16=flat[1:].view(64, 64), **coeffs)
+
+
+@pytest.mark.gpu
+def test_adam_tree_update_refreshes_the_cache():
+    """``fused_adam_tree_update(cache=)``: the kernel writes the copy of a
+    big leaf, the plain version that of a small one."""
+    _needs_card()
+    rng = np.random.default_rng(8)
+    leaves = {"big": _adam_leaf(rng, (1024, 2048)), "small": _adam_leaf(rng, (64, 64))}
+    for leaf in leaves.values():
+        leaf[2] = leaf[2].to(BF16)
+    cache = {k: v[1].to(BF16) for k, v in leaves.items()}
+    before = adam.adam_update_.launches_m16_w16
+    adam.fused_adam_tree_update(
+        {k: v[0] for k, v in leaves.items()}, 0, {k: v[2] for k, v in leaves.items()},
+        {k: v[3] for k, v in leaves.items()}, {k: v[1] for k, v in leaves.items()},
+        lr=1e-4, b1=0.9, b2=0.99, cache=cache)
+    torch.cuda.synchronize()
+    assert adam.adam_update_.launches_m16_w16 == before + 1
+    for k, leaf in leaves.items():
+        assert torch.equal(cache[k], leaf[1].to(BF16)), k
+
+
 # --- a training step of each PCAA variant ----------------------------------------
 
 # NMAX 64, NSTEPS 12: the decoder's last matrix (1536 x 3072) is the one leaf
@@ -992,3 +1062,77 @@ def test_orced_artifact_exported_on_the_card(tiny_runs):
             ck.seq_chamfer_kernel.launches - before[1]) == (1, 1)
     for g, w in zip(got, want):
         assert g.is_cuda and torch.equal(g, w)
+
+
+# --- the bf16 dense route and the weight cache on the card ---------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cached", [False, True], ids=["master", "copy"])
+def test_bf16_dense_on_the_card_matches_the_cpu_route(cached):
+    """``models/layers.py::dense`` at bf16 on the card (``Bf16Dense``:
+    cuBLAS's bf16 GEMMs, f32 accumulation) against the CPU route: y and the
+    three gradients within a bf16 rounding step of their scale (f32 sums in
+    other orders before the rounding)."""
+    from opensetgaitrecognition_pcaa_tpu_torch.models.layers import dense
+
+    _needs_card()
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(16, 576, generator=g).to(BF16)
+    w = torch.randn(1152, 576, generator=g) / 24
+    b = torch.randn(1152, generator=g) / 24
+    cot = torch.randn(16, 1152, generator=g).to(BF16)
+    outs = []
+    for device in ("cuda", "cpu"):
+        xx, ww, bb = (t.to(device).requires_grad_() for t in (x, w, b))
+        w16 = ww.detach().to(BF16).requires_grad_() if cached else None
+        y = dense(xx, ww, bb, BF16, w16)
+        y.backward(cot.to(device))
+        outs.append([t.detach().float().cpu() for t in
+                     (y, xx.grad, (w16 if cached else ww).grad, bb.grad)])
+    for got, want in zip(*outs):
+        torch.testing.assert_close(got, want, rtol=0, atol=2.0**-7 * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nu16", [False, True], ids=["bf16", "bf16_nu16"])
+def test_weight_cache_changes_no_bit_on_the_card(nu16):
+    """The V4 step at bf16 with the kernels on, 3 steps with
+    ``BF16_WEIGHT_CACHE`` and 3 without from one seeded state, cuDNN
+    deterministic: every parameter and moment bitwise equal; the Adam
+    kernel wrote the copy once a step."""
+    from opensetgaitrecognition_pcaa_tpu_torch.config import VARIATION, Config
+    from opensetgaitrecognition_pcaa_tpu_torch.train.pcaa import (
+        VARIANTS,
+        build_pcaa,
+        make_train_step,
+    )
+
+    _needs_card()
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.normal(size=(8, 12, 64, 4)).astype(np.float32)).cuda()
+    y = torch.from_numpy(np.arange(8) % 3).cuda()
+    noise = [(torch.from_numpy(rng.normal(size=(8, 16)).astype(np.float32)).cuda(),
+              torch.from_numpy(rng.uniform(size=(8, 1)).astype(np.float32)).cuda())
+             for _ in range(3)]
+    counter = "launches_mv16_w16" if nu16 else "launches_m16_w16"
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        states = []
+        for cache in (False, True):
+            cfg = Config(COMPUTE_DTYPE="bfloat16", BF16_ADAM_NU=nu16, BF16_WEIGHT_CACHE=cache,
+                         FUSED_POINTNET=True, FUSED_ADAM=True, **VARIANT_DIMS)
+            mods, state = build_pcaa(cfg, VARIANTS[VARIATION.V4], device="cuda")
+            step = make_train_step(mods, cfg)
+            before = getattr(adam.adam_update_, counter)
+            for i in range(3):
+                step(state, x, y, i, noise[i])
+            torch.cuda.synchronize()
+            assert getattr(adam.adam_update_, counter) - before == (3 if cache else 0)
+            states.append({**mods.state_dict(),
+                           **{f"mu.{k}": v for k, v in state.opt_g.mu.items()},
+                           **{f"nu.{k}": v for k, v in state.opt_g.nu.items()}})
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    for k in states[0]:
+        assert torch.equal(states[0][k], states[1][k]), k

@@ -319,12 +319,13 @@ def test_port_trained_run_folder_scores_in_jax(trained):
 @pytest.mark.parametrize(
     "variation,overrides,kwargs,error,match",
     [
-        (VARIATION.V4, {"FACTORED_ADAM_NU": True}, {}, NotImplementedError,
-         "FACTORED_ADAM_NU.*item 14"),
-        (VARIATION.V4, {"DEFERRED_DECODER_UPDATE": True}, {}, NotImplementedError,
-         "DEFERRED_DECODER_UPDATE.*item 14"),
-        (VARIATION.V4, {"BF16_WEIGHT_CACHE": True}, {}, NotImplementedError,
-         "BF16_WEIGHT_CACHE.*item 14"),
+        # the three options train since they were ported; JAX build_pcaa's refusals remain
+        (VARIATION.V4, {"FACTORED_ADAM_NU": True, "FUSED_ADAM": True}, {}, ValueError,
+         "FACTORED_ADAM_NU and FUSED_ADAM are exclusive"),
+        (VARIATION.V4, {"DEFERRED_DECODER_UPDATE": True, "FUSED_ADAM": True}, {}, ValueError,
+         "DEFERRED_DECODER_UPDATE recomputes the write.*fused kernel"),
+        (VARIATION.V4, {"BF16_WEIGHT_CACHE": True}, {}, ValueError,
+         "under f32 compute it would CHANGE numerics"),
         # ported: a run over 2 ranks needs them started (parallel/mesh.py::launch)
         (VARIATION.V4, {"DP_DEVICES": 2}, {}, RuntimeError, "one process per rank.*launch"),
     ],
@@ -349,12 +350,19 @@ def test_unported_options_raise(tmp_path, variation, overrides, kwargs, error, m
         (VARIATION.V3, {}, {}, ("E", "D")),
         (VARIATION.V4, {}, {"proj_head_on_discriminator": True}, ("E", "D", "G", "GPH", "DPH")),
         (VARIATION.V4, {"SAVE_RESUME_STATE": True}, {}, ("E", "D", "G", "GPH")),
+        (VARIATION.V4, {"FACTORED_ADAM_NU": True}, {}, ("E", "D", "G", "GPH")),
+        (VARIATION.V4, {"DEFERRED_DECODER_UPDATE": True}, {}, ("E", "D", "G", "GPH")),
+        (VARIATION.V4, {"COMPUTE_DTYPE": "bfloat16", "BF16_WEIGHT_CACHE": True}, {},
+         ("E", "D", "G", "GPH")),
     ],
-    ids=["V1", "V2", "BASE", "V3", "disc_head", "save_resume"],
+    ids=["V1", "V2", "BASE", "V3", "disc_head", "save_resume", "factored_nu", "deferred",
+         "bf16_cache"],
 )
 def test_formerly_unported_options_train(tmp_path, variation, overrides, kwargs, tags):
-    """The options that raised before the variants and the resume state were
-    ported now train, and write the variant's run folder."""
+    """The options that raised before the variants, the resume state and the
+    training options (factored Adam, the deferred decoder write, the bf16
+    weight cache) were ported now train, and write the variant's run
+    folder."""
     cfg = Config(MODELS_PATH=str(tmp_path), MODEL_NAME=f"X_{variation.value}", EPOCHS=1,
                  **{**DIMS, **overrides})
     rng = np.random.default_rng(0)

@@ -31,6 +31,7 @@ from opensetgaitrecognition_pcaa_tpu_torch.train.pcaa import (
     make_epoch_fns,
     place_state,
     run_mesh,
+    weight_cache,
 )
 
 
@@ -51,6 +52,8 @@ def pcaa_steps(cfg: Config, variation: VARIATION, tree: Optional[Dict], data: Di
     mesh = run_mesh(cfg)
     opts = {"opt_g": (state.opt_g, "g."), "opt_d": (state.opt_d, "d.")}
     specs = place_state(mods, opts, mesh, cfg.MP_MIN_DIM)
+    if cfg.BF16_WEIGHT_CACHE:  # the copies of the placed masters, as train_pcaa makes them
+        state.cast_g = weight_cache(mods.g)
     train_epoch, _ = make_epoch_fns(mods, cfg, mesh)
     state, m = train_epoch(state, torch.from_numpy(data["x"]), torch.from_numpy(data["y"]),
                            data["perm"], noise=(data["z0"], data["alphas"]))
