@@ -15,6 +15,8 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
+from opensetgaitrecognition_pcaa_tpu_torch.utils.profiling import count, span
+
 
 def ieee_f32() -> None:
     """True f32 for matmuls and convolutions on the card.
@@ -58,8 +60,15 @@ def batched_apply(
     """
     n = x.shape[0]
     outs = []
-    for i, chunk in enumerate(chunk_rows(np.asarray(x, dtype=np.float32), batch_size)):
-        chunk = torch.from_numpy(chunk).to(device)
-        res = fn(chunk, i) if with_index else fn(chunk)
-        outs.append([r.cpu().numpy() for r in res])
-    return tuple(np.concatenate(parts, axis=0)[:n] for parts in zip(*outs))
+    with span("eval.call"):
+        for i, chunk in enumerate(chunk_rows(np.asarray(x, dtype=np.float32), batch_size)):
+            count("eval.chunks")
+            with span("eval.h2d"):
+                chunk = torch.from_numpy(chunk).to(device)
+            with span("eval.encoder"):
+                res = fn(chunk, i) if with_index else fn(chunk)
+            with span("eval.d2h"):
+                outs.append([r.cpu().numpy() for r in res])
+        with span("eval.concat"):
+            joined = tuple(np.concatenate(parts, axis=0)[:n] for parts in zip(*outs))
+    return joined

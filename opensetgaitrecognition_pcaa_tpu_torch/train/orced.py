@@ -116,6 +116,7 @@ from opensetgaitrecognition_pcaa_tpu_torch.train.run_folder import (
     save_params,
     save_train_state,
 )
+from opensetgaitrecognition_pcaa_tpu_torch.utils.profiling import count, span
 
 Device = Union[str, torch.device]
 
@@ -183,32 +184,37 @@ def make_orced_train_step(mods: ORCEDModules, cfg: Config, mesh: Optional[Mesh] 
         oh = F.one_hot(labels.long(), n).float()
         if eps is None and mesh is not None:
             eps = _draw(state.generator, (pcs.shape[0], cfg.SUP_LATENT_DIM), pcs.device, mesh)
-        logits, z, mu, logvar = mods.encoder(pcs, eps=eps, generator=state.generator)
-        rec = mods.decoder(z)
-        mu_gts = mods.mean_learner(oh)
+        with span("train.encoder"):
+            logits, z, mu, logvar = mods.encoder(pcs, eps=eps, generator=state.generator)
+        with span("train.losses"):
+            rec = mods.decoder(z)
+            mu_gts = mods.mean_learner(oh)
 
-        rec_loss = cfg.REC_W * seq_chamfer(rec, pcs)
-        sup_loss = cfg.CE_W * cross_entropy(logits, labels)
-        z_norm = z / torch.linalg.norm(z, dim=1, keepdim=True)
-        trip_loss = cfg.TRIPLET_W * triplet_loss_with_ms_miner(
-            z_norm, labels, margin=cfg.TRIPLET_MARGIN, mesh=mesh
-        )
-        kl_loss = cfg.KL_W * cg_kl_divergence(mu, logvar, mu_gts) * kl_mult
-        tot_loss = rec_loss + sup_loss + trip_loss + kl_loss
-        # a cached decoder weight takes its gradient through its bf16 copy
-        targets = {k: state.cast.get(k, p) for k, p in params.items()}
-        adam_update_(state.opt, params, mesh_grads(tot_loss, targets, specs, mesh), **adam,
-                     row_sum=row_sum)
-        refresh_cache_(state.cast, params)
-        metrics = {
-            "rec_loss": rec_loss.detach(),
-            "sup_loss": sup_loss.detach(),
-            "trip_loss": trip_loss.detach(),
-            "kl_loss": kl_loss.detach(),
-            "tot_loss": tot_loss.detach(),
-            "n_correct": torch.sum(torch.argmax(logits, dim=1) == labels).float(),
-        }
-        return state, global_metrics(metrics, mesh)
+            rec_loss = cfg.REC_W * seq_chamfer(rec, pcs)
+            sup_loss = cfg.CE_W * cross_entropy(logits, labels)
+            z_norm = z / torch.linalg.norm(z, dim=1, keepdim=True)
+            trip_loss = cfg.TRIPLET_W * triplet_loss_with_ms_miner(
+                z_norm, labels, margin=cfg.TRIPLET_MARGIN, mesh=mesh
+            )
+            kl_loss = cfg.KL_W * cg_kl_divergence(mu, logvar, mu_gts) * kl_mult
+            tot_loss = rec_loss + sup_loss + trip_loss + kl_loss
+        with span("train.backward"):
+            # a cached decoder weight takes its gradient through its bf16 copy
+            targets = {k: state.cast.get(k, p) for k, p in params.items()}
+            grads = mesh_grads(tot_loss, targets, specs, mesh)
+        with span("train.adam"):
+            adam_update_(state.opt, params, grads, **adam, row_sum=row_sum)
+            refresh_cache_(state.cast, params)
+        with span("train.metrics"):
+            metrics = global_metrics({
+                "rec_loss": rec_loss.detach(),
+                "sup_loss": sup_loss.detach(),
+                "trip_loss": trip_loss.detach(),
+                "kl_loss": kl_loss.detach(),
+                "tot_loss": tot_loss.detach(),
+                "n_correct": torch.sum(torch.argmax(logits, dim=1) == labels).float(),
+            }, mesh)
+        return state, metrics
 
     return step
 
@@ -222,16 +228,24 @@ def make_orced_epoch_fns(mods: ORCEDModules, cfg: Config, mesh: Optional[Mesh] =
     train_step = make_orced_train_step(mods, cfg, mesh)
 
     def train_epoch(state: ORCEDState, x_all, y_all, perm, kl_mult: float, noise=None):
-        perm = rows_of(torch.as_tensor(perm, device=x_all.device).long(), mesh)
-        if noise is not None:
-            noise = rows_of(torch.as_tensor(noise), mesh)
-        out = []
-        for i in range(perm.shape[0]):
-            idx = perm[i]
-            eps = None if noise is None else noise[i]
-            state, m = train_step(state, x_all[idx], y_all[idx], kl_mult, eps)
-            out.append(m)
-        return state, _stack(out)
+        with span("train.epoch"):
+            with span("train.epoch_setup"):
+                perm = rows_of(torch.as_tensor(perm, device=x_all.device).long(), mesh)
+                if noise is not None:
+                    noise = rows_of(torch.as_tensor(noise), mesh)
+            out = []
+            for i in range(perm.shape[0]):
+                with span("train.step"):
+                    count("train.steps")
+                    with span("train.gather"):
+                        idx = perm[i]
+                        pcs, labels = x_all[idx], y_all[idx]
+                    eps = None if noise is None else noise[i]
+                    state, m = train_step(state, pcs, labels, kl_mult, eps)
+                out.append(m)
+            with span("train.epoch_stack"):
+                stacked = _stack(out)
+        return state, stacked
 
     @torch.no_grad()
     def valid_epoch(state: ORCEDState, x_all, y_all, perm, noise=None):

@@ -148,6 +148,7 @@ from opensetgaitrecognition_pcaa_tpu_torch.train.run_folder import (
     save_params,
     save_train_state,
 )
+from opensetgaitrecognition_pcaa_tpu_torch.utils.profiling import count, span
 
 Device = Union[str, torch.device]
 
@@ -449,76 +450,84 @@ def make_train_step(mods: PCAAModules, cfg: Config, mesh: Optional[Mesh] = None)
         if deferred and step_idx > 0:
             # the previous step's decoder write; the epoch's first step has
             # none pending (the flush after the last epoch's last step)
-            deferred_write_(cfg, dec_params, state)
+            with span("train.deferred_write"):
+                deferred_write_(cfg, dec_params, state)
 
         # --- ONE train-mode encoder forward for the whole step -------------
-        if cfg.FUSED_POINTNET:
-            logits, fv = fused_train_encoder_apply(encoder, pcs, store_dtype, mesh)
-        else:
-            logits, fv = encoder(pcs)
+        with span("train.encoder"):
+            if cfg.FUSED_POINTNET:
+                logits, fv = fused_train_encoder_apply(encoder, pcs, store_dtype, mesh)
+            else:
+                logits, fv = encoder(pcs)
         fv_detached = fv.detach()
-
-        # prior sample, detached
-        if mean_learner is not None:
-            with torch.no_grad():  # train-mode BatchNorm: its running statistics move
-                mus = mean_learner(oh)
-        else:
-            mus = oh @ state.centroids
-        if inject is None:
-            z0 = _draw(state.generator, (batch, latent), pcs.device, mesh)
-            alphas = _draw(state.generator, (batch, 1), pcs.device, mesh, torch.rand)
-        else:
-            z0, alphas = inject
-        z = (z0 + mus).detach()
 
         def critic(h):
             return discriminator(h, oh)[:, 0]
 
         # --- critic step ------------------------------------------------------
-        fake = fv_detached
-        if disc_head is not None:
-            with torch.no_grad():
-                fake = disc_head(fv_detached)
-        real_logits = critic(z)
-        fake_logits = critic(fake)
-        gp = gradient_penalty(critic, z, fake, alphas, mesh)
-        d_loss = torch.mean(fake_logits) - torch.mean(real_logits) + cfg.GP_WEIGHT * gp
-        # the DPH gets no gradient (every path into it is detached): zeros,
-        # which Adam steps with, so it stays at its init, as in the JAX package
-        adam_update_(state.opt_d, d_params, mesh_grads(d_loss, d_params, d_specs, mesh), **adam,
-                     row_sum=d_row_sum)
+        with span("train.critic"):
+            # prior sample, detached
+            if mean_learner is not None:
+                with torch.no_grad():  # train-mode BatchNorm: its running statistics move
+                    mus = mean_learner(oh)
+            else:
+                mus = oh @ state.centroids
+            if inject is None:
+                z0 = _draw(state.generator, (batch, latent), pcs.device, mesh)
+                alphas = _draw(state.generator, (batch, 1), pcs.device, mesh, torch.rand)
+            else:
+                z0, alphas = inject
+            z = (z0 + mus).detach()
+            fake = fv_detached
+            if disc_head is not None:
+                with torch.no_grad():
+                    fake = disc_head(fv_detached)
+            real_logits = critic(z)
+            fake_logits = critic(fake)
+            gp = gradient_penalty(critic, z, fake, alphas, mesh)
+            d_loss = torch.mean(fake_logits) - torch.mean(real_logits) + cfg.GP_WEIGHT * gp
+            # the DPH gets no gradient (every path into it is detached): zeros,
+            # which Adam steps with, so it stays at its init, as in the JAX package
+            d_grads = mesh_grads(d_loss, d_params, d_specs, mesh)
+        with span("train.critic_adam"):
+            adam_update_(state.opt_d, d_params, d_grads, **adam, row_sum=d_row_sum)
 
         # --- generator step: critic with the updated D parameters -----------
-        rec_loss = _rec_loss(mods, fv, pcs)
-        adv_loss = -torch.mean(critic(fv if disc_head is None else disc_head(fv))) * cfg.ADV_WEIGHT
-        sup_loss = cross_entropy(logits, labels)
-        tot_loss = rec_loss + adv_loss
-        if step_idx % cfg.SUPERVISION_FREQUENCY == 0:
-            tot_loss = tot_loss + sup_loss
+        with span("train.losses"):
+            rec_loss = _rec_loss(mods, fv, pcs)
+            adv_loss = (-torch.mean(critic(fv if disc_head is None else disc_head(fv)))
+                        * cfg.ADV_WEIGHT)
+            sup_loss = cross_entropy(logits, labels)
+            tot_loss = rec_loss + adv_loss
+            if step_idx % cfg.SUPERVISION_FREQUENCY == 0:
+                tot_loss = tot_loss + sup_loss
         # the classifier head gets no gradient on unsupervised batches:
         # zeros, which Adam still steps with, as in the JAX package; a cached
         # decoder weight takes its gradient through its bf16 copy
-        targets = {k: state.cast_g.get(k, p) for k, p in g_params.items()}
-        g_grads = mesh_grads(tot_loss, targets, g_specs, mesh)
-        if cfg.FUSED_ADAM:
-            opt = state.opt_g
-            opt.count = fused_adam_tree_update(g_grads, opt.count, opt.mu, opt.nu, g_params,
-                                               global_shapes=g_shapes, cache=state.cast_g,
-                                               **adam)
-        else:
-            adam_update_(state.opt_g, g_params, g_grads, **adam, row_sum=g_row_sum,
-                         skip_write=dec_params if deferred else ())
-            if not deferred:  # deferred: the copies follow the write
-                refresh_cache_(state.cast_g, g_params)
+        with span("train.backward"):
+            targets = {k: state.cast_g.get(k, p) for k, p in g_params.items()}
+            g_grads = mesh_grads(tot_loss, targets, g_specs, mesh)
+        with span("train.adam"):
+            if cfg.FUSED_ADAM:
+                opt = state.opt_g
+                opt.count = fused_adam_tree_update(g_grads, opt.count, opt.mu, opt.nu, g_params,
+                                                   global_shapes=g_shapes, cache=state.cast_g,
+                                                   **adam)
+            else:
+                adam_update_(state.opt_g, g_params, g_grads, **adam, row_sum=g_row_sum,
+                             skip_write=dec_params if deferred else ())
+                if not deferred:  # deferred: the copies follow the write
+                    refresh_cache_(state.cast_g, g_params)
 
-        metrics = {
-            "rec_loss": rec_loss.detach(),
-            "d_loss": d_loss.detach(),
-            "sup_loss": sup_loss.detach(),
-            "tot_loss": tot_loss.detach(),
-            "n_correct": torch.sum(torch.argmax(logits, dim=1) == labels).float(),
-        }
-        return state, global_metrics(metrics, mesh)
+        with span("train.metrics"):
+            metrics = global_metrics({
+                "rec_loss": rec_loss.detach(),
+                "d_loss": d_loss.detach(),
+                "sup_loss": sup_loss.detach(),
+                "tot_loss": tot_loss.detach(),
+                "n_correct": torch.sum(torch.argmax(logits, dim=1) == labels).float(),
+            }, mesh)
+        return state, metrics
 
     return step
 
@@ -547,18 +556,27 @@ def make_epoch_fns(mods: PCAAModules, cfg: Config, mesh: Optional[Mesh] = None):
     def train_epoch(state: PCAAState, x_all, y_all, perm, noise=None):
         """``noise`` (optional): ``(z0 (steps, B, latent), alphas (steps, B, 1))``
         replayed instead of fresh draws."""
-        perm = rows_of(torch.as_tensor(perm, device=x_all.device).long(), mesh)
-        if noise is not None:
-            noise = tuple(rows_of(torch.as_tensor(a), mesh) for a in noise)
-        out = []
-        for i in range(perm.shape[0]):
-            idx = perm[i]
-            inject = None if noise is None else (noise[0][i], noise[1][i])
-            state, m = train_step(state, x_all[idx], y_all[idx], i, inject)
-            out.append(m)
-        if cfg.DEFERRED_DECODER_UPDATE:
-            deferred_write_(cfg, dec_params, state)
-        return state, _stack(out)
+        with span("train.epoch"):
+            with span("train.epoch_setup"):
+                perm = rows_of(torch.as_tensor(perm, device=x_all.device).long(), mesh)
+                if noise is not None:
+                    noise = tuple(rows_of(torch.as_tensor(a), mesh) for a in noise)
+            out = []
+            for i in range(perm.shape[0]):
+                with span("train.step"):
+                    count("train.steps")
+                    with span("train.gather"):
+                        idx = perm[i]
+                        pcs, labels = x_all[idx], y_all[idx]
+                    inject = None if noise is None else (noise[0][i], noise[1][i])
+                    state, m = train_step(state, pcs, labels, i, inject)
+                out.append(m)
+            if cfg.DEFERRED_DECODER_UPDATE:
+                with span("train.deferred_flush"):
+                    deferred_write_(cfg, dec_params, state)
+            with span("train.epoch_stack"):
+                stacked = _stack(out)
+        return state, stacked
 
     @torch.no_grad()
     def valid_epoch(state: PCAAState, x_all, y_all, perm):
