@@ -16,7 +16,7 @@ with seeded random weights and seeded crop files. Phases:
 2. the PointNet kernel against its plain PyTorch version at the main
    path's shapes and at shapes that cut its tiles (97 frames of N = 37,
    N = 1, D = 512, C = 5; rtol 1e-4, atol 1e-4), and both timed at
-   (256, 30, 150);
+   (256, 30, 150), the kernel also at the serving batch of 24 crops;
 3. ``pcaa_inference`` through the kernel (its launch count must grow), then
    again through the plain version: latents within atol 1e-4, decisions
    equal except in windows holding a crop within 1e-4 of the threshold;
@@ -234,7 +234,9 @@ Files go to ``build/chip_smoke/``.
 ``python3 chip_smoke.py --chamfer-timing`` builds only the Chamfer kernel
 and runs phase 7a's timing, for comparing trees of the port in one call;
 ``--codec-timing`` times the run-folder codec alone the same way, and
-``--pointnet-bf16-timing`` phase 11a's bf16 layer and pool timing.
+``--pointnet-bf16-timing`` phase 11a's bf16 layer and pool timing, and
+``--pointnet-infer-timing`` phase 2 (the eval PointNet kernel's checks
+and timings) and phase 4's serving call on a seeded encoder.
 ``--mesh-nccl`` runs phase 14's runs on a machine with 4 cards, with
 NCCL: V4 at DP 4 and DP 2 x MP 2, OR-CED at DP 2 x MP 2.
 ``--grid-cards`` times a grid chunk of GRID_CARD_RUNS V4 runs over every
@@ -280,6 +282,7 @@ LOSS_RTOL = 1e-3
 ORCED_NAME = "SMOKE_ORCED"
 ORCED_B = 64  # orced_inference's batch
 SERVE_CROPS = 16  # crops per ORCED serving request
+SERVE_BATCH = 24  # crops per PCAA serving request: 4 windows x 6
 SERVE_WARM_CALLS = 15  # phase 10: calls after the 3 requests, for a warm median
 # Chamfer kernel vs plain: the kernel rounds each distance as the plain
 # pairwise_sq_dists does, so only the order of the sums differs; measured
@@ -4458,6 +4461,133 @@ def codec_timing() -> int:
     return 0
 
 
+def infer_kernel_phase(card: str) -> tuple:
+    """Phase 2: the eval PointNet kernel against its plain version at the
+    main path's shapes and at shapes that cut its tiles, then both timed at
+    (256, 30, 150), each device kernel of one such call from torch.profiler,
+    and the kernel timed at the serving batch, 4 windows x 6 crops → (max
+    |diff|, {"kernel", "plain", "serve_kernel": ms, "per_kernel": [[name,
+    ms]]}, bounds)."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import pointnet_infer as pn
+
+    g = torch.Generator().manual_seed(SEED)
+    d = 1024
+
+    def make_folded(c: int, d: int) -> dict:
+        out = {}
+        for i, (a, b) in enumerate([(c, d // 2), (d // 2, d // 2), (d // 2, d), (d, d)], start=1):
+            out[f"w{i}"] = ((torch.rand(a, b, generator=g) * 2 - 1) / a**0.5).cuda()
+            out[f"b{i}"] = ((torch.rand(b, generator=g) * 2 - 1) / a**0.5).cuda()
+        return out
+
+    folded = make_folded(4, d)
+    max_err = 0.0
+    # the main path's frames, then shapes that cut the kernel's tiles: 97
+    # frames of N = 37 (4656 padded rows, not a multiple of 256), N = 1,
+    # D = 512, and C = 5 (channels padded to 8); then the widths the JAX
+    # wrapper takes beyond 512 and 1024: D = 32 and 64 (the JAX tests'
+    # POINTNET_OUT_DIM), 200, 1536, and D = 30 with C = 3 and D = 201 with
+    # C = 5, whose widths the wrapper pads to multiples of 4
+    for shape, fw in (((16, 30, 150, 4), folded), ((1, 97, 37, 4), folded),
+                      ((2, 3, 1, 4), folded), ((4, 9, 150, 4), make_folded(4, 512)),
+                      ((2, 3, 37, 5), make_folded(5, d)), ((4, 12, 64, 4), make_folded(4, 32)),
+                      ((4, 12, 64, 4), make_folded(4, 64)), ((2, 3, 37, 4), make_folded(4, 200)),
+                      ((2, 3, 150, 4), make_folded(4, 1536)), ((2, 3, 37, 3), make_folded(3, 30)),
+                      ((2, 3, 37, 5), make_folded(5, 201))):
+        x = torch.randn(shape, generator=g).cuda()
+        before = pn.pointnet_pool_infer.launches
+        got = pn.pointnet_pool_infer(x, fw)
+        torch.cuda.synchronize()
+        assert pn.pointnet_pool_infer.launches == before + 1, shape
+        want = pn.pointnet_pool_ref(x, fw)
+        err = (got - want).abs().max().item()
+        max_err = max(max_err, err)
+        log(f"phase 2: kernel vs plain at {shape}, D={fw['w4'].shape[1]}: max |diff| {err:.3e}")
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    x = torch.randn((256, 30, 150, 4), generator=g).cuda()
+    pn_ms = alternate(
+        {"kernel": lambda: pn.pointnet_pool_infer(x, folded),
+         "plain": lambda: pn.pointnet_pool_ref(x, folded)},
+        ("plain", "kernel", "kernel", "plain"), reps=5,
+    )
+    # per point, a multiply-add for every weight of the 4 layers
+    weights = sum(folded[f"w{i}"].numel() for i in range(1, 5))
+    pn_bound = tensor_core_bound(2 * 256 * 30 * 150 * weights,
+                                 nbytes(x, *folded.values()) + 256 * 30 * d * 4)
+    log(f"phase 2: PointNet+pool at (256, 30, 150), D=1024: kernel {pn_ms['kernel']:.2f} ms, "
+        f"plain {pn_ms['plain']:.2f} ms; bound f32 {pn_bound['bound_f32_ms']:.2f} ms "
+        f"({100 * pn_bound['bound_f32_ms'] / pn_ms['kernel']:.1f}% of the kernel's time), 3xTF32 "
+        f"{pn_bound['bound_3xtf32_ms']:.2f} ms "
+        f"({100 * pn_bound['bound_3xtf32_ms'] / pn_ms['kernel']:.1f}%) [{card}]")
+    # one (256, 30, 150) call under torch.profiler: each device kernel in order
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        pn.pointnet_pool_infer(x, folded)
+        torch.cuda.synchronize()
+    kernels = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                     if e.device_type == DeviceType.CUDA)
+    pn_ms["per_kernel"] = [[name[:90], (b - a) / 1e3] for a, b, name in kernels]
+    for name, ms in pn_ms["per_kernel"]:
+        log(f"phase 2: (256, 30, 150) device kernel {ms:.3f} ms  {name}")
+    xs = x[:SERVE_BATCH].contiguous()
+    pn_ms["serve_kernel"] = cuda_ms(lambda: pn.pointnet_pool_infer(xs, folded), 20)
+    serve_bound = tensor_core_bound(2 * SERVE_BATCH * 30 * 150 * weights,
+                                    nbytes(xs, *folded.values()) + SERVE_BATCH * 30 * d * 4)
+    log(f"phase 2: PointNet+pool at the serving batch ({SERVE_BATCH}, 30, 150): kernel "
+        f"{pn_ms['serve_kernel']:.3f} ms, 3xTF32 bound {serve_bound['bound_3xtf32_ms']:.3f} ms "
+        f"({100 * serve_bound['bound_3xtf32_ms'] / pn_ms['serve_kernel']:.1f}%) [{card}]")
+    return max_err, pn_ms, pn_bound
+
+
+def pointnet_infer_timing() -> int:
+    """``--pointnet-infer-timing``: build the eval PointNet kernel of the
+    tree this file lies in and run phase 2 (checks and timings), then phase
+    4's in-process serving call at its batch of 4 windows x 6 crops on a
+    seeded full-width encoder (host clock around each request, which ends
+    in the decisions' copy to the host: the median of 25 after 5 warm-up
+    requests); one JSON line at the end. To compare two trees, copy this
+    file into each and run both in one call."""
+    import torch
+
+    from opensetgaitrecognition_pcaa_tpu_torch.infer.common import ieee_f32
+    from opensetgaitrecognition_pcaa_tpu_torch.infer.serving import make_pcaa_decision_fn
+    from opensetgaitrecognition_pcaa_tpu_torch.models.pcaa import CGEncoder
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import _build
+
+    card = card_name()
+    log(card)
+    ieee_f32()
+    _build.load_libraries(("pointnet_infer",))
+    for line in _build.BUILD_LOGS.get("pointnet_infer", "").splitlines():
+        if "registers" in line or "spill" in line or "wgmma" in line.lower():
+            log(f"  nvcc pointnet_infer: {line.strip()}")
+    max_err, pn_ms, pn_bound = infer_kernel_phase(card)
+    encoder = CGEncoder(N_SEEN, in_features=4, sup_latent_dim=32, pointnet_out_dim=1024,
+                        dtc_filters=(16, 32, 64, 128, 256, 512), use_projection_head=True,
+                        generator=torch.Generator().manual_seed(SEED)).cuda().eval()
+    decide = make_pcaa_decision_fn(encoder, N_SEEN, 6)
+    rng = np.random.default_rng(SEED)
+    means = rng.normal(size=(N_SEEN, 32))
+    windows = torch.from_numpy(rng.normal(size=(4, 6, 30, 150, 4)).astype(np.float32)).cuda()
+    serve_ms = []
+    for i in range(30):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decisions, _ = decide(means, 0.0, windows)
+        decisions.cpu()
+        if i >= 5:
+            serve_ms.append(1e3 * (time.perf_counter() - t0))
+    log(f"phase 4: in-process serving, (4, 6, 30, 150, 4) a request: median "
+        f"{float(np.median(serve_ms)):.3f} ms of 25 [{card}]")
+    log(json.dumps({"pointnet_infer_timing": {
+        "max_abs_err": max_err, **pn_ms, "bound_3xtf32_ms": pn_bound["bound_3xtf32_ms"],
+        "serve_request_ms": float(np.median(serve_ms)), "serve_request_ms_all": serve_ms},
+        "card": card, "tree": REPO}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -4472,6 +4602,8 @@ def main() -> int:
         return codec_timing()
     if sys.argv[1:] == ["--pointnet-bf16-timing"]:
         return pointnet_bf16_timing()
+    if sys.argv[1:] == ["--pointnet-infer-timing"]:
+        return pointnet_infer_timing()
     if sys.argv[1:] == ["--precision-gate"]:
         return precision_gate()
     if sys.argv[1:] == ["--mesh-nccl"]:
@@ -4519,56 +4651,7 @@ def main() -> int:
     phase_done(1)
 
     # --- 2. kernel vs plain --------------------------------------------------
-    g = torch.Generator().manual_seed(SEED)
-    d, h = 1024, 512
-
-    def make_folded(c: int, d: int) -> dict:
-        out = {}
-        for i, (a, b) in enumerate([(c, d // 2), (d // 2, d // 2), (d // 2, d), (d, d)], start=1):
-            out[f"w{i}"] = ((torch.rand(a, b, generator=g) * 2 - 1) / a**0.5).cuda()
-            out[f"b{i}"] = ((torch.rand(b, generator=g) * 2 - 1) / a**0.5).cuda()
-        return out
-
-    folded = make_folded(4, d)
-    max_err = 0.0
-    # the main path's frames, then shapes that cut the kernel's tiles: 97
-    # frames of N = 37 (4656 padded rows, not a multiple of 128), N = 1,
-    # D = 512, and C = 5 (channels padded to 8); then the widths the JAX
-    # wrapper takes beyond 512 and 1024: D = 32 and 64 (the JAX tests'
-    # POINTNET_OUT_DIM), 200, 1536, and D = 30 with C = 3 and D = 201 with
-    # C = 5, whose widths the wrapper pads to multiples of 4
-    for shape, fw in (((16, 30, 150, 4), folded), ((1, 97, 37, 4), folded),
-                      ((2, 3, 1, 4), folded), ((4, 9, 150, 4), make_folded(4, 512)),
-                      ((2, 3, 37, 5), make_folded(5, d)), ((4, 12, 64, 4), make_folded(4, 32)),
-                      ((4, 12, 64, 4), make_folded(4, 64)), ((2, 3, 37, 4), make_folded(4, 200)),
-                      ((2, 3, 150, 4), make_folded(4, 1536)), ((2, 3, 37, 3), make_folded(3, 30)),
-                      ((2, 3, 37, 5), make_folded(5, 201))):
-        x = torch.randn(shape, generator=g).cuda()
-        before = pn.pointnet_pool_infer.launches
-        got = pn.pointnet_pool_infer(x, fw)
-        torch.cuda.synchronize()
-        assert pn.pointnet_pool_infer.launches == before + 1, shape
-        want = pn.pointnet_pool_ref(x, fw)
-        err = (got - want).abs().max().item()
-        max_err = max(max_err, err)
-        log(f"phase 2: kernel vs plain at {shape}, D={fw['w4'].shape[1]}: max |diff| {err:.3e}")
-        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
-    x = torch.randn((256, 30, 150, 4), generator=g).cuda()
-    pn_ms = alternate(
-        {"kernel": lambda: pn.pointnet_pool_infer(x, folded),
-         "plain": lambda: pn.pointnet_pool_ref(x, folded)},
-        ("plain", "kernel", "kernel", "plain"), reps=5,
-    )
-    # per point, a multiply-add for every weight of the 4 layers
-    weights = sum(folded[f"w{i}"].numel() for i in range(1, 5))
-    pn_bound = tensor_core_bound(2 * 256 * 30 * 150 * weights,
-                                 nbytes(x, *folded.values()) + 256 * 30 * d * 4)
-    log(f"phase 2: PointNet+pool at (256, 30, 150), D=1024: kernel {pn_ms['kernel']:.2f} ms, "
-        f"plain {pn_ms['plain']:.2f} ms; bound f32 {pn_bound['bound_f32_ms']:.2f} ms "
-        f"({100 * pn_bound['bound_f32_ms'] / pn_ms['kernel']:.1f}% of the kernel's time), 3xTF32 "
-        f"{pn_bound['bound_3xtf32_ms']:.2f} ms "
-        f"({100 * pn_bound['bound_3xtf32_ms'] / pn_ms['kernel']:.1f}%) [{card}]")
-    del x
+    max_err, pn_ms, pn_bound = infer_kernel_phase(card)
 
     phase_done(2)
 

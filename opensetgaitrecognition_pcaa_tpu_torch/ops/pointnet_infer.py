@@ -16,17 +16,19 @@ dispatches as the wrapper does, by the device of its tensors.
 tensor and raises on anything the kernel does not take; for a CPU tensor it
 computes ``pointnet_pool_ref``, the plain version that the tests and
 ``chip_smoke.py`` hold the kernel against. The kernel runs the four layers
-on the tensor cores in the exact three-pass TF32 mode (``ops/tf32x3.py``).
+on the tensor cores in the exact three-pass TF32 mode (``ops/tf32x3.py``),
+on ``wgmma`` (``csrc/tf32x3_wgmma.cuh``).
 The TPU kernel's VMEM budget, grid-size guard and precision routing are not
 carried over: the CUDA kernel takes every shape the JAX wrapper takes, any
 number of frames and points, any channels and any widths. The wrapper pads
 each frame's points to a multiple of 16, and the channels C and the widths
 H = D // 2 and D to multiples of 4, with zeros (``pad_widths``: a padded
 width has zero weights and a zero bias, so it is ELU(0) = 0 in every layer
-and adds exact zeros to the real widths' sums); it hands the weights over
-transposed (the kernel reads them K-major), allocates the activations of at
-most ``_PASS_ROWS`` padded points (fewer above D = 1024), through which the
-kernel walks the batch, and slices the output back to D.
+and adds exact zeros to the real widths' sums); it allocates the
+activations of at most ``_PASS_ROWS`` padded points (fewer above D = 1024),
+through which the kernel walks the batch, and the weights' TF32 planes (two
+floats a weight: the kernel writes each weight transposed, split into hi
+and lo, once a call), and slices the output back to D.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ import torch.nn.functional as F
 from opensetgaitrecognition_pcaa_tpu_torch.ops._build import load_library
 
 _KERNEL = "pointnet_infer"
-_GROUP = 16  # points per partial row of the pool: the kernel's m16 row tile
+_GROUP = 16  # points per partial row of the pool: a warp's 16 rows of an m64 tile
 # padded points per pass of the kernel: 256 crops of 30 frames x 150 points
 # (1,228,800 padded) go in one pass, with 7.5 GB of activations at D = 1024;
 # above D = 1024 a pass takes as many activation floats as at 1024
@@ -146,10 +148,53 @@ def _check_cuda_args(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> int:
 
 def _library() -> ctypes.CDLL:
     lib = load_library(_KERNEL)
-    fn = lib.pointnet_pool_infer_f32
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib.tf32x3_split_planes_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    lib.pointnet_pool_infer_f32.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    lib.tf32x3_epilogue_elu_f32.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong,
+                                                                     ctypes.c_void_p]
+    for fn in (lib.tf32x3_split_planes_f32, lib.pointnet_pool_infer_f32,
+               lib.tf32x3_epilogue_elu_f32):
+        fn.restype = ctypes.c_int
     return lib
+
+
+def epilogue_elu(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's ELU (its branch-free ``expm1f``) on a CUDA f32 tensor,
+    elementwise: what the card tests hold to ``F.elu``."""
+    if x.device.type != "cuda" or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("epilogue_elu takes a contiguous float32 CUDA tensor")
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = _library().tf32x3_epilogue_elu_f32(
+            x.data_ptr(), out.data_ptr(), x.numel(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"pointnet_infer ELU kernel launch failed: cudaError {err}")
+    return out
+
+
+def split_planes(folded: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The kernel's split of CUDA weights ``w1..w4`` (in, out), widths
+    multiples of 4: for each layer in order, ``W^T``'s TF32 hi plane, then
+    its lo plane (``ops/tf32x3.py::split_tf32``), ``(out, in)`` each, flat
+    in one f32 tensor. One launch, on the current stream."""
+    ws = [folded[k] for k in _WIDTHS]
+    if any(w.device.type != "cuda" or w.dtype != torch.float32 or not w.is_contiguous()
+           for w in ws):
+        raise ValueError("split_planes takes contiguous float32 CUDA weights")
+    planes = torch.empty(2 * sum(w.numel() for w in ws), dtype=torch.float32,
+                         device=ws[0].device)
+    with torch.cuda.device(planes.device):
+        stream = torch.cuda.current_stream(planes.device).cuda_stream
+        err = _library().tf32x3_split_planes_f32(
+            *(w.data_ptr() for w in ws), planes.data_ptr(), ws[0].shape[0], ws[0].shape[1],
+            ws[3].shape[1], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"tf32x3_split_planes kernel launch failed: cudaError {err}")
+    return planes
 
 
 def pointnet_pool_infer(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -172,20 +217,19 @@ def pointnet_pool_infer(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> tor
     xp = x.reshape(frames, n, c)
     if np_ != n:
         xp = F.pad(xp, (0, 0, 0, np_ - n))
-    # the kernel reads the weights K-major: (out, in)
-    wts = [folded[k].t().contiguous() for k in _WIDTHS]
     per_pass = max(1, min(frames, _PASS_ROWS // np_, _PASS_FLOATS // (np_ * dp)))
     rows = per_pass * np_
+    planes = split_planes(folded)
     out = torch.empty((frames, dp), dtype=torch.float32, device=x.device)
     act_a = torch.empty((rows, dp), dtype=torch.float32, device=x.device)
     act_b = torch.empty((rows, h), dtype=torch.float32, device=x.device)
     partial = torch.empty((rows // _GROUP, dp), dtype=torch.float32, device=x.device)
-    weights = [p for i in range(4) for p in (wts[i], folded[f"b{i + 1}"])]
+    biases = [folded[f"b{i}"] for i in range(1, 5)]
     fn = _library().pointnet_pool_infer_f32
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(
-            xp.data_ptr(), *(w.data_ptr() for w in weights), out.data_ptr(),
+            xp.data_ptr(), planes.data_ptr(), *(v.data_ptr() for v in biases), out.data_ptr(),
             act_a.data_ptr(), act_b.data_ptr(), partial.data_ptr(),
             frames, n, np_, c, h, dp, per_pass, stream,
         )

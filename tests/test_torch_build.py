@@ -1,6 +1,9 @@
 """The kernel build's content hash covers the headers a source includes,
 so an edited ``csrc/*.cuh`` never loads a stale library. Builds nothing."""
 
+import re
+
+from benchmark import tracing
 from opensetgaitrecognition_pcaa_tpu_torch.ops import _build
 
 
@@ -34,10 +37,75 @@ def test_digest_ignores_headers_not_included(tmp_path):
     assert _build.source_digest("k", src) == before
 
 
+def _headers(name):
+    """The ``csrc/`` headers ``<name>.cu`` includes, directly or through
+    another header, in include order."""
+    out = []
+
+    def visit(text):
+        for inc in _build._INCLUDE.findall(text):
+            path = _build.SRC_DIR / inc
+            if inc not in out and path.is_file():
+                out.append(inc)
+                visit(path.read_text())
+
+    visit((_build.SRC_DIR / f"{name}.cu").read_text())
+    return out
+
+
 def test_both_pointnet_sources_include_the_engine():
-    for name in ("pointnet_infer", "pointnet_train"):
-        text = (_build.SRC_DIR / f"{name}.cu").read_text()
-        assert _build._INCLUDE.findall(text) == ["tf32x3.cuh"], name
+    # the train layer kernel runs the mma.sync engine; the eval kernel the
+    # wgmma engine, which takes its split and epilogue helpers from it
+    assert _headers("pointnet_train") == ["tf32x3.cuh"]
+    assert _headers("pointnet_infer") == ["tf32x3_wgmma.cuh", "tf32x3.cuh"]
+
+
+def _kernel_names(text):
+    """The ``__global__`` functions of a CUDA source, each with the
+    namespaces around it, as a profiler names them (``a::b::kernel``; an
+    unnamed namespace as ``(anonymous namespace)``)."""
+    text = re.sub(r"//[^\n]*|/\*.*?\*/", "", text, flags=re.S)
+    names, scopes, depth = [], [], 0
+    token = re.compile(r"namespace\s*(\w*)\s*\{|__global__|\{|\}")
+    for m in token.finditer(text):
+        if m.group(0).startswith("namespace"):
+            scopes.append((m.group(1) or "(anonymous namespace)", depth))
+            depth += 1
+        elif m.group(0) == "{":
+            depth += 1
+        elif m.group(0) == "}":
+            depth -= 1
+            if scopes and scopes[-1][1] == depth:
+                scopes.pop()
+        else:
+            name = next(c.group(1) for c in re.finditer(r"(\w+)\s*\(", text[m.end():])
+                        if c.group(1) != "__launch_bounds__")
+            names.append("::".join([s for s, _ in scopes] + [name]))
+    return names
+
+
+def test_kernel_name_parser():
+    text = ("namespace a {\nstruct S { int x; };\n// __global__ void gone()\n"
+            "__global__ void __launch_bounds__(64) k1(int) {}\n}  // namespace a\n"
+            "namespace {\ntemplate <class E>\n__global__ void k2(E e) { if (1) {} }\n}\n"
+            "__global__ void k3() {}\n")
+    assert _kernel_names(text) == ["a::k1", "(anonymous namespace)::k2", "k3"]
+
+
+def test_eval_kernels_keep_names_the_benchmark_finds():
+    """Every kernel the eval PointNet source can launch (its own and those
+    of the headers it includes) carries a name fragment that the
+    benchmark's trace reader counts as the eval kernel
+    (``PORT_KERNELS["pointnet_infer"]``): the roofline reads their device
+    time and the launch check their number."""
+    names = []
+    for path in ["pointnet_infer.cu"] + _headers("pointnet_infer"):
+        names += _kernel_names((_build.SRC_DIR / path).read_text())
+    assert {"tf32x3_wgmma::gemm_kernel", "tf32x3_wgmma::split_kernel",
+            "(anonymous namespace)::group_mean_kernel"} <= set(names), names
+    fragments = tracing.PORT_KERNELS["pointnet_infer"]
+    for name in names:
+        assert any(f in name.lower() for f in fragments), name
 
 
 def test_digest_follows_a_redirected_source_dir(tmp_path, monkeypatch):

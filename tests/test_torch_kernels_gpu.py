@@ -18,8 +18,8 @@ from opensetgaitrecognition_pcaa_tpu_torch.ops import pointnet_train as pt
 from opensetgaitrecognition_pcaa_tpu_torch.ops.chamfer import frame_chamfer, seq_chamfer
 
 
-def _folded(rng, c: int, d: int, device: str = "cpu"):
-    h = d // 2
+def _folded(rng, c: int, d: int, device: str = "cpu", h=None):
+    h = d // 2 if h is None else h
     out = {}
     for i, (a, b) in enumerate([(c, h), (h, h), (h, d), (d, d)], start=1):
         out[f"w{i}"] = (rng.uniform(-1, 1, (a, b)) / np.sqrt(max(a, 1))).astype(np.float32)
@@ -35,19 +35,24 @@ def _needs_card():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "shape,d",
-    [((2, 3, 150, 4), 1024), ((1, 97, 37, 4), 1024), ((3, 5, 33, 4), 512),
-     ((2, 3, 1, 4), 1024), ((4, 5, 16, 4), 1024), ((3, 7, 150, 4), 512), ((2, 3, 150, 5), 1024),
-     ((4, 12, 64, 4), 32), ((4, 12, 64, 4), 64), ((2, 3, 37, 4), 200), ((2, 3, 150, 4), 1536),
-     ((2, 3, 37, 3), 30), ((2, 3, 37, 5), 201)],
+    "shape,d,h",
+    [((2, 3, 150, 4), 1024, None), ((1, 97, 37, 4), 1024, None), ((3, 5, 33, 4), 512, None),
+     ((2, 3, 1, 4), 1024, None), ((4, 5, 16, 4), 1024, None), ((3, 7, 150, 4), 512, None),
+     ((2, 3, 150, 5), 1024, None), ((4, 12, 64, 4), 32, None), ((4, 12, 64, 4), 64, None),
+     ((2, 3, 37, 4), 200, None), ((2, 3, 150, 4), 1536, None), ((2, 3, 37, 3), 30, None),
+     ((2, 3, 37, 5), 201, None), ((1, 1, 1, 4), 1024, None), ((1, 13, 16, 5), 512, None),
+     ((3, 37, 150, 4), 512, 96), ((2, 5, 16, 5), 1024, 260), ((1, 3, 150, 4), 512, 512)],
     ids=["n150", "ragged_f97_n37", "d512", "n1", "n16_no_padding", "d512_n150", "c5",
-         "d32", "d64", "d200", "d1536", "c3_d30_padded", "c5_d201_padded"],
+         "d32", "d64", "d200", "d1536", "c3_d30_padded", "c5_d201_padded", "f1_n1",
+         "c5_d512_n16_f13", "h96_d512_f111", "c5_h260", "h_equals_d"],
 )
-def test_kernel_matches_plain(shape, d):
+def test_kernel_matches_plain(shape, d, h):
+    """The frames here give 16 to 17,760 padded rows, most of them not a
+    multiple of the engine's 256-row tile."""
     _needs_card()
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda()
-    folded = _folded(rng, shape[-1], d, "cuda")
+    folded = _folded(rng, shape[-1], d, "cuda", h)
     before = pn.pointnet_pool_infer.launches
     got = pn.pointnet_pool_infer(x, folded)
     torch.cuda.synchronize()
@@ -57,20 +62,87 @@ def test_kernel_matches_plain(shape, d):
 
 
 @pytest.mark.gpu
-def test_kernel_rows_do_not_depend_on_the_batch(monkeypatch):
+@pytest.mark.parametrize(
+    "n,c,d,h", [(150, 4, 1024, None), (1, 5, 512, None), (16, 4, 512, 96), (37, 5, 1024, 260)],
+    ids=["n150", "n1_c5_d512", "n16_h96", "n37_c5_h260"],
+)
+def test_kernel_rows_do_not_depend_on_the_batch(monkeypatch, n, c, d, h):
     """A frame's pooled row is the same bits alone, in a larger batch and
-    when the batch is walked in several passes."""
+    when the batch is walked in several passes (of 7 frames: 103 passes,
+    most of them not a whole number of the engine's 256-row tiles)."""
     _needs_card()
     rng = np.random.default_rng(14)
-    x = torch.from_numpy(rng.normal(size=(24, 30, 150, 4)).astype(np.float32)).cuda()
-    folded = _folded(rng, 4, 1024, "cuda")
+    x = torch.from_numpy(rng.normal(size=(24, 30, n, c)).astype(np.float32)).cuda()
+    folded = _folded(rng, c, d, "cuda", h)
     whole = pn.pointnet_pool_infer(x, folded)
     alone = torch.cat([pn.pointnet_pool_infer(x[i:i + 1, 3:11], folded) for i in (0, 5, 23)])
-    monkeypatch.setattr(pn, "_PASS_ROWS", 7 * 160)  # 7 frames a pass: 103 passes
+    monkeypatch.setattr(pn, "_PASS_ROWS", 7 * (-(-n // 16) * 16))
     passes = pn.pointnet_pool_infer(x, folded)
     torch.cuda.synchronize()
     assert torch.equal(alone, whole[[0, 5, 23], 3:11])
     assert torch.equal(passes, whole)
+
+
+@pytest.mark.gpu
+def test_kernel_is_deterministic():
+    """Two calls on a 256-crop chunk give the same bits."""
+    _needs_card()
+    rng = np.random.default_rng(15)
+    x = torch.from_numpy(rng.normal(size=(256, 30, 150, 4)).astype(np.float32)).cuda()
+    folded = _folded(rng, 4, 1024, "cuda")
+    first = pn.pointnet_pool_infer(x, folded)
+    second = pn.pointnet_pool_infer(x, folded)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+def test_epilogue_elu_is_f_elu_on_every_float():
+    """The eval kernel's branch-free ELU against F.elu on all 2^32 f32 bit
+    patterns, in chunks: equal values everywhere, a NaN for a NaN
+    (expm1f(-0) is -0 where the kernel gives +0, an equal value)."""
+    _needs_card()
+    chunk = 1 << 28
+    for start in range(0, 1 << 32, chunk):
+        bits = torch.arange(start, start + chunk, dtype=torch.int64, device="cuda")
+        bits = torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(torch.int32)
+        x = bits.view(torch.float32)
+        got, want = pn.epilogue_elu(x), torch.nn.functional.elu(x)
+        same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+        bad = (~same).nonzero()
+        assert bad.numel() == 0, (start, x[bad[:5, 0]].tolist(), got[bad[:5, 0]].tolist(),
+                                  want[bad[:5, 0]].tolist())
+        del bits, x, got, want, same
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,d,h", [(4, 1024, None), (8, 200, 100), (12, 36, 20)],
+                         ids=["main_path", "d200_h100", "c12_d36_h20"])
+def test_split_planes_are_the_emulations_bits(c, d, h):
+    """The kernel's (hi, lo) planes of each transposed weight equal
+    ``ops/tf32x3.py::split_tf32`` bit for bit, over random values and values
+    on TF32's rounding ties, signed zeros, the least normal and a large one."""
+    _needs_card()
+    from opensetgaitrecognition_pcaa_tpu_torch.ops.tf32x3 import split_tf32
+
+    rng = np.random.default_rng(16)
+    folded = _folded(rng, c, d, "cpu", h)
+    w4 = folded["w4"].view(-1).view(torch.int32)
+    # 1 + 2^-11 (a tie), its negative, 1 + 3 * 2^-11 (a tie), the least normal,
+    # 2^127, +0, -0, 2 - 2^-11 (a tie that carries into the exponent)
+    special = torch.tensor([0x3F801000, -0x407FF000, 0x3F803000, 0x00800000, 0x7F000000,
+                            0x00000000, -0x80000000, 0x3FFFF000], dtype=torch.int32)
+    w4[:len(special)] = special
+    cuda = {k: v.cuda() for k, v in folded.items()}
+    planes = pn.split_planes(cuda).cpu()
+    at = 0
+    for k in ("w1", "w2", "w3", "w4"):
+        w = folded[k].t().contiguous()
+        for want in split_tf32(w):
+            got = planes[at:at + w.numel()].view(w.shape)
+            at += w.numel()
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32)), k
+    assert at == planes.numel()
 
 
 @pytest.mark.gpu
@@ -132,6 +204,14 @@ def test_argument_checks_accept_any_channel_count(c):
 def test_argument_checks_accept_main_path_shapes():
     x, folded = _cpu_case()
     assert pn._check_cuda_args(x, folded) == 1024
+
+
+def test_split_planes_and_elu_refuse_cpu_tensors():
+    x, folded = _cpu_case()
+    with pytest.raises(ValueError, match="CUDA"):
+        pn.split_planes(folded)
+    with pytest.raises(ValueError, match="CUDA"):
+        pn.epilogue_elu(x)
 
 
 def test_no_kernel_for_other_devices():
