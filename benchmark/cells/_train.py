@@ -195,7 +195,7 @@ def reference_inputs(ctx, readings: Dict, device) -> Tuple[torch.Tensor, torch.T
 def weights(ctx, device) -> Dict[str, torch.Tensor]:
     """The benchmark's weights of the cell's model, made on ``device`` from
     the seed."""
-    leaves = ref_params.MODELS[ctx.config["model"]](ctx.dims, ctx.n_classes)
+    leaves = ref_params.leaves(ctx.config["model"], ctx.dims, ctx.n_classes)
     return ref_params.make(leaves, ctx.seed, device)
 
 

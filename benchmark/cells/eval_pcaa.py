@@ -105,7 +105,8 @@ class Cell:
         return {"pointnet_infer": pointnet_pool_infer.launches}
 
     def info(self) -> Dict:
-        return {"dims": dict(self.ctx.dims), "batch": self.batch, "n_classes": self.ctx.n_classes}
+        return {"dims": dict(self.ctx.dims), "batch": self.batch,
+                "family": self.ctx.config["family"], "n_classes": self.ctx.n_classes}
 
     def readings(self) -> Dict:
         return {"x": self.x, "outputs": self.outputs}

@@ -7,8 +7,7 @@ A cell (``workloads`` of ``BENCHMARK.json``) names a configuration
 configuration's ``family`` pick the cell module ``benchmark/cells/
 <mode>_<family>.py``; each per-layer metric is read by
 ``benchmark/metrics/<metric>.py``; each cell's limits of the comparison are
-``benchmark/limits/<cell>.json``. A new cell, configuration, mix or metric
-is a new file and a new entry.
+``benchmark/limits/<cell>.json``.
 
 A cell module has ``Cell(ctx)``, whose construction is the cell's
 set-up (build, weights and inputs from the seed, warm-up, and the program's
@@ -16,10 +15,42 @@ readings that the comparison needs), and whose methods are
 ``window(deadline) → work``, ``segment() → work`` (a fixed steady part, for
 the trace), ``end_to_end(work, seconds) → {metric: value}``,
 ``attempted() → (attempted, failed)``, ``counted()`` (the program's launch
-counters), ``info()`` (what the metric readers need of the cell),
+counters by kernel part), ``info()`` (what the metric readers need of the
+cell: its ``dims``, ``batch``, ``family`` and ``n_classes``),
 ``readings()`` and ``free()``; and ``reference(ctx, readings, exact)``,
 ``compare(program, reference) → [(name, value)]`` and ``check(ctx,
 readings) → [(name, value, limit)]``, which runs the reference.
+
+A traced run (``--trace 1``) runs half the window untraced, then the
+segment under ``tracing.traced`` (device activity, whose times the
+``device_trace`` metrics and ``busy_s``, ``window_s`` and ``breakdown``
+read, and a pass with the host's ops) and once more inside the program's
+recorder (``program.traced_program``), whose spans and counters the
+``program_span`` and ``program_counter`` metrics read.
+
+How a configuration enters: by new files, and by entries appended to
+``BENCHMARK.json``; no file the benchmark has is edited.
+
+- ``configs/<config>.json``: the sizes as run, with ``family`` and
+  ``model``, and its entry under ``configs``;
+- ``traffic/<mix>.json``, where the mix is new (the general generator in
+  ``traffic.py`` reads it);
+- ``cells/<mode>_<family>.py``, where the family is new: the cell module
+  above, with its plain reference beside it;
+- ``reference/<model>.py`` with ``leaves(dims, n_classes)``: the model's
+  parameters by name, shape and range (``reference/params.py::leaves``);
+- ``flops/<family>.py`` with ``step_flops(dims, batch, n_classes)`` and,
+  for an eval cell, ``crop_flops(dims, n_classes)``: what ``train_mfu``
+  and ``eval_mfu`` count;
+- ``kernels/<part>.json`` for each key of ``counted()`` that is new: the
+  name fragments of the part's kernels (``tracing.PORT_KERNELS``);
+- ``limits/<cell>.json``: the limits of the comparison;
+- ``metrics/<metric>.py`` for each new per-layer metric, and its entry
+  under ``per_layer``.
+
+The cell goes under ``workloads``, and its name is appended to the
+``workloads`` list of each metric it reports; those lists are the only
+existing entries it touches.
 """
 
 from __future__ import annotations
@@ -50,15 +81,20 @@ def process_age_s() -> float:
     return uptime - start_ticks / os.sysconf("SC_CLK_TCK")
 
 
-def note(what: str) -> None:
-    """A set-up stage's end, in seconds since the process started, on
-    standard error."""
-    print(f"setup {what} {process_age_s():.3f}", file=sys.stderr, flush=True)
+def note(what: str, phase: str = "setup") -> None:
+    """A stage's end, in seconds since the process started, on standard
+    error: a set-up stage, or a ``traced`` run's pass."""
+    print(f"{phase} {what} {process_age_s():.3f}", file=sys.stderr, flush=True)
 
 
 def _json(path: str) -> Dict:
     with open(path) as f:
         return json.load(f)
+
+
+def load_manifest() -> Dict:
+    """``BENCHMARK.json`` of this checkout."""
+    return _json(os.path.join(ROOT, "BENCHMARK.json"))
 
 
 @dataclasses.dataclass
@@ -91,7 +127,7 @@ def load_context(workload: str, seed: int, device: str, manifest: Optional[Dict]
                  dims: Optional[Dict] = None, **hooks) -> Context:
     """The cell's context from ``BENCHMARK.json`` and the cell's files;
     ``dims`` replaces configuration values (the CPU tests' small sizes)."""
-    manifest = manifest or _json(os.path.join(ROOT, "BENCHMARK.json"))
+    manifest = manifest or load_manifest()
     cells = {w["name"]: w for w in manifest["workloads"]}
     if workload not in cells:
         raise SystemExit(f"no workload {workload!r} in BENCHMARK.json: {sorted(cells)}")
@@ -176,7 +212,7 @@ def run(ctx: Context, seconds: float, trace: bool, started: float) -> Tuple[Dict
     """One run → (the result object, the compared numbers ``[(name,
     value, limit)]``). ``started``: the process's start on the
     ``time.perf_counter`` clock."""
-    from benchmark import tracing
+    from benchmark import program, tracing
 
     drv = cell_module(ctx)
     cell = drv.Cell(ctx)
@@ -196,7 +232,13 @@ def run(ctx: Context, seconds: float, trace: bool, started: float) -> Tuple[Dict
     else:
         # a steady part: the first half of the window untraced, then the segment
         cell.window(time.perf_counter() + seconds / 2)
+        note("untraced", "traced")
         tr, with_host = tracing.traced(cell.segment, cell.counted, cell.info())
+        note("device_and_host", "traced")
+        # a third pass, inside the program's recorder: its spans and counters,
+        # which the span metrics read; the device times stay the first pass's
+        tr.program = program.traced_program(cell.segment, cell.counted, cell.info())
+        note("program", "traced")
         metrics = {}
         for m in ctx.per_layer:
             value = metric_reader(m["name"])(tr)
@@ -211,6 +253,8 @@ def run(ctx: Context, seconds: float, trace: bool, started: float) -> Tuple[Dict
     del cell
     free_device()
     compared = drv.check(ctx, readings)
+    if trace:
+        note("reference", "traced")
     correct = bool(compared) and all(math.isfinite(v) and v <= lim for _, v, lim in compared)
     result = {"correct": correct and failed == 0, "attempted": attempted, "failed": failed,
               "metrics": metrics, "device": device}

@@ -7,22 +7,23 @@ stamps its events on; a span becomes the trace's µs as ``(ns −
 trace_start_ns) / 1e3``. ``traced_program`` is a third traced pass beside
 ``tracing.traced``'s two: device activity only, taken again while it holds
 fewer launches of a port kernel than the counters say, with the segment run
-inside the recorder. Its readers: ``benchmark/metrics/step_idle_ms.train.py``,
-``epoch_idle_ms.train.py``, ``host_syncs_per_step.train.py`` and
-``h2d_idle_ms_per_chunk.eval.py``, each of which reads ``trace.program``
-and returns None where the trace has none.
+inside the recorder. ``harness.run`` takes it in every traced run and hands
+it to the readers as ``trace.program``. Its readers are the per-layer
+metrics whose ``source`` is ``program_span`` or ``program_counter``
+(``METRICS``): ``benchmark/metrics/step_idle_ms.train.py`` and the like,
+each of which returns None where the trace has none of its spans.
 
-``harness.run`` does not take this pass yet. Until it does, run a cell with it:
+For the breakdown by span, run a cell with this pass's own line:
 
     python3 -m benchmark.program --workload <cell> --seed <n> --seconds <s>
 
 from the root of a checkout: as ``benchmark.run --trace 1`` (half the
 window untraced, then ``tracing.traced``), then this pass; it prints one
-line with the per-layer metrics of ``BENCHMARK.json`` and of ``METRICS``,
-the first and the third pass's window and busy time, and the breakdowns
-``idle_by_span`` (device-idle ms by the innermost program span),
-``device_ms_by_span`` (device ms by the span open at the kernel's launch)
-and ``syncs_by_span`` (host syncs by the innermost span).
+line with the cell's per-layer metrics, the first and the third pass's
+window and busy time, and the breakdowns ``idle_by_span`` (device-idle ms
+by the innermost program span), ``device_ms_by_span`` (device ms by the
+span open at the kernel's launch) and ``syncs_by_span`` (host syncs by the
+innermost span).
 """
 
 from __future__ import annotations
@@ -39,11 +40,11 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 from benchmark import harness, tracing
 
-TRAIN = ["pcaa_v4.train_b16", "orced.train_b16"]
-# the per-layer metrics that read this pass: unit and cells, as BENCHMARK.json would list them
-METRICS = {"step_idle_ms.train": ("ms", TRAIN), "epoch_idle_ms.train": ("ms/epoch", TRAIN),
-           "host_syncs_per_step.train": ("syncs/step", TRAIN),
-           "h2d_idle_ms_per_chunk.eval": ("ms", ["pcaa_v4.eval_b256"])}
+SOURCES = ("program_span", "program_counter")
+# the per-layer metrics that read this pass, by their ``source`` in
+# BENCHMARK.json, and their units; their cells are their entries' ``workloads``
+METRICS = {m["name"]: m["unit"] for m in harness.load_manifest()["per_layer"]
+           if m["source"] in SOURCES}
 NONE = "none"  # outside every span of the program
 
 
@@ -114,10 +115,7 @@ def traced_program(segment: Callable[[], Dict[str, float]], counted: Callable[[]
         gc.collect()
         before = counted()
         pt = _profile(segment, cell)
-        after = counted()
-        short = sorted(part for part in after
-                       if sum(1 for k in pt.kernels if tracing.is_port_kernel(k[0], part))
-                       < after[part] - before[part])
+        short = tracing.short_of(pt.kernels, before, counted())
         if not short:
             break
         print(f"program trace {attempt} of {tracing.RETAKES} holds fewer launches than the "
@@ -252,13 +250,11 @@ def run(ctx: harness.Context, seconds: float) -> Dict:
     tr, _ = tracing.traced(cell.segment, cell.counted, cell.info())
     pt = traced_program(cell.segment, cell.counted, cell.info())
     tr.program = pt
-    units = {m["name"]: m["unit"] for m in ctx.per_layer}
-    units.update({k: u for k, (u, cells) in METRICS.items() if ctx.workload["name"] in cells})
     metrics = {}
-    for name, unit in units.items():
-        value = harness.metric_reader(name)(tr)
+    for m in ctx.per_layer:
+        value = harness.metric_reader(m["name"])(tr)
         if value is not None:
-            metrics[name] = {"value": value, "unit": unit}
+            metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     span_s = (pt.window[1] - pt.window[0]) / 1e6
     idle_s = sum(b - a for a, b in idle(pt)) / 1e6
     breakdown = {"idle_by_span": idle_by_span(pt), "syncs_by_span": syncs_by_span(pt)}

@@ -1,4 +1,6 @@
 """The parameters of each model, by name and shape, and their seeded values.
+A model that ``MODELS`` does not hold has a file of its own beside this one,
+``benchmark/reference/<model>.py``, with ``leaves(dims, n_classes)``.
 
 The names are the keys under which the program's modules hold the same
 tensors, so the benchmark can hand one set of weights to both sides.
@@ -7,6 +9,8 @@ Dense kernels are ``(out, in)``, conv kernels ``(out, in, 3)``.
 
 from __future__ import annotations
 
+import importlib
+import os
 from typing import Dict, List, Tuple
 
 import torch
@@ -97,6 +101,18 @@ def orced(dims: Dict, n_classes: int) -> List[Leaf]:
 
 
 MODELS = {"pcaa_v4": pcaa_v4, "orced": orced, "pcaa_v4_encoder": pcaa_encoder}
+
+
+def leaves(model: str, dims: Dict, n_classes: int) -> List[Leaf]:
+    """The leaves of ``model``: its entry in ``MODELS``, or else
+    ``leaves(dims, n_classes)`` of ``benchmark/reference/<model>.py``."""
+    if model in MODELS:
+        return MODELS[model](dims, n_classes)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), model + ".py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no model {model!r}: neither in MODELS of {__file__} nor "
+                                f"{path}")
+    return importlib.import_module(f"{__package__}.{model}").leaves(dims, n_classes)
 
 
 def make(leaves: List[Leaf], seed: int, device) -> Dict[str, torch.Tensor]:

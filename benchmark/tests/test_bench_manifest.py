@@ -8,7 +8,8 @@ import re
 
 import pytest
 
-from benchmark import harness
+from benchmark import flops, harness, tracing
+from benchmark.tests.conftest import tiny_context
 
 ROOT = harness.ROOT
 MANIFEST = json.load(open(os.path.join(ROOT, "BENCHMARK.json")))
@@ -105,3 +106,31 @@ def test_config_entry(config):
         assert NAME.match(key) and not WIDTH.search(key)
     for key in ("source", "why"):
         assert 1 <= len(config[key]) <= 200 and "\n" not in config[key] and "\t" not in config[key]
+
+
+# what each MFU metric asks of a family's FLOP count
+FLOP_COUNTS = {"train_mfu": "step_flops", "eval_mfu": "crop_flops"}
+
+
+@pytest.mark.parametrize("metric,cell", [(m["name"], c) for m in MANIFEST["per_layer"]
+                                         if m["name"] in FLOP_COUNTS
+                                         for c in m.get("workloads", CELLS)])
+def test_mfu_cells_have_their_familys_flops(metric, cell):
+    ctx = harness.load_context(cell, 1, "cpu", manifest=MANIFEST)
+    family = ctx.config["family"]
+    assert os.path.isfile(os.path.join(flops.HERE, family + ".py")), family
+    assert callable(getattr(flops.family(family), FLOP_COUNTS[metric], None)), family
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_counted_parts_have_kernel_files(cell):
+    """Every key of the cell's launch counters is a part with a
+    ``benchmark/kernels/<part>.json``."""
+    ctx = tiny_context(cell, 1)
+    built = harness.cell_module(ctx).Cell(ctx)
+    parts = built.counted()
+    built.free()
+    assert parts
+    for part in parts:
+        assert os.path.isfile(os.path.join(tracing.KERNELS, part + ".json")), part
+        assert tracing.fragments(part) == tracing.PORT_KERNELS[part]

@@ -13,7 +13,11 @@ import pytest
 from benchmark import harness, program
 from benchmark.tests.conftest import tiny_context
 
-CELLS = [w["name"] for w in json.load(open(harness.ROOT + "/BENCHMARK.json"))["workloads"]]
+MANIFEST = harness.load_manifest()
+CELLS = [w["name"] for w in MANIFEST["workloads"]]
+# each metric that reads the pass, with each cell its entry lists
+LISTED = [(m["name"], cell) for m in MANIFEST["per_layer"] if m["name"] in program.METRICS
+          for cell in m.get("workloads", CELLS)]
 SEED = 2**32 + 21
 _cells = {}
 
@@ -49,25 +53,41 @@ def test_an_eval_segment_records_its_chunks():
     assert all(pt.window[0] <= a <= b <= pt.window[1] for _, _, a, b in pt.spans)
 
 
-@pytest.mark.parametrize("workload", CELLS)
-@pytest.mark.parametrize("metric", sorted(program.METRICS))
-def test_each_metric_reads_a_number_where_its_spans_are(workload, metric):
+def test_the_pass_has_its_metrics():
+    assert {"step_idle_ms.train": "ms", "epoch_idle_ms.train": "ms/epoch",
+            "host_syncs_per_step.train": "syncs/step",
+            "h2d_idle_ms_per_chunk.eval": "ms"}.items() <= program.METRICS.items()
+
+
+@pytest.mark.parametrize("metric,workload", LISTED)
+def test_each_metric_reads_a_number_where_its_spans_are(metric, workload):
+    """A number in every cell that the metric's entry lists; None from a
+    trace with no program pass."""
     class First:  # the first pass's trace, which the harness hands the readers
         program = traced(workload)
 
     value = harness.metric_reader(metric)(First())
-    if workload in program.METRICS[metric][1]:
-        assert isinstance(value, float) and math.isfinite(value) and value >= 0
-    else:
-        assert value is None
+    assert isinstance(value, float) and math.isfinite(value) and value >= 0
     assert harness.metric_reader(metric)(object()) is None
+
+
+def test_the_harness_reports_the_span_metrics():
+    """A traced run of the harness takes the pass: a training cell's line
+    holds the three span metrics of the train step."""
+    ctx = tiny_context("pcaa_v4.train_b16", SEED)
+    result, _ = harness.run(ctx, 0.3, True, time.perf_counter())
+    assert result["correct"] is True
+    for name in ("step_idle_ms.train", "epoch_idle_ms.train", "host_syncs_per_step.train"):
+        m = result["metrics"][name]
+        assert m["unit"] == program.METRICS[name] and math.isfinite(m["value"]), name
+    assert set(result["breakdown"]) == {"device_ops", "idle_gaps"}
 
 
 def test_a_cells_run_with_the_pass():
     ctx = tiny_context("orced.train_b16", SEED)
     line = program.run(ctx, 0.3)
     json.dumps(line)
-    assert set(program.METRICS) - {"h2d_idle_ms_per_chunk.eval"} <= set(line["metrics"])
+    assert {n for n, cell in LISTED if cell == "orced.train_b16"} <= set(line["metrics"])
     for m in line["metrics"].values():
         assert isinstance(m["value"], float)
     assert line["metrics"]["host_syncs_per_step.train"]["value"] == 0.0  # no card: no syncs

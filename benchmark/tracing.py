@@ -11,6 +11,9 @@ the program's kernels than its launch counters say is taken again.
 from __future__ import annotations
 
 import dataclasses
+import glob
+import json
+import os
 import sys
 import time
 from typing import Callable, Dict, List, Optional, Tuple
@@ -19,13 +22,20 @@ from typing import Callable, Dict, List, Optional, Tuple
 PEAK_FLOPS = {"tf32": 495e12, "bf16": 989e12, "f32": 67e12}
 PEAK_BYTES = 3.35e12
 
-# the program's own kernels by what they belong to: name fragments
-PORT_KERNELS = {
-    "pointnet_train": ("tf32x3", "stats_kernel", "pool_kernel", "wgmma_bf16", "pool_bf16"),
-    "pointnet_infer": ("tf32x3", "group_mean_kernel"),
-    "adam": ("adam_kernel",),
-    "chamfer": ("chamfer_kernel", "chamfer_any_kernel"),
-}
+# the program's own kernels by the part they belong to (a key of a cell's
+# ``counted()``): ``benchmark/kernels/<part>.json``, its name fragments
+KERNELS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "kernels")
+
+
+def _parts() -> Dict[str, Tuple[str, ...]]:
+    parts = {}
+    for path in sorted(glob.glob(os.path.join(KERNELS, "*.json"))):
+        with open(path) as f:
+            parts[os.path.basename(path)[: -len(".json")]] = tuple(json.load(f))
+    return parts
+
+
+PORT_KERNELS = _parts()
 _GEMM = ("gemm", "cutlass", "xmma", "cublas", "sgemm", "conv", "cudnn", "fprop", "dgrad",
          "wgrad", "implicit")
 _COPY = ("memcpy", "memset")
@@ -48,9 +58,31 @@ class Trace:
     window: Tuple[float, float] = (0.0, 0.0)
 
 
+def fragments(part: str) -> Tuple[str, ...]:
+    """The name fragments of ``part``'s kernels; an error that names the
+    missing file where the part has none."""
+    if part not in PORT_KERNELS:
+        raise FileNotFoundError(f"no kernel part {part!r}: "
+                                f"{os.path.join(KERNELS, part + '.json')} is missing")
+    return PORT_KERNELS[part]
+
+
 def is_port_kernel(name: str, part: str) -> bool:
     low = name.lower()
-    return any(n in low for n in PORT_KERNELS[part])
+    return any(n in low for n in fragments(part))
+
+
+def short_of(kernels: List[Tuple[str, float, float]], before: Dict[str, int],
+             after: Dict[str, int]) -> List[str]:
+    """The parts of which ``kernels`` holds fewer launches than their
+    counters rose by from ``before`` to ``after``."""
+    short = []
+    for part in sorted(after):
+        needles = fragments(part)
+        launched = sum(1 for k in kernels if any(n in k[0].lower() for n in needles))
+        if launched < after[part] - before[part]:
+            short.append(part)
+    return short
 
 
 def kind(name: str) -> str:
@@ -180,10 +212,7 @@ def traced(segment: Callable[[], Dict[str, float]], counted: Callable[[], Dict[s
     for attempt in range(1, RETAKES + 1):
         before = counted()
         work, seconds, kernels, _, _ = _profile(segment, host=False)
-        after = counted()
-        short = sorted(part for part in after
-                       if sum(1 for k in kernels if is_port_kernel(k[0], part))
-                       < after[part] - before[part])
+        short = short_of(kernels, before, counted())
         if not short:
             break
         print(f"trace {attempt} of {RETAKES} holds fewer launches than the counters of {short}: "
