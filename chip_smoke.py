@@ -203,7 +203,20 @@ with seeded random weights and seeded crop files. Phases:
       against full f32 nu, ms per step;
    f. ``run_pcaa_ablation --variants V4 --compute-dtype bfloat16
       --bf16-weight-cache`` (kernels on) against the same call without the
-      flag: the module files under 15b's gate.
+      flag: the module files under 15b's gate;
+16. the P4Transformer kernels (``csrc/p4t_group.cu``, ``csrc/p4t_tube.cu``)
+   at the shapes of the benchmark cell ``pcaa_v4_p4t.train_b16`` (B 16, T
+   30, N 150, M 75, K 32, D 1024) on the benchmark's synthetic crops:
+   farthest-point sampling and the ball query bitwise to their plain
+   versions on 48 crops (and the mean ball fill, off any timed path), the
+   tube's forward bitwise (maxima and argmax) and its weight gradient
+   against the plain one; each kernel timed plain, kernel, kernel, plain
+   by CUDA events beside its bound; then the P4Transformer encoder's
+   forward and backward at B 16 (ms, peak memory); then one training step
+   of the cell's model (``build_pcaa(..., encoder=P4TSpec())``,
+   ``make_epoch_fns``) at B 16 with the launch counts at 0, whose counts
+   (1 sampling, 1 ball query, the tube's forward and backward) are the
+   record's ``launches``.
 
 It exits non-zero, with no result line, when there is no CUDA card or a
 phase fails. The line before the last is the per-kernel JSON record (its
@@ -236,7 +249,8 @@ and runs phase 7a's timing, for comparing trees of the port in one call;
 ``--codec-timing`` times the run-folder codec alone the same way, and
 ``--pointnet-bf16-timing`` phase 11a's bf16 layer and pool timing, and
 ``--pointnet-infer-timing`` phase 2 (the eval PointNet kernel's checks
-and timings) and phase 4's serving call on a seeded encoder.
+and timings) and phase 4's serving call on a seeded encoder, and ``--p4t``
+phase 16 alone.
 ``--mesh-nccl`` runs phase 14's runs on a machine with 4 cards, with
 NCCL: V4 at DP 4 and DP 2 x MP 2, OR-CED at DP 2 x MP 2.
 ``--grid-cards`` times a grid chunk of GRID_CARD_RUNS V4 runs over every
@@ -4541,6 +4555,138 @@ def infer_kernel_phase(card: str) -> tuple:
     return max_err, pn_ms, pn_bound
 
 
+P4T_MIX = {"crops": 48, "classes": 6, "frames": [60, 100], "points": [40, 220]}
+P4T_DIMS = {"NMAX": 150, "NSTEPS": 30, "CROP_STEP": 6}
+P4T_CELL = "pcaa_v4_p4t.train_b16"
+
+
+def p4t_phase(card: str) -> None:
+    """Phase 16 (the module docstring); one JSON line of the kernels' rows."""
+    import torch
+
+    from benchmark import harness, traffic
+    from benchmark.cells import train_pcaa_p4t as p4t_cell
+    from opensetgaitrecognition_pcaa_tpu_torch.config import VARIATION
+    from opensetgaitrecognition_pcaa_tpu_torch.infer.common import ieee_f32
+    from opensetgaitrecognition_pcaa_tpu_torch.models.p4t import P4TEncoder
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import _build
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import p4t_group as pg
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import p4t_tube as pt
+    from opensetgaitrecognition_pcaa_tpu_torch.train.pcaa import (
+        VARIANTS,
+        build_pcaa,
+        make_epoch_fns,
+    )
+
+    t_phase = time.perf_counter()
+    ieee_f32()
+    _build.load_libraries(("p4t_group", "p4t_tube"))
+    for name in ("p4t_group", "p4t_tube"):
+        for line in _build.BUILD_LOGS.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  nvcc {name}: {line.strip()}")
+    pg.furthest_point_sample.launches = pg.ball_query.launches = pt.tube_embed.launches = 0
+    crops = torch.from_numpy(traffic.crops(P4T_MIX, P4T_DIMS, SEED)[0]).cuda()
+    b, t_len, n, _ = 16, 30, 150, 4
+    m, k, d = 75, 32, 1024
+    fills = []
+    for i in range(0, crops.shape[0], b):
+        x = crops[i:i + b].contiguous()
+        anchor = pg.furthest_point_sample(x[:, 0::2], m)
+        assert torch.equal(anchor, pg.furthest_point_sample_ref(x[:, 0::2], m)), "fps"
+        ball = pg.ball_query(x, anchor, 0.7, k)
+        assert torch.equal(ball, pg.ball_query_ref(x, anchor, 0.7, k, 3, 2, 1)), "ball"
+        a = torch.gather(x[:, 0::2, :, :3], 2, anchor[..., None].expand(-1, -1, -1, 3))
+        nb = x[:, pg.neighbour_frames(t_len, 15, 3, 2, 1).reshape(-1).cuda()]
+        nb = nb.reshape(b, 15, 1, 3, n, 4)
+        inside = pg.sq_dist(nb, a[:, :, :, None, None, :]) < pg.radius_sq(0.7)
+        fills.append(inside.sum(dim=-1).clamp(max=k).float())
+    fill = torch.cat(fills)
+    log(f"phase 16: fps and ball query bitwise to plain on {crops.shape[0]} crops; mean ball "
+        f"fill {float(fill.mean()):.3f} of {k}, full {float((fill == k).float().mean()):.4f}, "
+        f"empty {float((fill == 0).float().mean()):.4f} [{card}]")
+
+    x = crops[:b].contiguous()
+    anchor = pg.furthest_point_sample(x[:, 0::2], m)
+    ball = pg.ball_query(x, anchor, 0.7, k)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    w_d = (torch.rand((d, 4), generator=gen, device="cuda") - 0.5).requires_grad_()
+    w_f = (2 * torch.rand((d, 1), generator=gen, device="cuda") - 1).requires_grad_()
+    w = torch.cat([w_d, w_f], 1).detach().contiguous()
+    out = pt.tube_embed(x, anchor, ball, w_d, w_f)
+    best, arg = pt.tube_forward_ref(x, anchor, ball, w, 3, 2, 1)
+    assert torch.equal(out, best), "tube forward"
+    g = torch.randn(out.shape, device="cuda", generator=gen)
+    dw = torch.cat(torch.autograd.grad(out, (w_d, w_f), g, retain_graph=True), 1)
+    dw_ref = pt.tube_backward_ref(x, anchor, ball, g, arg, 3, 2, 1)
+    bwd_err = float((dw - dw_ref).abs().max() / dw_ref.abs().max())
+    assert bwd_err < 1e-5, bwd_err
+    log(f"phase 16: tube forward bitwise to plain; weight gradient within {bwd_err:.2e} of "
+        f"plain (max |diff| over max |plain|) [{card}]")
+
+    tokens, rows, frames = b * 15 * m, b * 15 * m * 3 * k, b * 15
+    crop_bytes = 4 * b * t_len * n * 4
+    idx_bytes = 8 * (tokens + rows)
+    fns = {
+        "p4t_fps": (lambda: pg.furthest_point_sample(x[:, 0::2], m),
+                    lambda: pg.furthest_point_sample_ref(x[:, 0::2], m),
+                    bound(frames * (m - 1) * n * 9, frames * (4 * n * 3 + 8 * m))),
+        "p4t_ball_query": (lambda: pg.ball_query(x, anchor, 0.7, k),
+                           lambda: pg.ball_query_ref(x, anchor, 0.7, k, 3, 2, 1),
+                           bound(0, crop_bytes * 3 / 4 + 8 * tokens + 8 * rows)),
+        "p4t_tube forward": (lambda: pt.tube_embed(x, anchor, ball, w_d.detach(), w_f.detach()),
+                             lambda: pt.tube_forward_ref(x, anchor, ball, w, 3, 2, 1),
+                             bound(2 * rows * 5 * d, crop_bytes + idx_bytes + 20 * d
+                                   + 5 * tokens * d)),
+        "p4t_tube backward": (lambda: torch.autograd.grad(out, (w_d, w_f), g, retain_graph=True),
+                              lambda: pt.tube_backward_ref(x, anchor, ball, g, arg, 3, 2, 1),
+                              bound(2 * tokens * 5 * d, crop_bytes + idx_bytes + 20 * d
+                                    + 5 * tokens * d)),
+    }
+    rows_out = []
+    for name, (kernel, plain, (bound_ms, bound_by)) in fns.items():
+        ms = alternate({"plain": plain, "kernel": kernel}, ("plain", "kernel", "kernel", "plain"),
+                       20)
+        row = dict(kernel=name, ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=bound_ms,
+                   bound_by=bound_by, share=bound_ms / ms["kernel"])
+        rows_out.append(row)
+        log(f"phase 16: {name}: kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), {100 * row['share']:.1f}% of it [{card}]")
+
+    enc = P4TEncoder(6, generator=torch.Generator().manual_seed(SEED)).cuda()
+    torch.cuda.reset_peak_memory_stats()
+
+    def fwd_bwd():
+        logits, fv = enc(x)
+        torch.autograd.grad(logits.sum() + fv.sum(), list(enc.parameters()))
+
+    step_ms = cuda_ms(fwd_bwd, 5)
+    log(f"phase 16: the P4Transformer encoder at B 16 ({tokens} tokens), forward and backward: "
+        f"{step_ms:.2f} ms, peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+        f"[{card}]")
+    del enc
+
+    # the launches of one training step of the cell's model on the main path
+    cell = harness.load_context(P4T_CELL, SEED, "cuda")
+    cfg = p4t_cell.config(cell)
+    variant = dataclasses.replace(VARIANTS[VARIATION.V4], use_disc_head=True)
+    mods, state = build_pcaa(cfg, variant, device="cuda", encoder=p4t_cell.spec(cell))
+    train_epoch = make_epoch_fns(mods, cfg)[0]
+    labels = torch.from_numpy(traffic.crops(P4T_MIX, P4T_DIMS, SEED)[1]).cuda()
+    pg.furthest_point_sample.launches = pg.ball_query.launches = pt.tube_embed.launches = 0
+    state, _ = train_epoch(state, crops, labels, torch.arange(b)[None])
+    torch.cuda.synchronize()
+    launches = {"fps": pg.furthest_point_sample.launches, "ball": pg.ball_query.launches,
+                "tube": pt.tube_embed.launches}
+    assert launches == {"fps": 1, "ball": 1, "tube": 2}, launches
+    log(f"phase 16: one make_epoch_fns step of {P4T_CELL}'s model at B {b}: launches {launches} "
+        f"(the tube's forward and backward) [{card}]")
+    del mods, state
+    log(json.dumps({"p4t_kernels": rows_out, "encoder_fwd_bwd_ms": step_ms,
+                    "mean_ball_fill": float(fill.mean()), "launches": launches}))
+    log(f"phase 16: {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
 def pointnet_infer_timing() -> int:
     """``--pointnet-infer-timing``: build the eval PointNet kernel of the
     tree this file lies in and run phase 2 (checks and timings), then phase
@@ -4606,6 +4752,9 @@ def main() -> int:
         return pointnet_infer_timing()
     if sys.argv[1:] == ["--precision-gate"]:
         return precision_gate()
+    if sys.argv[1:] == ["--p4t"]:
+        p4t_phase(card_name())
+        return 0
     if sys.argv[1:] == ["--mesh-nccl"]:
         return mesh_nccl()
     if sys.argv[1:] == ["--grid-cards"]:
@@ -4841,6 +4990,9 @@ def main() -> int:
     # --- 15. the weight cache, the deferred decoder write, factored Adam ----------------
     copy_checks, copy_launches = options_phase(card, gen, os.path.join(WORK, "raw"))
 
+    # --- 16. the P4Transformer kernels ------------------------------------------------------
+    p4t_phase(card)
+
     checks["infer"] = dict(err=max_err, ms=pn_ms["kernel"], plain_ms=pn_ms["plain"],
                            library_ms=None, **pn_bound)
     src = "opensetgaitrecognition_pcaa_tpu_torch/csrc/"
@@ -4880,7 +5032,7 @@ def main() -> int:
          "bound_route": c["bound_route"]}
         for name, source, replaces, launches, c in kernels
     ]}
-    log(f"chip_smoke: phases 1-15 in {time.perf_counter() - t_start:.1f} s [{card}]")
+    log(f"chip_smoke: phases 1-16 in {time.perf_counter() - t_start:.1f} s [{card}]")
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -3,6 +3,8 @@ so an edited ``csrc/*.cuh`` never loads a stale library. Builds nothing."""
 
 import re
 
+import pytest
+
 from benchmark import tracing
 from opensetgaitrecognition_pcaa_tpu_torch.ops import _build
 
@@ -142,3 +144,17 @@ def test_a_cached_library_brings_back_its_build_log(tmp_path, monkeypatch):
     so.with_suffix(".log").write_text("ptxas info    : Used 168 registers\n")
     assert _build.load_library("k") == ("loaded", str(so))
     assert _build.BUILD_LOGS["k"] == "ptxas info    : Used 168 registers\n"
+
+
+@pytest.mark.parametrize("part,kernels", [
+    ("p4t_group", {"p4t_fps_kernel", "p4t_ball_query_kernel"}),
+    ("p4t_tube", {"p4t_tube_fwd_kernel", "p4t_tube_bwd_kernel", "p4t_tube_reduce_kernel"}),
+])
+def test_p4t_kernels_keep_names_the_benchmark_finds(part, kernels):
+    """Every kernel of a P4Transformer source carries a name fragment of its
+    benchmark part (``benchmark/kernels/<part>.json``), whose roofline reads
+    their device time and whose launch check counts them."""
+    names = _kernel_names((_build.SRC_DIR / f"{part}.cu").read_text())
+    assert {n.split("::")[-1] for n in names} == kernels, names
+    for name in names:
+        assert any(f in name.lower() for f in tracing.PORT_KERNELS[part]), name
