@@ -215,8 +215,14 @@ with seeded random weights and seeded crop files. Phases:
    forward and backward at B 16 (ms, peak memory); then one training step
    of the cell's model (``build_pcaa(..., encoder=P4TSpec())``,
    ``make_epoch_fns``) at B 16 with the launch counts at 0, whose counts
-   (1 sampling, 1 ball query, the tube's forward and backward) are the
-   record's ``launches``.
+   (1 sampling, 1 ball query, the tube's forward and backward, 120 of the
+   blocks' dense products) are the record's ``launches``. First, 16a: the
+   blocks' dense products (``csrc/p4t_linear.cu``: forward, input gradient,
+   weight gradient with the bias's) at the cell's four shapes and 18,000
+   and 1,125 rows against f64, each held to the three-pass mode's bound and
+   to a multiple of cuBLAS f32's error on the same inputs that single-pass
+   TF32 fails, bitwise across two calls, each timed against cuBLAS beside
+   its 3xTF32 bound.
 
 It exits non-zero, with no result line, when there is no CUDA card or a
 phase fails. The line before the last is the per-kernel JSON record (its
@@ -4571,6 +4577,7 @@ def p4t_phase(card: str) -> None:
     from opensetgaitrecognition_pcaa_tpu_torch.models.p4t import P4TEncoder
     from opensetgaitrecognition_pcaa_tpu_torch.ops import _build
     from opensetgaitrecognition_pcaa_tpu_torch.ops import p4t_group as pg
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import p4t_linear as pl
     from opensetgaitrecognition_pcaa_tpu_torch.ops import p4t_tube as pt
     from opensetgaitrecognition_pcaa_tpu_torch.train.pcaa import (
         VARIANTS,
@@ -4580,7 +4587,8 @@ def p4t_phase(card: str) -> None:
 
     t_phase = time.perf_counter()
     ieee_f32()
-    _build.load_libraries(("p4t_group", "p4t_tube"))
+    _build.load_libraries(("p4t_group", "p4t_tube", "p4t_linear"))
+    linear_rows = p4t_linear_phase(card)
     for name in ("p4t_group", "p4t_tube"):
         for line in _build.BUILD_LOGS.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
@@ -4674,17 +4682,157 @@ def p4t_phase(card: str) -> None:
     train_epoch = make_epoch_fns(mods, cfg)[0]
     labels = torch.from_numpy(traffic.crops(P4T_MIX, P4T_DIMS, SEED)[1]).cuda()
     pg.furthest_point_sample.launches = pg.ball_query.launches = pt.tube_embed.launches = 0
+    pl.p4t_linear.launches = 0
     state, _ = train_epoch(state, crops, labels, torch.arange(b)[None])
     torch.cuda.synchronize()
     launches = {"fps": pg.furthest_point_sample.launches, "ball": pg.ball_query.launches,
-                "tube": pt.tube_embed.launches}
-    assert launches == {"fps": 1, "ball": 1, "tube": 2}, launches
+                "tube": pt.tube_embed.launches, "linear": pl.p4t_linear.launches}
+    # the dense products: 4 a block, each 2 launches forward and 4 backward, 5 blocks
+    assert launches == {"fps": 1, "ball": 1, "tube": 2, "linear": 120}, launches
     log(f"phase 16: one make_epoch_fns step of {P4T_CELL}'s model at B {b}: launches {launches} "
-        f"(the tube's forward and backward) [{card}]")
+        f"(the tube's forward and backward; 5 blocks x 4 dense products x 6) [{card}]")
     del mods, state
-    log(json.dumps({"p4t_kernels": rows_out, "encoder_fwd_bwd_ms": step_ms,
-                    "mean_ball_fill": float(fill.mean()), "launches": launches}))
+    log(json.dumps({"p4t_kernels": rows_out, "p4t_linear": linear_rows,
+                    "encoder_fwd_bwd_ms": step_ms, "mean_ball_fill": float(fill.mean()),
+                    "launches": launches}))
     log(f"phase 16: {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
+# the blocks' dense products at the cell's shapes: (in, out, bias) of to_qkv,
+# to_out, ff1, ff2; 18,000 tokens a step (16 crops x 15 frames x 75 anchors)
+# and one crop's 1,125, a ragged row count
+P4T_LINEAR_SHAPES = ((1024, 3072, False), (1024, 1024, True), (1024, 2048, True),
+                     (2048, 1024, True))
+P4T_LINEAR_ROWS = (18_000, 1_125)
+
+
+def p4t_linear_phase(card: str) -> list:
+    """Phase 16a: the dense products of ``csrc/p4t_linear.cu`` at the cell's
+    shapes against f64: each within ``ops/tf32x3.py::error_bound`` and its
+    largest error within ``CUBLAS_ERROR_MULTIPLE`` times cuBLAS f32's on the
+    same inputs, a limit that the same product in single-pass TF32 (cuBLAS
+    with TF32 allowed, the control) must exceed; the bias gradient within
+    the bound of its sequential sums; bitwise across two calls; then at
+    18,000 rows each product timed cuBLAS, kernel, kernel, cuBLAS by CUDA
+    events beside its 3xTF32 bound, with its launches and the device time of
+    each of its kernels (torch.profiler); → the rows of the record."""
+    import torch
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import _build
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import p4t_linear as pl
+    from opensetgaitrecognition_pcaa_tpu_torch.ops.tf32x3 import error_bound
+
+    def tf32(fn):
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return fn()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    _build.load_libraries(("p4t_linear",))
+    for line in _build.BUILD_LOGS.get("p4t_linear", "").splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            log(f"  nvcc p4t_linear: {line.strip()}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows_out = []
+    for rows in P4T_LINEAR_ROWS:
+        for in_, out, with_bias in P4T_LINEAR_SHAPES:
+            x = torch.randn((rows, in_), generator=gen, device="cuda")
+            w = (2 * torch.rand((out, in_), generator=gen, device="cuda") - 1) / in_ ** 0.5
+            b = (2 * torch.rand((out,), generator=gen, device="cuda") - 1) / in_ ** 0.5 \
+                if with_bias else None
+            dy = torch.randn((rows, out), generator=gen, device="cuda") / out ** 0.5
+            mine = {"forward": lambda: pl.forward_product(x, w, b),
+                    "input_grad": lambda: pl.input_grad(dy, w),
+                    "weight_grad": lambda: pl.weight_grad(dy, x, with_bias)}
+            cublas = {"forward": lambda: F.linear(x, w, b),
+                      "input_grad": lambda: torch.mm(dy, w),
+                      "weight_grad": lambda: (torch.mm(dy.t(), x),
+                                              dy.sum(0) if with_bias else None)}
+            x64, w64, dy64 = x.double(), w.double(), dy.double()
+            exact = {"forward": x64 @ w64.t() + (b.double() if with_bias else 0),
+                     "input_grad": dy64 @ w64,
+                     "weight_grad": (dy64.t() @ x64, dy64.sum(0) if with_bias else None)}
+            # the operands of each product's bound, and the forward's bias add
+            operands = {"forward": (x, w.t()), "input_grad": (dy, w), "weight_grad": (dy.t(), x)}
+            slack = {"forward": 2.0 ** -24 * exact["forward"].abs(), "input_grad": 0,
+                     "weight_grad": 0}
+            for name in mine:
+                got, again, plain, control = (mine[name](), mine[name](), cublas[name](),
+                                              tf32(cublas[name]))
+                got, again, plain, control, want = (
+                    [t] if torch.is_tensor(t) else list(t)
+                    for t in (got, again, plain, control, exact[name]))
+                row = dict(rows=rows, in_=in_, out=out, product=name,
+                           bitwise=all(a is None or torch.equal(a, c)
+                                       for a, c in zip(got, again)))
+                for tag, g, p, c, e in zip(("", "db_"), got, plain, control, want):
+                    if g is None:
+                        continue
+                    row[tag + "err"] = float((g.double() - e).abs().max())
+                    row[tag + "cublas_err"] = float((p.double() - e).abs().max())
+                    row[tag + "scale"] = float(e.abs().max())
+                    if not tag:
+                        row["tf32_err"] = float((c.double() - e).abs().max())
+                row["limit"] = pl.CUBLAS_ERROR_MULTIPLE[name] * row["cublas_err"]
+                row["within_bound"] = bool(((got[0].double() - want[0]).abs()
+                                            <= error_bound(*operands[name]) + slack[name]).all())
+                if "db_err" in row:
+                    # a thread's sums: 8 values a stage, the stages of its
+                    # slice, 2 butterfly steps, then the slices in order
+                    adds = 8 + -(-rows // pl.TILE_K) + 2 + pl.MAX_SPLITS
+                    row["db_limit"] = float((adds * 2.0 ** -24 * dy64.abs().sum(0)).min())
+                    row["db_within"] = bool(((got[1].double() - want[1]).abs()
+                                             <= adds * 2.0 ** -24 * dy64.abs().sum(0)).all())
+                log(f"phase 16a: {name} rows {rows} ({in_} -> {out}): max |err| "
+                    f"{row['err']:.3e}, cuBLAS f32 {row['cublas_err']:.3e}, single-pass TF32 "
+                    f"{row['tf32_err']:.3e}, limit {row['limit']:.3e} (|ref| up to "
+                    f"{row['scale']:.3e}); within error_bound {row['within_bound']}"
+                    + (f"; db {row['db_err']:.3e}, sum {row['db_cublas_err']:.3e}, within its "
+                       f"bound {row['db_within']}" if "db_err" in row else "")
+                    + f"; bitwise {row['bitwise']} [{card}]")
+                assert row["bitwise"], row
+                assert row["within_bound"], row
+                assert row["err"] <= row["limit"] < row["tf32_err"], row
+                assert row.get("db_within", True), row
+                if rows == P4T_LINEAR_ROWS[0]:
+                    flops = 2 * rows * in_ * out
+                    moved = {"forward": rows * (in_ + out) + out * in_ + out,
+                             "input_grad": rows * (in_ + out) + out * in_,
+                             "weight_grad": rows * (in_ + out) + out * in_ + out}[name]
+                    bound_ms, bound_by = bound(3 * flops, 4 * moved, TF32_FLOPS)
+                    ms = alternate({"cublas": cublas[name], "kernel": mine[name]},
+                                   ("cublas", "kernel", "kernel", "cublas"), 10)
+                    pl.p4t_linear.launches = 0
+                    with torch.profiler.profile(
+                            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                        mine[name]()
+                        torch.cuda.synchronize()
+                    per_kernel = {}
+                    for e in prof.events():
+                        if e.device_type == DeviceType.CUDA:
+                            key = e.name.split("<")[-1][:48] if "gemm_kernel" in e.name \
+                                else e.name[:48]
+                            per_kernel[key] = per_kernel.get(key, 0.0) + (
+                                e.time_range.end - e.time_range.start) / 1e3
+                    row.update(ms=ms["kernel"], cublas_ms=ms["cublas"], bound_3xtf32_ms=bound_ms,
+                               bound_by=bound_by, share=bound_ms / ms["kernel"],
+                               launches=pl.p4t_linear.launches, per_kernel_ms=per_kernel)
+                    log(f"phase 16a: {name} ({in_} -> {out}) at {rows} rows: kernel "
+                        f"{ms['kernel']:.4f} ms, cuBLAS f32 {ms['cublas']:.4f} ms, 3xTF32 bound "
+                        f"{bound_ms:.4f} ms ({bound_by}), {100 * row['share']:.1f}% of it; "
+                        f"{row['launches']} launches {per_kernel} [{card}]")
+                rows_out.append(row)
+            del x, w, b, dy, x64, w64, dy64, exact, slack
+    timed = [r for r in rows_out if "ms" in r]
+    for name in ("forward", "input_grad", "weight_grad"):
+        mine = [r for r in timed if r["product"] == name]
+        log(f"phase 16a: {name}, the 4 shapes a block: kernel {sum(r['ms'] for r in mine):.4f} "
+            f"ms, cuBLAS f32 {sum(r['cublas_ms'] for r in mine):.4f} ms, 3xTF32 bound "
+            f"{sum(r['bound_3xtf32_ms'] for r in mine):.4f} ms [{card}]")
+    return rows_out
 
 
 def pointnet_infer_timing() -> int:

@@ -49,12 +49,17 @@ Departures from the published MSR-Action3D model: M = N // 2 anchors
 the radius 0.7 kept in metres on centred crops.
 
 On the card, farthest-point sampling, the ball query and the tube are the
-hand-written kernels (``csrc/p4t_group.cu``, ``csrc/p4t_tube.cu``); the
-transformer is plain PyTorch: cuBLAS's f32 products (TF32 off,
-``infer/common.py::ieee_f32``) and attention through
+hand-written kernels (``csrc/p4t_group.cu``, ``csrc/p4t_tube.cu``), and so
+are the blocks' dense products (``to_qkv``, ``to_out``, ``ff1``, ``ff2``,
+forward and both gradients: ``ops/p4t_linear.py`` → ``csrc/p4t_linear.cu``,
+on the tensor cores in the exact three-pass TF32 mode of the PointNet
+kernels, f32-accurate where single-pass TF32 stays off,
+``infer/common.py::ieee_f32``); the rest of the transformer is plain
+PyTorch: LayerNorm, GELU and attention through
 ``F.scaled_dot_product_attention`` on its memory-efficient backend, whose
 CUTLASS products are f32-accurate (a three-pass TF32 split), and which
-never holds the ``(B, heads, tokens, tokens)`` scores.
+never holds the ``(B, heads, tokens, tokens)`` scores. On the CPU the dense
+products are ``F.linear``.
 
 Spans (``utils/profiling.py``), under the trainer's ``train.encoder``:
 ``p4t.embed`` ⊃ (``p4t.fps``, ``p4t.ball_query``, ``p4t.tube``,
@@ -76,6 +81,7 @@ from torch import nn
 from opensetgaitrecognition_pcaa_tpu_torch.models.layers import TorchDense, _uniform_
 from opensetgaitrecognition_pcaa_tpu_torch.models.pcaa import CGEncoder
 from opensetgaitrecognition_pcaa_tpu_torch.ops.p4t_group import ball_query, furthest_point_sample
+from opensetgaitrecognition_pcaa_tpu_torch.ops.p4t_linear import p4t_linear
 from opensetgaitrecognition_pcaa_tpu_torch.ops.p4t_tube import MAX_SAMPLES, tube_embed
 from opensetgaitrecognition_pcaa_tpu_torch.utils.profiling import count, span
 
@@ -156,13 +162,17 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, _ = x.shape
-        qkv = self.to_qkv(self.norm1(x)).view(b, n, 3, self.heads, self.dim_head)
+        qkv = p4t_linear(self.norm1(x), self.to_qkv.weight).view(b, n, 3, self.heads,
+                                                                 self.dim_head)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)               # (B, heads, n, dh)
         with _attention_backend(x.device):
             a = F.scaled_dot_product_attention(q, k, v)
         a = a.transpose(1, 2).reshape(b, n, self.heads * self.dim_head)
-        x = x + F.gelu(self.to_out(a))
-        return x + F.gelu(self.ff2(F.gelu(self.ff1(self.norm2(x)))))
+        # p4t_linear in place of each layer's forward, which is F.linear at
+        # the f32 and single device the encoder trains at
+        x = x + F.gelu(p4t_linear(a, self.to_out.weight, self.to_out.bias))
+        h = F.gelu(p4t_linear(self.norm2(x), self.ff1.weight, self.ff1.bias))
+        return x + F.gelu(p4t_linear(h, self.ff2.weight, self.ff2.bias))
 
 
 class Tube(nn.Module):

@@ -149,6 +149,7 @@ def test_a_cached_library_brings_back_its_build_log(tmp_path, monkeypatch):
 @pytest.mark.parametrize("part,kernels", [
     ("p4t_group", {"p4t_fps_kernel", "p4t_ball_query_kernel"}),
     ("p4t_tube", {"p4t_tube_fwd_kernel", "p4t_tube_bwd_kernel", "p4t_tube_reduce_kernel"}),
+    ("p4t_linear", {"p4t_linear_wgrad_kernel", "p4t_linear_reduce_kernel"}),
 ])
 def test_p4t_kernels_keep_names_the_benchmark_finds(part, kernels):
     """Every kernel of a P4Transformer source carries a name fragment of its
@@ -158,3 +159,17 @@ def test_p4t_kernels_keep_names_the_benchmark_finds(part, kernels):
     assert {n.split("::")[-1] for n in names} == kernels, names
     for name in names:
         assert any(f in name.lower() for f in tracing.PORT_KERNELS[part]), name
+
+
+def test_p4t_linear_engine_launches_carry_the_part_name():
+    """The dense products' forward and input gradient run the engine's
+    ``gemm_kernel`` and ``split_kernel_tagged``, whose names a profiler
+    gives with their template arguments: every epilogue and split tag
+    ``p4t_linear.cu`` hands the engine holds ``p4t_linear``, and the file
+    includes the engine beside it."""
+    text = (_build.SRC_DIR / "p4t_linear.cu").read_text()
+    epilogues = re.findall(r"tw::launch\([^;]*?(\w+)\{", text, flags=re.S)
+    assert epilogues and all("p4t_linear" in e for e in epilogues), epilogues
+    tags = re.findall(r"tw::split_planes_tagged<(\w+),", text)
+    assert len(tags) == 2 and all("p4t_linear" in t for t in tags), tags
+    assert _headers("p4t_linear") == ["tf32x3_wgmma.cuh", "tf32x3.cuh"]
