@@ -66,8 +66,9 @@
 //     slice order by the same kernel.
 // No atomics: every output is a fixed-order sum, so two calls on the same
 // inputs give the same bits. Every kernel's name holds `p4t_linear` (the
-// engine's gemm_kernel through its epilogue's type, its split_kernel_tagged
-// through p4t_linear_tag), so a trace finds them all.
+// engine's gemm_kernel through its epilogue's type, its split_kernel
+// through p4t_linear_tag), so a trace finds them all. The mbarrier, TMA
+// and wgmma primitives are hopper.cuh's, the wgmma shape the engine's.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -116,7 +117,7 @@ struct p4t_linear_out {
   }
 };
 
-// The tag that names this file's splits: tw::split_kernel_tagged<p4t_linear_tag, ...>.
+// The tag that names this file's splits: tw::split_kernel<p4t_linear_tag, ...>.
 struct p4t_linear_tag {};
 
 // ---- the weight gradient ---------------------------------------------------
@@ -189,18 +190,18 @@ struct Cursor {
 // slot (`staged`).
 __device__ __forceinline__ void load_dy(const CUtensorMap* tm_dy, uint32_t stage, uint32_t bar,
                                         int m0, int kt) {
-  tw::mbar_expect_tx(bar, kABytes);  // out-of-bounds zeros count too
+  hopper::mbar_expect_tx(bar, kABytes);  // out-of-bounds zeros count too
 #pragma unroll
   for (int b = 0; b < kTileM / kBox; ++b) {
-    tw::tma_load(stage + b * kBoxBytes, tm_dy, bar, m0 + b * kBox, kt * kBK);
+    hopper::tma_load(stage + b * kBoxBytes, tm_dy, bar, m0 + b * kBox, kt * kBK);
   }
 }
 __device__ __forceinline__ void load_x(const CUtensorMap* tm_x, uint32_t slot, uint32_t bar,
                                        int n0, int kt) {
-  tw::mbar_expect_tx(bar, kBBytes);
+  hopper::mbar_expect_tx(bar, kBBytes);
 #pragma unroll
   for (int b = 0; b < kBN / kBox; ++b) {
-    tw::tma_load(slot + b * kBoxBytes, tm_x, bar, n0 + b * kBox, kt * kBK);
+    hopper::tma_load(slot + b * kBoxBytes, tm_x, bar, n0 + b * kBox, kt * kBK);
   }
 }
 
@@ -268,15 +269,15 @@ __device__ __forceinline__ void wgrad_produce(const CUtensorMap* tm_dy, const CU
     for (int kt = w.kb(i); kt < w.ke(i); ++kt, ++it) {
       if (it % kGroups != q) continue;
       const int s = it % kStages, slot = mine % kSlots;
-      tw::mbar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);  // a fresh barrier passes at once
+      hopper::mbar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);  // a fresh barrier passes at once
       if (leader) load_dy(tm_dy, ring + s * kStageBytes, full + 8 * s, w.m0(i), kt);
       __syncwarp();
-      tw::mbar_wait(my_staged + 8 * slot, (mine / kSlots) & 1);
+      hopper::mbar_wait(my_staged + 8 * slot, (mine / kSlots) & 1);
       split_column(reinterpret_cast<const float*>(smem + (my_slots - ring) + slot * kBBytes),
                    reinterpret_cast<float*>(smem + s * kStageBytes + kABytes), p);
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // visible to wgmma
       __syncwarp();
-      if (p % 32 == 0) tw::mbar_arrive(full + 8 * s);
+      if (p % 32 == 0) hopper::mbar_arrive(full + 8 * s);
       // every thread of the group is done with the slot: refill it
       asm volatile("barrier.sync %0, %1;" ::"r"(1 + q), "n"(kProducers) : "memory");
       if (leader && next.valid(w)) {
@@ -296,8 +297,8 @@ __global__ void __launch_bounds__(kWgradThreads, 1)
 p4t_linear_wgrad_kernel(const __grid_constant__ CUtensorMap tm_dy,
                         const __grid_constant__ CUtensorMap tm_x, const WgradArgs args) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  unsigned char* smem = smem_raw + ((1024 - (tw::smem_addr(smem_raw) & 1023)) & 1023);
-  const uint32_t ring = tw::smem_addr(smem);
+  unsigned char* smem = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t ring = hopper::smem_addr(smem);
   const uint32_t slots = ring + kStages * kStageBytes;
   const uint32_t full = slots + kGroups * kSlots * kBBytes;
   const uint32_t empty = full + 8 * kStages;
@@ -306,10 +307,11 @@ p4t_linear_wgrad_kernel(const __grid_constant__ CUtensorMap tm_dy,
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
-      tw::mbar_init(full + 8 * s, 1 + kProducers / 32);  // the dY bytes' arrival + a warp's each
-      tw::mbar_init(empty + 8 * s, kConsumers / 32);     // one arrival per consumer warp
+      // the dY bytes' arrival + a warp's each; one arrival per consumer warp
+      hopper::mbar_init(full + 8 * s, 1 + kProducers / 32);
+      hopper::mbar_init(empty + 8 * s, kConsumers / 32);
     }
-    for (int s = 0; s < kGroups * kSlots; ++s) tw::mbar_init(staged + 8 * s, 1);
+    for (int s = 0; s < kGroups * kSlots; ++s) hopper::mbar_init(staged + 8 * s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -357,7 +359,7 @@ p4t_linear_wgrad_kernel(const __grid_constant__ CUtensorMap tm_dy,
     bool dirty = false;  // acc holds sums not yet in total
     for (int kt = w.kb(i); kt < w.ke(i); ++kt, ++it) {
       const int s = it % kStages;
-      tw::mbar_wait(full + 8 * s, (it / kStages) & 1);
+      hopper::mbar_wait(full + 8 * s, (it / kStages) & 1);
       const unsigned char* stage = smem + s * kStageBytes;
       const uint32_t Bhi = ring + s * kStageBytes + kABytes, Blo = Bhi + kBBytes;
       float stage_sum[2] = {0.f, 0.f};
@@ -378,7 +380,7 @@ p4t_linear_wgrad_kernel(const __grid_constant__ CUtensorMap tm_dy,
           stage_sum[1] += v0.y + v1.y;
         }
         if (dirty && kp == 0 && it % 2 == add_at) {
-          tw::wgmma_wait<0>();
+          hopper::wgmma_wait<0>();
 #pragma unroll
           for (int e = 0; e < 64; ++e) asm volatile("" : "+f"(acc[e])::"memory");
 #pragma unroll
@@ -387,23 +389,23 @@ p4t_linear_wgrad_kernel(const __grid_constant__ CUtensorMap tm_dy,
             acc[e] = 0.f;
           }
         }
-        tw::wgmma_fence();
+        hopper::wgmma_fence();
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           const int kk = 2 * kp + u;
-          const uint64_t dhi = tw::desc_sw128(Bhi + 32 * kk);
-          const uint64_t dlo = tw::desc_sw128(Blo + 32 * kk);
+          const uint64_t dhi = hopper::desc_sw128(Bhi + 32 * kk);
+          const uint64_t dlo = hopper::desc_sw128(Blo + 32 * kk);
           tw::wgmma_rs(acc, lo[b][u], dhi);
           tw::wgmma_rs(acc, hi[b][u], dlo);
           tw::wgmma_rs(acc, hi[b][u], dhi);
         }
-        tw::wgmma_commit();
+        hopper::wgmma_commit();
         dirty = true;
         // the previous group is done and its fragment buffer free; at the
         // second group, so are the previous stage's groups
-        tw::wgmma_wait<1>();
+        hopper::wgmma_wait<1>();
         if (kp == 1 && pending >= 0) {
-          if (lane == 0) tw::mbar_arrive(empty + 8 * pending);
+          if (lane == 0) hopper::mbar_arrive(empty + 8 * pending);
           pending = -1;
         }
       }
@@ -411,10 +413,10 @@ p4t_linear_wgrad_kernel(const __grid_constant__ CUtensorMap tm_dy,
       db_sum[0] += stage_sum[0];
       db_sum[1] += stage_sum[1];
     }
-    tw::wgmma_wait<0>();
+    hopper::wgmma_wait<0>();
 #pragma unroll
     for (int e = 0; e < 64; ++e) asm volatile("" : "+f"(acc[e])::"memory");
-    if (pending >= 0 && lane == 0) tw::mbar_arrive(empty + 8 * pending);
+    if (pending >= 0 && lane == 0) hopper::mbar_arrive(empty + 8 * pending);
 #pragma unroll
     for (int e = 0; e < 64; ++e) total[e] += acc[e];
 
@@ -506,8 +508,8 @@ extern "C" int p4t_linear_split(const float* w, int out, int in, int transpose, 
   args.p[0] = transpose ? tw::SplitPlane{w, planes, lo, out, in}
                         : tw::SplitPlane{w, planes, lo, in, out};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(transpose ? tw::split_planes_tagged<p4t_linear_tag, true>(args, 1, s)
-                                    : tw::split_planes_tagged<p4t_linear_tag, false>(args, 1, s));
+  return static_cast<int>(transpose ? tw::split_planes<p4t_linear_tag, true>(args, 1, s)
+                                    : tw::split_planes<p4t_linear_tag, false>(args, 1, s));
 }
 
 // p4t_linear_gemm: y (rows, n) = a (rows, k) @ B (+ bias (n,), or null),
@@ -536,7 +538,9 @@ extern "C" int p4t_linear_wgrad(const float* dy, const float* x, int rows, int o
   const int sms = sm_count();
   if (sms == 0) return static_cast<int>(cudaErrorInvalidDevice);
   CUtensorMap tm_dy, tm_x;
-  if (!tw::make_map(&tm_dy, dy, out, rows, kBox) || !tw::make_map(&tm_x, x, in, rows, kBox)) {
+  constexpr CUtensorMapDataType kF32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  if (!hopper::make_map(&tm_dy, kF32, sizeof(float), dy, out, rows, kBox) ||
+      !hopper::make_map(&tm_x, kF32, sizeof(float), x, in, rows, kBox)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   WgradArgs args;

@@ -53,7 +53,6 @@
 namespace {
 
 using tf32x3_wgmma::Acc;
-using tf32x3_wgmma::elu;
 using tf32x3_wgmma::frag_col;
 using tf32x3_wgmma::frag_row;
 
@@ -79,7 +78,8 @@ struct BiasEluStore {
           const int r = row0 + frag_row(m, 2 * h);
           if (r < rows) {
             *reinterpret_cast<float2*>(y + static_cast<size_t>(r) * n + c) = make_float2(
-                elu(acc[m][4 * j + 2 * h] + b0), elu(acc[m][4 * j + 2 * h + 1] + b1));
+                hopper::elu(acc[m][4 * j + 2 * h] + b0),
+                hopper::elu(acc[m][4 * j + 2 * h + 1] + b1));
           }
         }
       }
@@ -117,8 +117,8 @@ struct BiasEluGroupSum {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           if (valid[m][h]) {
-            s0 += elu(acc[m][4 * j + 2 * h] + b0);
-            s1 += elu(acc[m][4 * j + 2 * h + 1] + b1);
+            s0 += hopper::elu(acc[m][4 * j + 2 * h] + b0);
+            s1 += hopper::elu(acc[m][4 * j + 2 * h + 1] + b1);
           }
         }
         // every lane takes part in the shuffles
@@ -145,6 +145,9 @@ group_mean_kernel(const float* __restrict__ partial, int groups, int d, int n_po
   for (int g = 0; g < groups; ++g) s += p[static_cast<size_t>(g) * d];
   out[static_cast<size_t>(blockIdx.x) * d + c] = s / static_cast<float>(n_points);
 }
+
+// The tag that names this file's split: tf32x3_wgmma::split_kernel<pointnet_infer_tag, true>.
+struct pointnet_infer_tag {};
 
 // The weights' TF32 planes: layer l's hi[l] and lo[l], each (out, in).
 struct Planes {
@@ -197,7 +200,8 @@ extern "C" int tf32x3_split_planes_f32(const float* w1, const float* w2, const f
     args.p[l] = {w[l], p, p + size, k_of[l], n_of[l]};
     p += 2 * size;
   }
-  return static_cast<int>(tf32x3_wgmma::split_planes(args, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(tf32x3_wgmma::split_planes<pointnet_infer_tag, true>(
+      args, 4, static_cast<cudaStream_t>(stream)));
 }
 
 // tf32x3_epilogue_elu_f32: the epilogues' ELU on x (n,) -> out (n,), for

@@ -161,8 +161,9 @@ def _library() -> ctypes.CDLL:
 
 
 def epilogue_elu(x: torch.Tensor) -> torch.Tensor:
-    """The kernel's ELU (its branch-free ``expm1f``) on a CUDA f32 tensor,
-    elementwise: what the card tests hold to ``F.elu``."""
+    """``csrc/hopper.cuh``'s branch-free ELU, which the eval kernel's
+    epilogues and the bf16 train layer's prologue inline, on a CUDA f32
+    tensor, elementwise: what the card tests hold to ``F.elu``."""
     if x.device.type != "cuda" or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("epilogue_elu takes a contiguous float32 CUDA tensor")
     out = torch.empty_like(x)

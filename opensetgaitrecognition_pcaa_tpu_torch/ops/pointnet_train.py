@@ -163,9 +163,6 @@ def _library() -> ctypes.CDLL:
     lib.pointnet_train_pool_bf16.restype = ctypes.c_int
     lib.pointnet_train_row_tile.argtypes = []
     lib.pointnet_train_row_tile.restype = ctypes.c_int
-    lib.pointnet_train_bf16_elu.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong,
-                                                                      ctypes.c_void_p]
-    lib.pointnet_train_bf16_elu.restype = ctypes.c_int
     return lib
 
 
@@ -296,21 +293,6 @@ def fused_layer(h: torch.Tensor, affine: Optional[torch.Tensor], w: torch.Tensor
         else:
             mean, var = mean[:c_real], var[:c_real]
     return (y, s12) if sums else (y, mean, var)
-
-
-def prologue_elu(x: torch.Tensor) -> torch.Tensor:
-    """The bf16 layer kernel's ELU (its branch-free ``expm1f``) on a CUDA
-    f32 tensor, elementwise: what the card tests hold to ``F.elu``."""
-    if x.device.type != "cuda" or x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError("prologue_elu takes a contiguous float32 CUDA tensor")
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = _library().pointnet_train_bf16_elu(
-            x.data_ptr(), out.data_ptr(), x.numel(),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"pointnet_train ELU kernel launch failed: cudaError {err}")
-    return out
 
 
 def fused_pool(y: torch.Tensor, affine: torch.Tensor) -> torch.Tensor:

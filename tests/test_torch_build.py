@@ -56,19 +56,21 @@ def _headers(name):
 
 
 def test_both_pointnet_sources_include_the_engine():
-    # the train layer kernel runs the mma.sync engine; the eval kernel the
-    # wgmma engine, which takes its split and epilogue helpers from it
-    assert _headers("pointnet_train") == ["tf32x3.cuh"]
-    assert _headers("pointnet_infer") == ["tf32x3_wgmma.cuh", "tf32x3.cuh"]
+    # the train layer kernel runs the mma.sync engine, and its bf16 variant
+    # the Hopper primitives; the eval kernel the wgmma engine, which takes
+    # the primitives from hopper.cuh and its split helper from tf32x3.cuh
+    assert _headers("pointnet_train") == ["hopper.cuh", "tf32x3.cuh"]
+    assert _headers("pointnet_infer") == ["tf32x3_wgmma.cuh", "hopper.cuh", "tf32x3.cuh"]
 
 
-def _kernel_names(text):
-    """The ``__global__`` functions of a CUDA source, each with the
-    namespaces around it, as a profiler names them (``a::b::kernel``; an
-    unnamed namespace as ``(anonymous namespace)``)."""
-    text = re.sub(r"//[^\n]*|/\*.*?\*/", "", text, flags=re.S)
+def _kernel_names(text, marker="__global__"):
+    """The ``__global__`` functions of a CUDA source (or the functions
+    declared with another ``marker``, such as ``__device__``, at namespace
+    scope), each with the namespaces around it, as a profiler names them
+    (``a::b::kernel``; an unnamed namespace as ``(anonymous namespace)``)."""
+    text = re.sub(r"//[^\n]*|/\*.*?\*/|\"(?:\\.|[^\"\\])*\"", "", text, flags=re.S)
     names, scopes, depth = [], [], 0
-    token = re.compile(r"namespace\s*(\w*)\s*\{|__global__|\{|\}")
+    token = re.compile(r"namespace\s*(\w*)\s*\{|" + marker + r"\b|\{|\}")
     for m in token.finditer(text):
         if m.group(0).startswith("namespace"):
             scopes.append((m.group(1) or "(anonymous namespace)", depth))
@@ -79,7 +81,7 @@ def _kernel_names(text):
             depth -= 1
             if scopes and scopes[-1][1] == depth:
                 scopes.pop()
-        else:
+        elif depth == len(scopes):  # not a member of a struct
             name = next(c.group(1) for c in re.finditer(r"(\w+)\s*\(", text[m.end():])
                         if c.group(1) != "__launch_bounds__")
             names.append("::".join([s for s, _ in scopes] + [name]))
@@ -92,22 +94,63 @@ def test_kernel_name_parser():
             "namespace {\ntemplate <class E>\n__global__ void k2(E e) { if (1) {} }\n}\n"
             "__global__ void k3() {}\n")
     assert _kernel_names(text) == ["a::k1", "(anonymous namespace)::k2", "k3"]
+    text = ('namespace h {\n__device__ __forceinline__ void f(int) { asm("{ }"); }\n'
+            "struct T { __device__ int g() const { return 0; } };\n}\n"
+            "__host__ __device__ constexpr int k() { return 1; }\n")
+    assert _kernel_names(text, "__device__") == ["h::f", "k"]
 
 
-def test_eval_kernels_keep_names_the_benchmark_finds():
-    """Every kernel the eval PointNet source can launch (its own and those
-    of the headers it includes) carries a name fragment that the
-    benchmark's trace reader counts as the eval kernel
-    (``PORT_KERNELS["pointnet_infer"]``): the roofline reads their device
-    time and the launch check their number."""
+@pytest.mark.parametrize("part,kernels", [
+    ("pointnet_infer", {"tf32x3_wgmma::gemm_kernel", "tf32x3_wgmma::split_kernel",
+                        "(anonymous namespace)::group_mean_kernel"}),
+    ("pointnet_train", {"wgmma_bf16::layer_kernel", "tf32x3::gemm_kernel",
+                        "(anonymous namespace)::stats_kernel", "(anonymous namespace)::pool_kernel",
+                        "(anonymous namespace)::pool_bf16_kernel"}),
+])
+def test_eval_kernels_keep_names_the_benchmark_finds(part, kernels):
+    """Every kernel a PointNet source (the eval one, and the train one) can
+    launch, its own and those of the headers it includes, carries a name
+    fragment that the benchmark's trace reader counts as that part's kernel
+    (``PORT_KERNELS[part]``): the roofline reads their device time and the
+    launch check their number."""
     names = []
-    for path in ["pointnet_infer.cu"] + _headers("pointnet_infer"):
+    for path in [f"{part}.cu"] + _headers(part):
         names += _kernel_names((_build.SRC_DIR / path).read_text())
-    assert {"tf32x3_wgmma::gemm_kernel", "tf32x3_wgmma::split_kernel",
-            "(anonymous namespace)::group_mean_kernel"} <= set(names), names
-    fragments = tracing.PORT_KERNELS["pointnet_infer"]
+    assert kernels <= set(names), names
+    fragments = tracing.PORT_KERNELS[part]
     for name in names:
         assert any(f in name.lower() for f in fragments), name
+
+
+# The Hopper primitives, each defined once, in hopper.cuh.
+_HOPPER_DEVICE = {"smem_addr", "mbar_init", "mbar_expect_tx", "mbar_arrive", "mbar_wait",
+                  "tma_load", "ldmatrix_x4", "desc_sw128", "wgmma_fence", "wgmma_commit",
+                  "wgmma_wait", "expm1_nonpositive", "elu"}
+_HOPPER_HOST = {"encode_tiled", "make_map"}
+# each wgmma engine's own: its MMA shape and its producer
+_PER_ENGINE = {"wgmma_rs", "produce"}
+
+
+def test_hopper_primitives_are_defined_once():
+    """No ``__device__`` function is defined in more than one of
+    ``hopper.cuh`` and the sources that use it (but each engine's own MMA
+    shape and producer), the primitives are hopper.cuh's, no other source
+    builds a tensor map, and hopper.cuh defines no kernel: a kernel there
+    would carry no name fragment of the source that launches it."""
+    sources = ["hopper.cuh", "tf32x3_wgmma.cuh", "pointnet_train.cu", "p4t_linear.cu"]
+    where = {}
+    for path in sources:
+        text = (_build.SRC_DIR / path).read_text()
+        for name in {n.split("::")[-1] for n in _kernel_names(text, "__device__")}:
+            where.setdefault(name, []).append(path)
+    twice = {n: p for n, p in where.items() if len(p) > 1 and n not in _PER_ENGINE}
+    assert not twice, twice
+    assert all(where.get(n) == ["hopper.cuh"] for n in _HOPPER_DEVICE), where
+    host = re.compile(r"^\s*(?:inline\s+)?\w+\s+(" + "|".join(_HOPPER_HOST) + r")\s*\(", re.M)
+    for path in sorted(_build.SRC_DIR.iterdir()):
+        found = set(host.findall(path.read_text()))
+        assert found == (_HOPPER_HOST if path.name == "hopper.cuh" else set()), (path, found)
+    assert _kernel_names((_build.SRC_DIR / "hopper.cuh").read_text()) == []
 
 
 def test_digest_follows_a_redirected_source_dir(tmp_path, monkeypatch):
@@ -163,13 +206,13 @@ def test_p4t_kernels_keep_names_the_benchmark_finds(part, kernels):
 
 def test_p4t_linear_engine_launches_carry_the_part_name():
     """The dense products' forward and input gradient run the engine's
-    ``gemm_kernel`` and ``split_kernel_tagged``, whose names a profiler
+    ``gemm_kernel`` and ``split_kernel``, whose names a profiler
     gives with their template arguments: every epilogue and split tag
     ``p4t_linear.cu`` hands the engine holds ``p4t_linear``, and the file
     includes the engine beside it."""
     text = (_build.SRC_DIR / "p4t_linear.cu").read_text()
     epilogues = re.findall(r"tw::launch\([^;]*?(\w+)\{", text, flags=re.S)
     assert epilogues and all("p4t_linear" in e for e in epilogues), epilogues
-    tags = re.findall(r"tw::split_planes_tagged<(\w+),", text)
+    tags = re.findall(r"tw::split_planes<(\w+),", text)
     assert len(tags) == 2 and all("p4t_linear" in t for t in tags), tags
-    assert _headers("p4t_linear") == ["tf32x3_wgmma.cuh", "tf32x3.cuh"]
+    assert _headers("p4t_linear") == ["tf32x3_wgmma.cuh", "hopper.cuh", "tf32x3.cuh"]
