@@ -216,13 +216,19 @@ with seeded random weights and seeded crop files. Phases:
    of the cell's model (``build_pcaa(..., encoder=P4TSpec())``,
    ``make_epoch_fns``) at B 16 with the launch counts at 0, whose counts
    (1 sampling, 1 ball query, the tube's forward and backward, 120 of the
-   blocks' dense products) are the record's ``launches``. First, 16a: the
-   blocks' dense products (``csrc/p4t_linear.cu``: forward, input gradient,
-   weight gradient with the bias's) at the cell's four shapes and 18,000
-   and 1,125 rows against f64, each held to the three-pass mode's bound and
-   to a multiple of cuBLAS f32's error on the same inputs that single-pass
-   TF32 fails, bitwise across two calls, each timed against cuBLAS beside
-   its 3xTF32 bound.
+   blocks' dense products, 20 of attention's) are the record's
+   ``launches``. First, 16a: the blocks' dense products
+   (``csrc/p4t_linear.cu``: forward, input gradient, weight gradient with
+   the bias's) at the cell's four shapes and 18,000 and 1,125 rows against
+   f64, each held to the three-pass mode's bound and to a multiple of
+   cuBLAS f32's error on the same inputs that single-pass TF32 fails,
+   bitwise across two calls, each timed against cuBLAS beside its 3xTF32
+   bound; then 16b: the blocks' attention (``csrc/p4t_attention.cu``) at
+   the cell's shape, its output, log-sum-exp and three gradients against
+   f64, each held to a multiple of plain f32 attention's error that
+   single-pass TF32 fails, bitwise across two calls, the forward and the
+   backward timed against memory-efficient SDPA (``library_ms``, the
+   yardstick) beside their 3xTF32 bounds.
 
 It exits non-zero, with no result line, when there is no CUDA card or a
 phase fails. The line before the last is the per-kernel JSON record (its
@@ -273,6 +279,7 @@ import gc
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -4576,6 +4583,7 @@ def p4t_phase(card: str) -> None:
     from opensetgaitrecognition_pcaa_tpu_torch.infer.common import ieee_f32
     from opensetgaitrecognition_pcaa_tpu_torch.models.p4t import P4TEncoder
     from opensetgaitrecognition_pcaa_tpu_torch.ops import _build
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import p4t_attention as pa
     from opensetgaitrecognition_pcaa_tpu_torch.ops import p4t_group as pg
     from opensetgaitrecognition_pcaa_tpu_torch.ops import p4t_linear as pl
     from opensetgaitrecognition_pcaa_tpu_torch.ops import p4t_tube as pt
@@ -4587,8 +4595,9 @@ def p4t_phase(card: str) -> None:
 
     t_phase = time.perf_counter()
     ieee_f32()
-    _build.load_libraries(("p4t_group", "p4t_tube", "p4t_linear"))
+    _build.load_libraries(("p4t_group", "p4t_tube", "p4t_linear", "p4t_attention"))
     linear_rows = p4t_linear_phase(card)
+    attention_rows = p4t_attention_phase(card)
     for name in ("p4t_group", "p4t_tube"):
         for line in _build.BUILD_LOGS.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
@@ -4682,17 +4691,21 @@ def p4t_phase(card: str) -> None:
     train_epoch = make_epoch_fns(mods, cfg)[0]
     labels = torch.from_numpy(traffic.crops(P4T_MIX, P4T_DIMS, SEED)[1]).cuda()
     pg.furthest_point_sample.launches = pg.ball_query.launches = pt.tube_embed.launches = 0
-    pl.p4t_linear.launches = 0
+    pl.p4t_linear.launches = pa.p4t_attention.launches = 0
     state, _ = train_epoch(state, crops, labels, torch.arange(b)[None])
     torch.cuda.synchronize()
     launches = {"fps": pg.furthest_point_sample.launches, "ball": pg.ball_query.launches,
-                "tube": pt.tube_embed.launches, "linear": pl.p4t_linear.launches}
-    # the dense products: 4 a block, each 2 launches forward and 4 backward, 5 blocks
-    assert launches == {"fps": 1, "ball": 1, "tube": 2, "linear": 120}, launches
+                "tube": pt.tube_embed.launches, "linear": pl.p4t_linear.launches,
+                "attention": pa.p4t_attention.launches}
+    # the dense products: 4 a block, each 2 launches forward and 4 backward;
+    # attention 1 forward and 3 backward; 5 blocks
+    assert launches == {"fps": 1, "ball": 1, "tube": 2, "linear": 120, "attention": 20}, launches
     log(f"phase 16: one make_epoch_fns step of {P4T_CELL}'s model at B {b}: launches {launches} "
-        f"(the tube's forward and backward; 5 blocks x 4 dense products x 6) [{card}]")
+        f"(the tube's forward and backward; 5 blocks x 4 dense products x 6; 5 blocks x 4 "
+        f"attention launches) [{card}]")
     del mods, state
     log(json.dumps({"p4t_kernels": rows_out, "p4t_linear": linear_rows,
+                    "p4t_attention": attention_rows,
                     "encoder_fwd_bwd_ms": step_ms, "mean_ball_fill": float(fill.mean()),
                     "launches": launches}))
     log(f"phase 16: {time.perf_counter() - t_phase:.1f} s [{card}]")
@@ -4832,6 +4845,129 @@ def p4t_linear_phase(card: str) -> list:
         log(f"phase 16a: {name}, the 4 shapes a block: kernel {sum(r['ms'] for r in mine):.4f} "
             f"ms, cuBLAS f32 {sum(r['cublas_ms'] for r in mine):.4f} ms, 3xTF32 bound "
             f"{sum(r['bound_3xtf32_ms'] for r in mine):.4f} ms [{card}]")
+    return rows_out
+
+
+# attention at the cell's shape: 16 crops of 1,125 tokens, 8 heads of 128
+P4T_ATTENTION_SHAPE = (16, 1125, 8, 128)
+
+
+def p4t_attention_phase(card: str) -> list:
+    """Phase 16b: the attention of ``csrc/p4t_attention.cu`` at the cell's
+    shape against f64: the output, the log-sum-exp and the three gradients,
+    each largest error as a multiple of plain f32 attention's (SDPA's math
+    backend) on the same inputs, within ``F32_ERROR_MULTIPLE``, which the
+    same attention in single-pass TF32 (the control) exceeds; bitwise
+    across two calls; then the forward and the backward timed memory-efficient
+    SDPA (the yardstick, ``library_ms``), kernel, kernel, SDPA by CUDA events
+    beside their 3xTF32 bounds (4 n² dh and 8 n² dh a head, the operations
+    ``benchmark/metrics/p4t_attention_roofline.py`` counts, three passes at
+    495 TFLOP/s), with each kernel's device time (torch.profiler); → the
+    rows of the record."""
+    import math
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import _build
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import p4t_attention as pa
+
+    _build.load_libraries(("p4t_attention",))
+    for line in _build.BUILD_LOGS.get("p4t_attention", "").splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            log(f"  nvcc p4t_attention: {line.strip()}")
+    b, n, heads, dh = P4T_ATTENTION_SHAPE
+    inner = heads * dh
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    qkv = torch.randn((b, n, 3 * inner), generator=gen, device="cuda")
+    g = torch.randn((b, n, inner), generator=gen, device="cuda")
+
+    def plain(backend, tf32=False):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            x = qkv.clone().requires_grad_()
+            with sdpa_kernel(backend):
+                out = pa.attention_ref(x, heads, dh)
+            (grad,) = torch.autograd.grad(out, x, g)
+            q, k, _ = qkv.view(b, n, 3, heads, dh).permute(2, 0, 3, 1, 4).unbind(0)
+            lse = torch.logsumexp(q @ k.transpose(-1, -2) / math.sqrt(dh), -1)
+            return out.detach(), lse, grad
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    def parts(out, lse, grad):
+        return {"out": out, "lse": lse, "dq": grad[..., :inner],
+                "dk": grad[..., inner:2 * inner], "dv": grad[..., 2 * inner:]}
+
+    out, lse = pa.forward(qkv, heads, dh)
+    grad = pa.backward(qkv, out, lse, g, heads, dh)
+    out2, lse2 = pa.forward(qkv, heads, dh)
+    bitwise = (torch.equal(out, out2) and torch.equal(lse, lse2)
+               and torch.equal(grad, pa.backward(qkv, out, lse, g, heads, dh)))
+    mine = parts(out, lse, grad)
+    f32 = parts(*plain(SDPBackend.MATH))
+    control = parts(*plain(SDPBackend.MATH, tf32=True))
+    x64 = qkv.double().requires_grad_()
+    q, k, v = x64.view(b, n, 3, heads, dh).permute(2, 0, 3, 1, 4).unbind(0)
+    s64 = q @ k.transpose(-1, -2) / math.sqrt(dh)
+    o64 = (torch.softmax(s64, -1) @ v).transpose(1, 2).reshape(b, n, inner)
+    (g64,) = torch.autograd.grad(o64, x64, g.double())
+    exact = parts(o64.detach(), torch.logsumexp(s64, -1).detach(), g64)
+    del x64, q, k, v, s64, o64, g64
+    errors = {}
+    for name, multiple in pa.F32_ERROR_MULTIPLE.items():
+        err, plain_err, tf32_err = (float((t[name].double() - exact[name]).abs().max())
+                                    for t in (mine, f32, control))
+        errors[name] = dict(err=err, f32_err=plain_err, tf32_err=tf32_err,
+                            multiple=err / plain_err, limit=multiple * plain_err)
+        log(f"phase 16b: attention {name} at {P4T_ATTENTION_SHAPE}: max |err| {err:.3e}, "
+            f"{err / plain_err:.2f} x f32's {plain_err:.3e} (limit {multiple:g} x), single-pass "
+            f"TF32 {tf32_err:.3e} ({tf32_err / plain_err:.0f} x) [{card}]")
+        assert err <= errors[name]["limit"] < tf32_err, (name, errors[name])
+    assert bitwise, "attention is not bitwise repeatable"
+    del f32, control, exact
+
+    x = qkv.clone().requires_grad_()
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        lib_out = pa.attention_ref(x, heads, dh)
+    passes = {"forward": (lambda: pa.forward(qkv, heads, dh), lambda: lib_fwd(), 4),
+              "backward": (lambda: pa.backward(qkv, out, lse, g, heads, dh),
+                           lambda: torch.autograd.grad(lib_out, x, g, retain_graph=True), 8)}
+
+    def lib_fwd():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return pa.attention_ref(qkv, heads, dh)
+
+    rows_out = []
+    for name, (kernel, library, per_head) in passes.items():
+        ms = alternate({"library": library, "kernel": kernel},
+                       ("library", "kernel", "kernel", "library"), 10)
+        flops = per_head * n * n * dh * b * heads
+        values = b * n * inner
+        moved = (4 * values + b * heads * n) if name == "forward" else (8 * values + b * heads * n)
+        bound_ms, bound_by = bound(3 * flops, 4 * moved, TF32_FLOPS)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            kernel()
+            torch.cuda.synchronize()
+        per_kernel = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                found = re.search(r"p4t_attention_\w+_kernel", e.name)
+                key = found.group(0) if found else e.name[:48]
+                per_kernel[key] = per_kernel.get(key, 0.0) + (
+                    e.time_range.end - e.time_range.start) / 1e3
+        row = dict(shape=P4T_ATTENTION_SHAPE, product=name, ms=ms["kernel"],
+                   library_ms=ms["library"], bound_ms=bound_ms, bound_by=bound_by,
+                   share=bound_ms / ms["kernel"], tflops=flops / ms["kernel"] / 1e9,
+                   per_kernel_ms=per_kernel, bitwise=bitwise,
+                   errors=errors if name == "forward" else None)
+        rows_out.append(row)
+        log(f"phase 16b: attention {name} at {P4T_ATTENTION_SHAPE}: kernel {ms['kernel']:.4f} ms "
+            f"({row['tflops']:.1f} TFLOP/s of {per_head} n² dh a head), memory-efficient SDPA "
+            f"{ms['library']:.4f} ms, 3xTF32 bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{100 * row['share']:.1f}% of it; {per_kernel} [{card}]")
+    del qkv, g, out, lse, grad, x, lib_out
     return rows_out
 
 

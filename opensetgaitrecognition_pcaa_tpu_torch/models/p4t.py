@@ -54,12 +54,12 @@ are the blocks' dense products (``to_qkv``, ``to_out``, ``ff1``, ``ff2``,
 forward and both gradients: ``ops/p4t_linear.py`` → ``csrc/p4t_linear.cu``,
 on the tensor cores in the exact three-pass TF32 mode of the PointNet
 kernels, f32-accurate where single-pass TF32 stays off,
-``infer/common.py::ieee_f32``); the rest of the transformer is plain
-PyTorch: LayerNorm, GELU and attention through
-``F.scaled_dot_product_attention`` on its memory-efficient backend, whose
-CUTLASS products are f32-accurate (a three-pass TF32 split), and which
-never holds the ``(B, heads, tokens, tokens)`` scores. On the CPU the dense
-products are ``F.linear``.
+``infer/common.py::ieee_f32``), and so is attention, forward and backward
+(``ops/p4t_attention.py`` → ``csrc/p4t_attention.cu``: flash attention in
+the same three-pass mode, which never holds the ``(B, heads, tokens,
+tokens)`` scores); the rest of the transformer is plain PyTorch: LayerNorm
+and GELU. On the CPU the dense products are ``F.linear`` and attention is
+``F.scaled_dot_product_attention``.
 
 Spans (``utils/profiling.py``), under the trainer's ``train.encoder``:
 ``p4t.embed`` ⊃ (``p4t.fps``, ``p4t.ball_query``, ``p4t.tube``,
@@ -70,7 +70,6 @@ under the trainer's ``train.backward``.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Optional, Tuple
 
@@ -80,6 +79,7 @@ from torch import nn
 
 from opensetgaitrecognition_pcaa_tpu_torch.models.layers import TorchDense, _uniform_
 from opensetgaitrecognition_pcaa_tpu_torch.models.pcaa import CGEncoder
+from opensetgaitrecognition_pcaa_tpu_torch.ops.p4t_attention import p4t_attention
 from opensetgaitrecognition_pcaa_tpu_torch.ops.p4t_group import ball_query, furthest_point_sample
 from opensetgaitrecognition_pcaa_tpu_torch.ops.p4t_linear import p4t_linear
 from opensetgaitrecognition_pcaa_tpu_torch.ops.p4t_tube import MAX_SAMPLES, tube_embed
@@ -134,16 +134,6 @@ def _layer_norm(dim: int) -> nn.LayerNorm:
     return nn.LayerNorm(dim, eps=LN_EPS)
 
 
-def _attention_backend(device: torch.device):
-    """The memory-efficient backend on the card (the module docstring); the
-    CPU's default elsewhere."""
-    if device.type != "cuda":
-        return contextlib.nullcontext()
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-
-    return sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION)
-
-
 class Block(nn.Module):
     """One pre-norm block of P4Transformer's ``Transformer``."""
 
@@ -161,13 +151,8 @@ class Block(nn.Module):
         self.ff2 = TorchDense(mlp_dim, dim, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, n, _ = x.shape
-        qkv = p4t_linear(self.norm1(x), self.to_qkv.weight).view(b, n, 3, self.heads,
-                                                                 self.dim_head)
-        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)               # (B, heads, n, dh)
-        with _attention_backend(x.device):
-            a = F.scaled_dot_product_attention(q, k, v)
-        a = a.transpose(1, 2).reshape(b, n, self.heads * self.dim_head)
+        qkv = p4t_linear(self.norm1(x), self.to_qkv.weight)          # (B, n, 3·heads·dh)
+        a = p4t_attention(qkv, self.heads, self.dim_head)             # (B, n, heads·dh)
         # p4t_linear in place of each layer's forward, which is F.linear at
         # the f32 and single device the encoder trains at
         x = x + F.gelu(p4t_linear(a, self.to_out.weight, self.to_out.bias))

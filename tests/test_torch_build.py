@@ -124,9 +124,9 @@ def test_eval_kernels_keep_names_the_benchmark_finds(part, kernels):
 
 # The Hopper primitives, each defined once, in hopper.cuh.
 _HOPPER_DEVICE = {"smem_addr", "mbar_init", "mbar_expect_tx", "mbar_arrive", "mbar_wait",
-                  "tma_load", "ldmatrix_x4", "desc_sw128", "wgmma_fence", "wgmma_commit",
+                  "tma_load", "tma_load_3d", "ldmatrix_x4", "desc_sw128", "wgmma_fence", "wgmma_commit",
                   "wgmma_wait", "expm1_nonpositive", "elu"}
-_HOPPER_HOST = {"encode_tiled", "make_map"}
+_HOPPER_HOST = {"encode_tiled", "make_map", "make_map_3d"}
 # each wgmma engine's own: its MMA shape and its producer
 _PER_ENGINE = {"wgmma_rs", "produce"}
 
@@ -137,7 +137,8 @@ def test_hopper_primitives_are_defined_once():
     shape and producer), the primitives are hopper.cuh's, no other source
     builds a tensor map, and hopper.cuh defines no kernel: a kernel there
     would carry no name fragment of the source that launches it."""
-    sources = ["hopper.cuh", "tf32x3_wgmma.cuh", "pointnet_train.cu", "p4t_linear.cu"]
+    sources = ["hopper.cuh", "tf32x3_wgmma.cuh", "pointnet_train.cu", "p4t_linear.cu",
+               "p4t_attention.cu"]
     where = {}
     for path in sources:
         text = (_build.SRC_DIR / path).read_text()
@@ -193,6 +194,8 @@ def test_a_cached_library_brings_back_its_build_log(tmp_path, monkeypatch):
     ("p4t_group", {"p4t_fps_kernel", "p4t_ball_query_kernel"}),
     ("p4t_tube", {"p4t_tube_fwd_kernel", "p4t_tube_bwd_kernel", "p4t_tube_reduce_kernel"}),
     ("p4t_linear", {"p4t_linear_wgrad_kernel", "p4t_linear_reduce_kernel"}),
+    ("p4t_attention", {"p4t_attention_fwd_kernel", "p4t_attention_delta_kernel",
+                       "p4t_attention_dkdv_kernel", "p4t_attention_dq_kernel"}),
 ])
 def test_p4t_kernels_keep_names_the_benchmark_finds(part, kernels):
     """Every kernel of a P4Transformer source carries a name fragment of its
@@ -216,3 +219,16 @@ def test_p4t_linear_engine_launches_carry_the_part_name():
     tags = re.findall(r"tw::split_planes<(\w+),", text)
     assert len(tags) == 2 and all("p4t_linear" in t for t in tags), tags
     assert _headers("p4t_linear") == ["tf32x3_wgmma.cuh", "hopper.cuh", "tf32x3.cuh"]
+
+
+def test_p4t_attention_builds_on_the_primitives_alone():
+    """Attention's kernels take the Hopper primitives from hopper.cuh and the
+    split from tf32x3.cuh, and not the GEMM engine: no kernel of another
+    part is compiled into its library, and every name of its own holds
+    ``p4t_attention`` and no other part's fragment."""
+    assert _headers("p4t_attention") == ["hopper.cuh", "tf32x3.cuh"]
+    names = _kernel_names((_build.SRC_DIR / "p4t_attention.cu").read_text())
+    others = {f for part, frags in tracing.PORT_KERNELS.items() if part != "p4t_attention"
+              for f in frags}
+    for name in names:
+        assert "p4t_attention" in name and not any(f in name.lower() for f in others), name
