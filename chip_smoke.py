@@ -229,6 +229,19 @@ with seeded random weights and seeded crop files. Phases:
    single-pass TF32 fails, bitwise across two calls, the forward and the
    backward timed against memory-efficient SDPA (``library_ms``, the
    yardstick) beside their 3xTF32 bounds.
+17. the DGCNN kernels (``csrc/dgcnn_knn.cu``, ``csrc/dgcnn_edge.cu``) at
+   the shapes of the benchmark cell ``pcaa_v4_dgcnn.train_b16`` (480 frames
+   of 150 points, k 20, widths 64, 64, 128, 256) on the benchmark's
+   synthetic crops through a seeded encoder: each layer's graph bitwise to
+   the plain kNN; each layer's edge pass, forward and backward, against its
+   plain version and against the published edge form in f64 (beside plain
+   f32's error on the same inputs); each kernel timed plain, kernel,
+   kernel, plain by CUDA events beside its bound; the encoder's forward and
+   backward through the kernels and through the plain published form
+   (``benchmark/reference/pcaa_v4_dgcnn.py``), each with its peak memory;
+   then one training step of the cell's model (``build_pcaa(...,
+   encoder=DGCNNSpec())``, ``make_epoch_fns``) with the launch counts at 0
+   (4 graphs; each layer's edge pass 3 launches forward and 4 backward).
 
 It exits non-zero, with no result line, when there is no CUDA card or a
 phase fails. The line before the last is the per-kernel JSON record (its
@@ -261,8 +274,8 @@ and runs phase 7a's timing, for comparing trees of the port in one call;
 ``--codec-timing`` times the run-folder codec alone the same way, and
 ``--pointnet-bf16-timing`` phase 11a's bf16 layer and pool timing, and
 ``--pointnet-infer-timing`` phase 2 (the eval PointNet kernel's checks
-and timings) and phase 4's serving call on a seeded encoder, and ``--p4t``
-phase 16 alone.
+and timings) and phase 4's serving call on a seeded encoder, ``--p4t``
+phase 16 alone, and ``--dgcnn`` phase 17 alone.
 ``--mesh-nccl`` runs phase 14's runs on a machine with 4 cards, with
 NCCL: V4 at DP 4 and DP 2 x MP 2, OR-CED at DP 2 x MP 2.
 ``--grid-cards`` times a grid chunk of GRID_CARD_RUNS V4 runs over every
@@ -5018,6 +5031,180 @@ def pointnet_infer_timing() -> int:
     return 0
 
 
+DGCNN_CELL = "pcaa_v4_dgcnn.train_b16"
+
+
+def published_edge_error(layer, h, spec) -> dict:
+    """One EdgeConv layer's output through the kernels and through the plain
+    published edge form in f32, each against that form in f64, on the same
+    features and the program's graph: the largest error over the f64
+    output's largest magnitude."""
+    import torch
+
+    from benchmark.reference import pcaa_v4_dgcnn as ref
+
+    with torch.no_grad():
+        idx = layer.graph(h)
+        y = layer(h)
+        p = {"l.weight": layer.weight, "l.norm.scale": layer.norm.scale,
+             "l.norm.bias": layer.norm.bias}
+        s = {"slope": spec.slope, "bn_eps": spec.bn_eps}
+        y32 = ref.edge_conv(p, "l", h, idx, s)
+        y64 = ref.edge_conv({k: v.double() for k, v in p.items()}, "l", h.double(), idx, s)
+    scale = float(y64.abs().max())
+    return {"kernels": float((y.double() - y64).abs().max()) / scale,
+            "plain_f32": float((y32.double() - y64).abs().max()) / scale}
+
+
+def dgcnn_phase(card: str) -> None:
+    """Phase 17 (the module docstring); one JSON line of the kernels' rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from benchmark import harness, traffic
+    from benchmark.cells import train_pcaa_dgcnn as dgcnn_cell
+    from benchmark.reference import model as ref_model
+    from benchmark.reference import pcaa_v4_dgcnn as ref
+    from opensetgaitrecognition_pcaa_tpu_torch.config import VARIATION
+    from opensetgaitrecognition_pcaa_tpu_torch.infer.common import ieee_f32
+    from opensetgaitrecognition_pcaa_tpu_torch.models.dgcnn import DGCNNEncoder
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import _build
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import dgcnn_edge as de
+    from opensetgaitrecognition_pcaa_tpu_torch.ops import dgcnn_knn as dk
+    from opensetgaitrecognition_pcaa_tpu_torch.train.pcaa import (
+        VARIANTS,
+        build_pcaa,
+        make_epoch_fns,
+    )
+
+    t_phase = time.perf_counter()
+    ieee_f32()
+    _build.load_libraries(("dgcnn_knn", "dgcnn_edge"))
+    for name in ("dgcnn_knn", "dgcnn_edge"):
+        for line in _build.BUILD_LOGS.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  nvcc {name}: {line.strip()}")
+    cell = harness.load_context(DGCNN_CELL, SEED, "cuda")
+    spec = dgcnn_cell.spec(cell)
+    crops, labels = traffic.crops(P4T_MIX, P4T_DIMS, SEED)
+    x = torch.from_numpy(crops[:16]).cuda().contiguous()
+    enc = DGCNNEncoder(6, spec, use_projection_head=True,
+                       generator=torch.Generator().manual_seed(SEED)).cuda()
+    inputs = []
+    hooks = [layer.graph.register_forward_hook(lambda m, i, o: inputs.append(i[0].detach()))
+             for layer in enc.edges]
+    with torch.no_grad():
+        enc(x)
+    for hook in hooks:
+        hook.remove()
+    for i, h in enumerate(inputs):
+        assert torch.equal(dk.dgcnn_knn(h, spec.k), dk.knn_ref(h, spec.k)), f"graph {i}"
+    log(f"phase 17: the 4 layers' graphs bitwise to the plain kNN at {tuple(inputs[0].shape[:2])}"
+        f", k {spec.k}, inputs of {[h.shape[-1] for h in inputs]} channels [{card}]")
+
+    rows_out, errors = [], []
+    frames, n, k = inputs[0].shape[0], inputs[0].shape[1], spec.k
+    knn_ops = harness.metric_reader("dgcnn_knn_roofline").__globals__["frame_ops"]
+    for i, (layer, h) in enumerate(zip(enc.edges, inputs)):
+        c, o = h.shape[-1], layer.weight.shape[0]
+        errors.append(published_edge_error(layer, h, spec))
+        idx = dk.dgcnn_knn(h, k)
+        w_a, w_b = layer.weight[:, :c], layer.weight[:, c:]
+        ab = F.linear(h, torch.cat([w_b - w_a, w_a])).detach().requires_grad_()
+        norm = layer.norm
+        args = (norm.scale.detach(), norm.bias.detach(), norm.mean, norm.var)
+        y, mean, var = de.edge_conv(ab, idx, *args, True)
+        dy = torch.randn(y.shape, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(SEED + i))
+        d_ab = torch.autograd.grad(y, ab, dy, retain_graph=True)[0]
+        with torch.no_grad():
+            ext, slot, pm, pv = de.edge_forward_ref(ab, idx, args[0], True)
+            want = de.edge_backward_ref(dy, ab, idx, ext, slot, mean, var, args[0], args[1],
+                                        spec.bn_eps, spec.slope, True)[0]
+        y_out = y.detach()
+        fwd_err = float((y_out - de.edge_out_ref(ext, pm, pv, args[0], args[1], spec.bn_eps,
+                                                 spec.slope)).abs().max() / y_out.abs().max())
+        bwd_err = float((d_ab - want).abs().max() / want.abs().max())
+        assert fwd_err < 1e-5 and bwd_err < 1e-4, (i, fwd_err, bwd_err)
+        points, edges = frames * n, frames * n * k
+        fns = {
+            "dgcnn_knn": (lambda: dk.dgcnn_knn(h, k), lambda: dk.knn_ref(h, k),
+                          bound(frames * knn_ops(n, c, k), points * (4 * c + 8 * k))),
+            "dgcnn_edge forward": (
+                lambda: de.edge_conv(ab.detach(), idx, *args, True),
+                lambda: de.edge_out_ref(*de.edge_forward_ref(ab.detach(), idx, args[0], True)[:1],
+                                        pm, pv, args[0], args[1], spec.bn_eps, spec.slope),
+                bound(5 * edges * o, 4 * points * o * 3 + 8 * edges)),
+            "dgcnn_edge backward": (
+                lambda: torch.autograd.grad(y, ab, dy, retain_graph=True),
+                lambda: de.edge_backward_ref(dy, ab.detach(), idx, ext, slot, mean, var, args[0],
+                                             args[1], spec.bn_eps, spec.slope, True),
+                bound(2 * edges * o, 4 * points * o * 5 + 8 * edges)),
+        }
+        for name, (kernel, plain, (bound_ms, bound_by)) in fns.items():
+            ms = alternate({"plain": plain, "kernel": kernel},
+                           ("plain", "kernel", "kernel", "plain"), 10)
+            row = dict(kernel=name, layer=i + 1, channels=(c, o), ms=ms["kernel"],
+                       plain_ms=ms["plain"], bound_ms=bound_ms, bound_by=bound_by,
+                       share=bound_ms / ms["kernel"])
+            rows_out.append(row)
+            log(f"phase 17: layer {i + 1} ({c} -> {o}) {name}: kernel {ms['kernel']:.4f} ms, "
+                f"plain {ms['plain']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+                f"{100 * row['share']:.1f}% of it [{card}]")
+        log(f"phase 17: layer {i + 1} edge pass against plain: forward {fwd_err:.2e}, backward "
+            f"{bwd_err:.2e}; against the published form in f64: kernels "
+            f"{errors[-1]['kernels']:.2e}, plain f32 {errors[-1]['plain_f32']:.2e} [{card}]")
+        del ab, y, d_ab, ext, slot
+
+    # the encoder's forward and backward: kernels against the plain published form
+    params = {"encoder." + k: v for k, v in enc.named_parameters()}
+    dims = cell.dims
+
+    def program():
+        logits, fv = enc(x)
+        torch.autograd.grad(logits.sum() + fv.sum(), list(enc.parameters()))
+
+    def published():
+        p = {k: v.detach().requires_grad_() for k, v in params.items()}
+        logits, fv = ref.encoder(p, x, dims)
+        torch.autograd.grad(logits.sum() + fv.sum(), list(p.values()))
+
+    steps = {}
+    ref_model.exact_f32(True)
+    for name, fn in (("program", program), ("published", published)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = cuda_ms(fn, 3)
+        steps[name] = {"ms": ms, "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+        log(f"phase 17: the DGCNN encoder at B 16 ({frames} frames), forward and backward, "
+            f"{name}: {ms:.2f} ms, peak {steps[name]['peak_gb']:.2f} GB above the "
+            f"{base / 1e9:.2f} GB held before it [{card}]")
+    del enc, inputs
+
+    # the launches of one training step of the cell's model on the main path
+    cfg = dgcnn_cell.config(cell)
+    variant = dataclasses.replace(VARIANTS[VARIATION.V4], use_disc_head=True)
+    mods, state = build_pcaa(cfg, variant, device="cuda", encoder=spec)
+    train_epoch = make_epoch_fns(mods, cfg)[0]
+    all_x = torch.from_numpy(crops).cuda()
+    all_y = torch.from_numpy(labels).cuda()
+    dk.dgcnn_knn.launches = de.edge_conv.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    state, m = train_epoch(state, all_x, all_y, torch.arange(16)[None])
+    torch.cuda.synchronize()
+    launches = {"knn": dk.dgcnn_knn.launches, "edge": de.edge_conv.launches}
+    assert launches == {"knn": 4, "edge": 28}, launches
+    log(f"phase 17: one make_epoch_fns step of {DGCNN_CELL}'s model at B 16: launches "
+        f"{launches}, losses {[round(float(v[0]), 5) for v in m.values()]}, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
+    del mods, state
+    log(json.dumps({"dgcnn_kernels": rows_out, "published_errors": errors,
+                    "encoder_fwd_bwd": steps, "launches": launches}))
+    log(f"phase 17: {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -5038,6 +5225,9 @@ def main() -> int:
         return precision_gate()
     if sys.argv[1:] == ["--p4t"]:
         p4t_phase(card_name())
+        return 0
+    if sys.argv[1:] == ["--dgcnn"]:
+        dgcnn_phase(card_name())
         return 0
     if sys.argv[1:] == ["--mesh-nccl"]:
         return mesh_nccl()
@@ -5276,6 +5466,9 @@ def main() -> int:
 
     # --- 16. the P4Transformer kernels ------------------------------------------------------
     p4t_phase(card)
+
+    # --- 17. the DGCNN kernels ------------------------------------------------------------------
+    dgcnn_phase(card)
 
     checks["infer"] = dict(err=max_err, ms=pn_ms["kernel"], plain_ms=pn_ms["plain"],
                            library_ms=None, **pn_bound)

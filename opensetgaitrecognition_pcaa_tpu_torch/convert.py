@@ -167,12 +167,14 @@ def _encoder_entries_of(state_dict: Dict[str, torch.Tensor]) -> Iterator[_Entry]
 
 def encoder_variables(state_dict: Dict[str, torch.Tensor]) -> Dict:
     """The port's ``CGEncoder`` or ``ORCEDEncoder`` state_dict → JAX
-    variables (numpy leaves); ``ValueError`` for a P4Transformer encoder's
-    (``models/p4t.py``), which the JAX package has no tree for."""
-    if any(k.startswith("tube.") for k in state_dict):
-        raise ValueError("a P4Transformer encoder has no JAX tree: its run folder, resume state "
-                         "and export are not written (train it through build_pcaa(..., "
-                         "encoder=P4TSpec()) and make_epoch_fns)")
+    variables (numpy leaves); ``ValueError`` for any other encoder's, such
+    as a P4Transformer or DGCNN encoder's (``models/p4t.py``,
+    ``models/dgcnn.py``): without ``backbone.`` keys the JAX package has no
+    tree for it."""
+    if not any(k.startswith("backbone.") for k in state_dict):
+        raise ValueError("an encoder other than the PointNet encoder (no backbone.* keys) has no "
+                         "JAX tree: its run folder, resume state and export are not written "
+                         "(train it through build_pcaa(..., encoder=...) and make_epoch_fns)")
     return _to_variables(state_dict, _encoder_entries_of(state_dict))
 
 

@@ -28,8 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from opensetgaitrecognition_pcaa_tpu_torch.models.orced import ORCEDEncoder, reparametrize
-from opensetgaitrecognition_pcaa_tpu_torch.models.p4t import refuse_p4t
-from opensetgaitrecognition_pcaa_tpu_torch.models.pcaa import CGEncoder
+from opensetgaitrecognition_pcaa_tpu_torch.models.pcaa import CGEncoder, refuse_other_encoders
 from opensetgaitrecognition_pcaa_tpu_torch.ops.pointnet_infer import (
     fold_batchnorm,
     folded_pointnet_params,
@@ -49,7 +48,7 @@ def _pool(use_kernel: bool) -> Pool:
 def _backbone_eval(encoder: Union[CGEncoder, ORCEDEncoder], x: torch.Tensor,
                    pool: Pool) -> torch.Tensor:
     """``(B, T, N, C) -> (B, filters[-1])`` with BatchNorm folded."""
-    refuse_p4t(encoder, "open-set inference and serving")
+    refuse_other_encoders(encoder, "open-set inference and serving")
     backbone = encoder.backbone
     folded = folded_pointnet_params(backbone.pointnet)
     h = pool(x.float().contiguous(), folded)  # (B, T, D)

@@ -48,12 +48,17 @@ class TorchBatchNorm(nn.Module):
                 n *= self.mesh.dp
                 mean = self.mesh.sum_data(xf.sum(dim=dims)) / n
                 var = self.mesh.sum_data(((xf - mean) ** 2).sum(dim=dims)) / n
-            with torch.no_grad():
-                m = self.momentum
-                unbiased = var * (n / max(n - 1, 1))
-                self.mean.copy_((1.0 - m) * self.mean + m * mean)
-                self.var.copy_((1.0 - m) * self.var + m * unbiased)
+            self.update_running(mean, var, n)
         else:
             mean, var = self.mean, self.var
         inv = torch.reciprocal(torch.sqrt(var + self.eps))
         return ((xf - mean) * (inv * self.scale) + self.bias).to(x.dtype)
+
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor, n: int) -> None:
+        """Move the running estimates by the momentum towards a batch's mean
+        and the unbiased variance of its ``n`` samples (``var`` biased)."""
+        m = self.momentum
+        unbiased = var * (n / max(n - 1, 1))
+        self.mean.copy_((1.0 - m) * self.mean + m * mean)
+        self.var.copy_((1.0 - m) * self.var + m * unbiased)

@@ -71,7 +71,7 @@ under the trainer's ``train.backward``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import ClassVar, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -94,6 +94,7 @@ class P4TSpec:
     settings (``spatial_stride`` 2 for a 150-point radar frame, the module
     docstring)."""
 
+    title: ClassVar[str] = "P4Transformer"
     radius: float = 0.7
     nsamples: int = 32
     spatial_stride: int = 2
@@ -241,12 +242,3 @@ class P4TEncoder(nn.Module):
                 h = block(h)
         return self.norm(h.amax(dim=1))
 
-
-def refuse_p4t(encoder: nn.Module, what: str) -> None:
-    """``ValueError`` naming ``what`` where ``encoder`` is a P4Transformer
-    encoder, which the JAX package's trees, run folders and the eval
-    PointNet path do not hold."""
-    if isinstance(encoder, P4TEncoder):
-        raise ValueError(f"{what} takes the PointNet encoder (CGEncoder); a P4Transformer "
-                         f"encoder has no JAX tree, run folder or eval kernel: train it through "
-                         f"build_pcaa(..., encoder=P4TSpec()) and make_epoch_fns")

@@ -116,3 +116,15 @@ class ProjectionHead(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.elu(self.dense(x))
+
+
+def refuse_other_encoders(encoder: nn.Module, what: str) -> None:
+    """``ValueError`` naming ``what`` where ``encoder`` is not a PointNet
+    encoder (its ``backbone`` a ``GaitBackbone``): an encoder built from a
+    spec (``P4TSpec``, ``DGCNNSpec``, named by the spec's ``title``), which
+    the JAX package's trees, run folders and the eval PointNet path do not
+    hold."""
+    if not isinstance(getattr(encoder, "backbone", None), GaitBackbone):
+        raise ValueError(f"{what} takes the PointNet encoder (CGEncoder); a {encoder.spec.title} "
+                         f"encoder has no JAX tree, run folder or eval kernel: train it through "
+                         f"build_pcaa(..., encoder=...) and make_epoch_fns")

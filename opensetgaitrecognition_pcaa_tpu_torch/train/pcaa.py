@@ -58,13 +58,14 @@ loop runs an eager step. Kept semantics of the JAX step:
   run's.
 
 - ``build_pcaa(..., encoder=P4TSpec())`` puts a P4Transformer encoder
-  (``models/p4t.py``) in the PointNet encoder's place, under the same name
-  and heads; the step calls it as it calls ``CGEncoder``, and
-  ``FUSED_ADAM`` takes its 2-D leaves of at least 2^21 elements too. It
+  (``models/p4t.py``), and ``encoder=DGCNNSpec()`` a DGCNN encoder
+  (``models/dgcnn.py``), in the PointNet encoder's place, under the same
+  name and heads; the step calls it as it calls ``CGEncoder``, and
+  ``FUSED_ADAM`` takes its 2-D leaves of at least 2^21 elements too. Either
   trains on one device at f32 compute without ``FUSED_POINTNET``
   (``_check_supported``), and writes no run folder: ``train_pcaa`` builds
-  the PointNet encoder only, and ``convert.py`` and inference refuse a
-  P4Transformer encoder (``models/p4t.py::refuse_p4t``).
+  the PointNet encoder only, and ``convert.py`` and inference refuse any
+  other (``models/pcaa.py::refuse_other_encoders``).
 
 - ``FACTORED_ADAM_NU`` takes JAX ``adam_factored`` for both Adam states
   (``train/optim.py``: a rank-1 second moment on 2-D leaves of at least
@@ -112,6 +113,7 @@ from opensetgaitrecognition_pcaa_tpu_torch.data.dataset import (
 )
 from opensetgaitrecognition_pcaa_tpu_torch.infer.common import ieee_f32
 from opensetgaitrecognition_pcaa_tpu_torch.models.layers import TorchDense
+from opensetgaitrecognition_pcaa_tpu_torch.models.dgcnn import DGCNNEncoder, DGCNNSpec
 from opensetgaitrecognition_pcaa_tpu_torch.models.mean_learner import GaussianMeanLearner
 from opensetgaitrecognition_pcaa_tpu_torch.models.p4t import P4TEncoder, P4TSpec
 from opensetgaitrecognition_pcaa_tpu_torch.models.pcaa import (
@@ -161,6 +163,8 @@ from opensetgaitrecognition_pcaa_tpu_torch.train.run_folder import (
 from opensetgaitrecognition_pcaa_tpu_torch.utils.profiling import count, span
 
 Device = Union[str, torch.device]
+# an encoder in the PointNet encoder's place (None: the PointNet encoder)
+EncoderSpec = Optional[Union[P4TSpec, DGCNNSpec]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -277,24 +281,28 @@ def adam_dtypes(cfg: Config) -> Dict:
                 optax_mu=not (cfg.BF16_ADAM_NU or cfg.FUSED_ADAM))
 
 
-def _check_supported(cfg: Config, spec: VariantSpec, encoder: Optional[P4TSpec] = None) -> None:
+def _check_supported(cfg: Config, spec: VariantSpec, encoder: EncoderSpec = None) -> None:
     """JAX ``build_pcaa``'s refusals, with its words, and what a
-    P4Transformer ``encoder`` does not carry."""
+    P4Transformer or DGCNN ``encoder`` does not carry."""
     if encoder is not None:
+        title = encoder.title
         if cfg.FUSED_POINTNET:
-            raise ValueError("FUSED_POINTNET fuses the PointNet encoder's layers; a P4Transformer "
-                             "encoder has none")
+            raise ValueError(f"FUSED_POINTNET fuses the PointNet encoder's layers; a {title} "
+                             f"encoder has none")
         if cfg.COMPUTE_DTYPE == "bfloat16":
-            raise ValueError("the P4Transformer encoder trains at f32 compute: its bf16 casts "
-                             "are not written")
+            raise ValueError(f"the {title} encoder trains at f32 compute: its bf16 casts are not "
+                             f"written")
         if cfg.DP_DEVICES * cfg.MP_DEVICES > 1:
-            raise ValueError("the P4Transformer encoder trains on one device: the mesh's "
-                             "sharding covers the PointNet encoder's layers only")
-        if cfg.NFEATURES != 4:
-            raise ValueError(f"the P4Transformer encoder takes (x, y, z, Doppler) points, "
-                             f"NFEATURES 4, got {cfg.NFEATURES}")
-        encoder.frames(cfg.NSTEPS)
-        encoder.anchors(cfg.NMAX)
+            raise ValueError(f"the {title} encoder trains on one device: the mesh's sharding "
+                             f"covers the PointNet encoder's layers only")
+        if isinstance(encoder, P4TSpec):
+            if cfg.NFEATURES != 4:
+                raise ValueError(f"the P4Transformer encoder takes (x, y, z, Doppler) points, "
+                                 f"NFEATURES 4, got {cfg.NFEATURES}")
+            encoder.frames(cfg.NSTEPS)
+            encoder.anchors(cfg.NMAX)
+        else:
+            encoder.check(cfg.NMAX)
     if spec.use_disc_head and spec.name != "V4":
         raise ValueError(f"variant {spec.name}: the discriminator projection head is V4-only")
     if cfg.FACTORED_ADAM_NU and cfg.FUSED_ADAM:
@@ -320,11 +328,12 @@ class PCAAModules(nn.Module):
     frozen mean learner (no Adam; JAX ``ml_params`` and
     ``batch_stats["mean_learner"]``), empty for the other variants. Keys
     match the JAX package's ``params_g`` / ``params_d`` trees. ``encoder``
-    (a ``P4TSpec``) builds a P4Transformer encoder in the PointNet
-    encoder's place (``models/p4t.py``)."""
+    (a ``P4TSpec`` or a ``DGCNNSpec``) builds a P4Transformer or DGCNN
+    encoder in the PointNet encoder's place (``models/p4t.py``,
+    ``models/dgcnn.py``)."""
 
     def __init__(self, cfg: Config, spec: VariantSpec, generator: torch.Generator,
-                 encoder: Optional[P4TSpec] = None):
+                 encoder: EncoderSpec = None):
         super().__init__()
         n, latent = cfg.n_classes, cfg.SUP_LATENT_DIM
         dtype = compute_dtype(cfg)  # the encoder and the decoder only, as in JAX
@@ -335,9 +344,13 @@ class PCAAModules(nn.Module):
                 use_projection_head=spec.use_enc_head, generator=generator,
                 compute_dtype=dtype,
             )
-        else:
+        elif isinstance(encoder, P4TSpec):
             enc = P4TEncoder(n, encoder, sup_latent_dim=latent,
                              use_projection_head=spec.use_enc_head, generator=generator)
+        else:
+            enc = DGCNNEncoder(n, encoder, in_features=cfg.NFEATURES, sup_latent_dim=latent,
+                               dtc_filters=tuple(cfg.DTC_FILTERS),
+                               use_projection_head=spec.use_enc_head, generator=generator)
         g = {"encoder": enc}
         if spec.use_dec_head:
             g["dec_head"] = ProjectionHead(latent, 2 * latent, generator)
@@ -371,11 +384,12 @@ class PCAAState:
 
 
 def build_pcaa(cfg: Config, spec: VariantSpec, *, device: Device = "cuda",
-               encoder: Optional[P4TSpec] = None) -> Tuple[PCAAModules, PCAAState]:
+               encoder: EncoderSpec = None) -> Tuple[PCAAModules, PCAAState]:
     """Modules with torch's default init drawn from ``cfg.SEED``, zero Adam
     states, the fixed centroids and, with ``BF16_WEIGHT_CACHE``, the
-    decoder's weight copies, on ``device``; with ``encoder`` (a
-    ``P4TSpec``), a P4Transformer encoder in the PointNet encoder's place."""
+    decoder's weight copies, on ``device``; with ``encoder`` (a ``P4TSpec``
+    or a ``DGCNNSpec``), a P4Transformer or DGCNN encoder in the PointNet
+    encoder's place."""
     _check_supported(cfg, spec, encoder)
     mods = PCAAModules(cfg, spec, torch.Generator().manual_seed(cfg.SEED), encoder).to(device)
     # fixed prior centroids (reference utils.py:216-251, seed 42)
@@ -763,9 +777,9 @@ def train_pcaa(
         if the port wrote one (``ValueError`` if another program did).
     :param device: the CUDA card unless the caller asks for the CPU.
 
-    It trains the PointNet encoder only: a P4Transformer encoder has no
-    JAX tree to write, and trains through ``build_pcaa(..., encoder=
-    P4TSpec())`` and ``make_epoch_fns``.
+    It trains the PointNet encoder only: a P4Transformer or DGCNN encoder
+    has no JAX tree to write, and trains through ``build_pcaa(...,
+    encoder=P4TSpec())`` or ``encoder=DGCNNSpec()`` and ``make_epoch_fns``.
 
     With ``DP_DEVICES × MP_DEVICES > 1`` every rank of an initialised
     ``torch.distributed`` world of that size calls it (``parallel/mesh.py::

@@ -232,3 +232,22 @@ def test_p4t_attention_builds_on_the_primitives_alone():
               for f in frags}
     for name in names:
         assert "p4t_attention" in name and not any(f in name.lower() for f in others), name
+
+
+@pytest.mark.parametrize("part,kernels", [
+    ("dgcnn_knn", {"dgcnn_knn_select"}),
+    ("dgcnn_edge", {"dgcnn_edge_fwd", "dgcnn_edge_moments", "dgcnn_edge_out",
+                    "dgcnn_edge_bwd_prep", "dgcnn_edge_rev", "dgcnn_edge_bwd"}),
+])
+def test_dgcnn_kernels_keep_names_the_benchmark_finds(part, kernels):
+    """Every kernel of a DGCNN source carries its benchmark part's name
+    fragment (``benchmark/kernels/<part>.json``) and no other part's, and
+    the sources include no header: nothing of another part is compiled in."""
+    text = (_build.SRC_DIR / f"{part}.cu").read_text()
+    names = _kernel_names(text)
+    assert {n.split("::")[-1] for n in names} == kernels, names
+    assert _headers(part) == []
+    others = {f for p, frags in tracing.PORT_KERNELS.items() if p != part for f in frags}
+    for name in names:
+        assert any(f in name.lower() for f in tracing.PORT_KERNELS[part]), name
+        assert not any(f in name.lower() for f in others), name
